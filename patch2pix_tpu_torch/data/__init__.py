@@ -1,0 +1,1 @@
+"""patch2pix_tpu_torch.data."""
