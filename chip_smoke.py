@@ -5,13 +5,15 @@
 
 Phases, each fatal on failure:
 
-  1. print the card's name and power limit, build the three CUDA kernels
+  1. print the card's name and power limit, build the five CUDA sources
      (one ``nvcc`` per source, in parallel) and print the build time;
-  2. for each kernel (B1 tap_sum, B2 corr_pool, B3 expand_scale_pair), at
-     the shapes of the main path (change_stride, 1024x768, B=2, bf16) and
-     in float32: hold the kernel against its plain PyTorch version on the
-     card, time kernel, plain version and library yardstick, and compute
-     the bound from the bytes and operations this run's inputs need;
+  2. for each kernel (B1 tap_sum, B2 corr_pool, B3 expand_scale_pair, B4
+     conv4d_small, B5 fused_fine_head, B7 expand_level), at the shapes of
+     its path (change_stride, 1024x768, B=2: the NCN volume, M = 2400
+     proposals, F = 512), in bf16 and in float32: hold the kernel against
+     its plain PyTorch version on the card, time kernel, plain version and
+     library yardstick, and compute the bound from the bytes and
+     operations this run's inputs need;
   3. golden parity in float32 with TF32 off: rebuild the seeded weights
      and reproduce ``tests/fixtures/pipeline_golden_{s16,cs}_1024.npz``
      (identical coarse set, coords 0.05 px, scores 5e-3) — every kernel's
@@ -23,7 +25,18 @@ Phases, each fatal on failure:
      calls each waited for, peak device memory; then, per stride, the
      top device kernels and the device busy share over 3 calls under
      torch.profiler (after the launch counts are read);
-  5. one JSON line of per-kernel numbers, then the result line.
+  5. the conv4d path: a symmetric NeighConsensus with channels (4, 4, 1)
+     in bf16 on the change_stride volume — B4 twice and B1 twice per
+     call, output held against the same NCN with B4's plain version;
+     then one B4 layer's backward through the kernel against the CPU's;
+  6. the fine-head path (the port's ``tools/try_fine_stage.py``): a
+     full-width fine FeatRegressNet, M = 2400 seeded bf16 rows, (M, 5)
+     outputs fused (prolog with B7, B5, fc_head) and unfused (B3,
+     ``forward``), held to the rules below, both timed;
+  7. one JSON line of per-kernel numbers, then the result line.
+
+Each path's launches are counted from zero just before it runs: phase 4
+for B1-B3, phase 5 for B4, phase 6 for B5 and B7.
 
 Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 """
@@ -41,11 +54,25 @@ import torch
 
 from patch2pix_tpu_torch.config import ModelConfig
 from patch2pix_tpu_torch.evaluation.matcher import Matcher
+from patch2pix_tpu_torch.models.ncn import NeighConsensus
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
+from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
+from patch2pix_tpu_torch.ops import conv4d as conv4d_module
+from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
 from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_plain
 from patch2pix_tpu_torch.ops.correlation import l2_normalize
+from patch2pix_tpu_torch.ops.fine_stage import (
+    fused_fine_head,
+    fused_fine_head_plain,
+    fused_fine_stage,
+    head_prolog,
+    segment_weights,
+)
 from patch2pix_tpu_torch.ops.patch_expand import (
+    _window_indices,
+    expand_level,
+    expand_level_plain,
     expand_scale_pair,
     expand_scale_pair_plain,
     output_slice_map,
@@ -68,10 +95,20 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
                 "patch2pix_tpu/ops/corr_pool_pallas.py:126"),
     expand_scale_pair: ("expand_scale_pair", "patch2pix_tpu_torch/csrc/patch_expand.cu",
                         "patch2pix_tpu/ops/patch_expand_pallas.py:436"),
+    conv4d_small: ("conv4d_small", "patch2pix_tpu_torch/csrc/conv4d.cu",
+                   "patch2pix_tpu/ops/conv4d_pallas.py:169"),
+    fused_fine_head: ("fused_fine_head", "patch2pix_tpu_torch/csrc/fine_head.cu",
+                      "patch2pix_tpu/ops/fine_stage_pallas.py:332"),
+    expand_level: ("expand_level", "patch2pix_tpu_torch/csrc/patch_expand.cu",
+                   "tools/try_expand_kernels.py:93"),
 }
 
 # the main path's setting: 1024x768, B=2, fine_cap 1200
 H, W, BATCH, FINE_CAP = 768, 1024, 2, 1200
+PSIZE = 16
+# the change_stride fine stage: (t, C) per pyramid level, regressor width
+LEVELS = ((16, 3), (8, 64), (4, 64), (2, 128))
+F_REG = 512
 
 
 def log(*a):
@@ -105,6 +142,15 @@ def bound(nbytes, flops, dtype):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bf16_ulps(got, want, atol=0.0):
+    """(|got - want| - atol)+ in units of one bf16 ulp of ``want`` (float32
+    tensors holding bf16 values). ``atol`` absorbs the float32 rounding of
+    a sum whose value is small beside its terms, where one bf16 ulp of the
+    value is below the sum's own rounding error."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return ((got - want).abs() - atol).clamp_min(0) / ulp
 
 
 def reset_counts():
@@ -245,19 +291,143 @@ def expand_bf16_mismatch(got, want, levels, psize):
 
 
 def window_bytes(levels, corners, psize, elsize):
-    """Bytes of superblock rows that B3's outputs depend on: for each
-    proposal, side and level, the cells its patch window covers (t or
-    t+1 along each axis, by the corner's alignment), C channels each."""
+    """Bytes of superblock rows that an expansion's outputs depend on:
+    for each proposal, side (corners (y, x) in pairs) and level, the cells
+    its patch window covers (t or t+1 along each axis, by the corner's
+    alignment), C channels each."""
     total = 0
     for t, c in levels:
         ds = psize // t
-        for y0, x0 in (corners[0:2], corners[2:4]):
+        for y0, x0 in zip(corners[0::2], corners[1::2]):
             cells = 1
             for b in (y0, x0):
                 b = b.long().clamp_min(0)
                 cells = cells * ((b + psize - 1) // ds - b // ds + 1)
             total += int(cells.sum()) * c * elsize
     return total
+
+
+def check_conv4d_small(dtype, gen, dev):
+    """B4 at the change_stride NCN volume: a 4->4 layer on (2, 48, 64, 48,
+    64, 4); bf16 in and out (the NCN's intermediate), or float32."""
+    cin = cout = 4
+    dims = (BATCH, H // 16, W // 16, H // 16, W // 16)
+    x = torch.randn(dims + (cin,), generator=gen, device=dev).to(dtype)
+    w = torch.randn((3, 3, 3, 3, cin, cout), generator=gen, device=dev) / (81 * cin) ** 0.5
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    got = conv4d_small(x, w, b, dtype)
+    want = conv4d_small_plain(x, w, b, dtype)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    note = ""
+    if dtype == torch.float32:
+        if not err <= 1e-4:
+            fail(f"conv4d_small f32: max abs err {err} > 1e-4")
+    else:
+        ulps = bf16_ulps(got.float(), want.float(), atol=1e-5)
+        if ulps.max().item() > 1:
+            fail(f"conv4d_small bf16: {int((ulps > 1).sum())} values beyond one bf16 ulp "
+                 f"+ 1e-5")
+        note = f", {int((diff > 0).sum())} of {diff.numel()} values one ulp off"
+    ms = time_ms(lambda: conv4d_small(x, w, b, dtype))
+    plain_ms = time_ms(lambda: conv4d_small_plain(x, w, b, dtype), iters=2, warmup=1)
+    flops = 2 * (x.numel() // cin) * 81 * cin * cout
+    b_ms, b_by = bound(nbytes(x, w, b, got), flops, dtype)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+                shape=f"x {tuple(x.shape)} {dtype} -> 4 channels {got.dtype}{note}")
+
+
+def check_expand_level(dtype, gen, dev):
+    """B7 at the fine stage: M = B*fine_cap, each level of one side (one
+    launch per level; times are for the four together)."""
+    m = BATCH * FINE_CAP
+    rows = [torch.randn((m, 4, t, t * c), generator=gen, device=dev).to(dtype)
+            for t, c in LEVELS]
+    y0, x0 = (torch.randint(0, W + PSIZE, (m,), generator=gen, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    got = [expand_level(r, y0, x0, PSIZE) for r in rows]
+    want = [expand_level_plain(r, y0, x0, PSIZE) for r in rows]
+    # the yardstick: one advanced-indexing gather per level, the indices
+    # made beforehand (not timed)
+    mi = torch.arange(m, device=dev)[:, None, None]
+    gathers = []
+    for r, (t, c) in zip(rows, LEVELS):
+        iy = _window_indices(y0, PSIZE, PSIZE // t)[:, :, None]
+        ix = _window_indices(x0, PSIZE, PSIZE // t)[:, None, :]
+        gathers.append((r.view(m, 2, 2, t, t, c), (mi, iy // t, ix // t, iy % t, ix % t)))
+    lib = [r6[idx] for r6, idx in gathers]
+    torch.cuda.synchronize()
+    for g, w_, l_, (t, c) in zip(got, want, lib, LEVELS):
+        if not (torch.equal(g, w_) and torch.equal(l_, w_)):
+            fail(f"expand_level {dtype} (t={t}, C={c}): not bit-identical")
+    ms = time_ms(lambda: [expand_level(r, y0, x0, PSIZE) for r in rows])
+    plain_ms = time_ms(lambda: [expand_level_plain(r, y0, x0, PSIZE) for r in rows], iters=5)
+    library_ms = time_ms(lambda: [r6[idx] for r6, idx in gathers], iters=5)
+    per_level = [time_ms(lambda r=r: expand_level(r, y0, x0, PSIZE)) for r in rows]
+    rows_bytes = window_bytes(LEVELS, (y0, x0), PSIZE, rows[0].element_size())
+    b_ms, b_by = bound(rows_bytes + nbytes(y0, x0, *got), 0, torch.float32)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms,
+                shape=f"M={m} one side, levels {LEVELS} {dtype}, per level ms "
+                      + "/".join(f"{t:.4f}" for t in per_level)
+                      + f", window reads {rows_bytes / 1e6:.1f} MB")
+
+
+def fine_head_inputs(dtype, gen, dev, m):
+    """Seeded rows, in-range corners and a full-width head's weights."""
+    rows = [[torch.randn((m, 4, t, t * c), generator=gen, device=dev).to(dtype)
+             for t, c in LEVELS] for _ in range(2)]
+    corners = [torch.randint(0, 2 * PSIZE, (m,), generator=gen, device=dev, dtype=torch.int32)
+               for _ in range(4)]
+    cs = [c for _, c in LEVELS]
+    cin = 2 * sum(cs)
+    k0 = torch.randn((3, 3, cin, F_REG), generator=gen, device=dev) * (2 / (9 * cin)) ** 0.5
+    k1 = torch.randn((3, 3, F_REG, F_REG), generator=gen, device=dev) * (2 / (9 * F_REG)) ** 0.5
+    bns = [(torch.rand(F_REG, generator=gen, device=dev) + 0.5,
+            torch.randn(F_REG, generator=gen, device=dev) * 0.1) for _ in range(2)]
+    inv1, inv2, partial0 = head_prolog(rows[0], rows[1], *corners, k0.to(dtype), PSIZE, dtype)
+    return (rows[0][1:], rows[1][1:], *corners, inv1, inv2, partial0,
+            segment_weights(k0, cs, dtype), k1.reshape(9, F_REG, F_REG).to(dtype),
+            bns[0], bns[1], PSIZE, dtype)
+
+
+def check_fine_head(dtype, gen, dev):
+    """B5 at the change_stride fine stage: M = 2400, F = 512."""
+    m = BATCH * FINE_CAP
+    args = fine_head_inputs(dtype, gen, dev, m)
+    got = fused_fine_head(*args)
+    want = fused_fine_head_plain(*args)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    note = ""
+    if dtype == torch.float32:
+        bad = diff > 2e-4 + 2e-4 * want.abs()
+        if bad.any():
+            fail(f"fused_fine_head f32: {int(bad.sum())} values beyond rtol/atol 2e-4 "
+                 f"(max abs err {err})")
+    else:
+        ulps = bf16_ulps(got.float(), want.float(), atol=1e-3)
+        if ulps.max().item() > 2:
+            fail(f"fused_fine_head bf16: {int((ulps > 2).sum())} values beyond two bf16 ulps "
+                 f"+ 1e-3")
+        note = (f", {int((diff > 0).sum())} of {diff.numel()} values differ, "
+                f"{int((ulps > 0).sum())} by more than 1e-3 (max {ulps.max().item():.2f} "
+                f"ulps beyond it)")
+    ms = time_ms(lambda: fused_fine_head(*args), iters=10)
+    plain_ms = time_ms(lambda: fused_fine_head_plain(*args), iters=2, warmup=1)
+    rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0, w0, wc1, bn0, bn1 = args[:13]
+    segs = sum(w.shape[1] for w in w0)
+    flops = 2 * m * (PSIZE // 2) ** 2 * F_REG * 9 * (segs + F_REG)
+    rows_bytes = window_bytes(LEVELS[1:], (y1, x1, y2, x2), PSIZE, rows1[0].element_size())
+    b_ms, b_by = bound(rows_bytes + nbytes(y1, x1, y2, x2, inv1, inv2, partial0, *w0, wc1,
+                                           *bn0, *bn1, got), flops, dtype)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+                shape=f"M={m} levels {LEVELS[1:]} F={F_REG} {dtype}{note}, "
+                      f"{flops / 1e12:.3f} TFLOP")
 
 
 # ------------------------------------------------------------ phase 3/4
@@ -359,6 +529,174 @@ def profile_main_path(tag, call, iters=3):
         log(f"  kernel {us / iters / 1e3:8.3f} ms/call x{n // iters:<4d} {name[:110]}")
 
 
+# ------------------------------------------------------------ phase 5/6
+
+
+class plain_b4:
+    """Within the block, the port's conv4d sends B4's layers to the plain
+    version (the reference the conv4d path is held against)."""
+
+    def __enter__(self):
+        self.saved = conv4d_module.conv4d_small
+        conv4d_module.conv4d_small = conv4d_small_plain
+
+    def __exit__(self, *exc):
+        conv4d_module.conv4d_small = self.saved
+
+
+def seeded_ncn(dev, channels=(4, 4, 1), seed=3):
+    """A symmetric bf16 NeighConsensus with seeded fan-in-scaled weights."""
+    rs = np.random.RandomState(seed)
+    ncn = NeighConsensus(kernel_sizes=(3,) * len(channels), channels=channels,
+                         dtype=torch.bfloat16, device=dev)
+    sd, cin = {}, 1
+    for li, cout in enumerate(channels):
+        w = rs.randn(3, cout, cin, 3, 3, 3) * (2.0 / (81 * cin)) ** 0.5
+        sd[f"conv.{2 * li}.weight"] = torch.from_numpy(w.astype(np.float32))
+        sd[f"conv.{2 * li}.bias"] = torch.from_numpy((rs.randn(cout) * 0.05).astype(np.float32))
+        cin = cout
+    ncn.load_state_dict(sd)
+    return ncn
+
+
+def conv4d_path(dev):
+    """Phase 5: NCN (4, 4, 1) on the change_stride volume, bf16. Rule for
+    the kernel run against the plain-B4 run (the final layer is float32):
+    max abs err <= 2^-4 of max |ref|, and at most 1e-4 of the values off
+    by more than 2^-7 of it (a bf16 rounding flip in B4's output moves
+    the next layer's bf16 z by one ulp at a few cells)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    ncn = seeded_ncn(dev)
+    dims = (BATCH, H // 16, W // 16, H // 16, W // 16)
+    corr = torch.rand(dims, generator=gen, device=dev) * 2 - 1
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        got = ncn(corr)
+    torch.cuda.synchronize()
+    launches = counts()
+    expect = {**{k: 0 for k in launches}, "conv4d_small": 2, "tap_sum": 2}
+    if launches != expect:
+        fail(f"conv4d path launches {launches}, expected {expect}")
+    if got.shape != dims or not torch.isfinite(got).all():
+        fail(f"conv4d path: output {tuple(got.shape)} or non-finite values")
+    with torch.no_grad(), plain_b4():
+        want = ncn(corr)
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    off = int((diff > 2 ** -7 * scale).sum())
+    if not err <= 2 ** -4 * scale or off > 1e-4 * diff.numel():
+        fail(f"conv4d path: max abs err {err} (max |ref| {scale}), {off} values off "
+             f"by more than 2^-7 of it")
+    with torch.no_grad():
+        ms = time_ms(lambda: ncn(corr), iters=5)
+        with plain_b4():
+            plain_ms = time_ms(lambda: ncn(corr), iters=2, warmup=1)
+    log(f"conv4d path [NCN (4, 4, 1) symmetric bf16 on {dims}]: launches per call "
+        f"{launches}; max abs err to the plain-B4 run {err:.3g} (max |ref| {scale:.3g}), "
+        f"{off} of {diff.numel()} values off by more than 2^-7 of it; "
+        f"{ms:.3f} ms per call (plain B4 {plain_ms:.3f} ms)")
+
+    # one B4 layer's backward through the kernel against the CPU's
+    rs = np.random.RandomState(6)
+    x, w, b = (rs.randn(*shape).astype(np.float32) * sc for shape, sc in
+               (((1, 4, 5, 6, 4, 4), 1.0), ((3, 3, 3, 3, 4, 3), 0.1), ((3,), 1.0)))
+    g = torch.from_numpy(rs.randn(1, 4, 5, 6, 4, 3).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        ts = [torch.from_numpy(a).to(d).requires_grad_() for a in (x, w, b)]
+        conv4d_small(*ts).backward(g.to(d))
+        grads.append([t.grad.cpu() for t in ts])
+    berr = max((a - c).abs().max().item() for a, c in zip(grads[1], grads[0]))
+    for a, c, name in zip(grads[1], grads[0], ("dx", "dw", "db")):
+        if ((a - c).abs() > 1e-4 + 1e-5 * c.abs()).any():
+            fail(f"conv4d_small backward: {name} differs from the CPU's (max {berr})")
+    log(f"conv4d_small backward [(1, 4, 5, 6, 4, 4) f32, 4->3]: dx, dw, db against "
+        f"the CPU autograd, max abs err {berr:.3g}")
+    return launches
+
+
+def fine_head_path(dev):
+    """Phase 6: the fine stage of a full-width FeatRegressNet with the
+    seeded ``regress_fine`` weights, fused and unfused. Rules: float32
+    pooled features within rtol/atol 2e-4 of each other; in bf16, against
+    the float32 unfused outputs on the same rows, the fused (M, 5) error
+    is at most twice the unfused one's at the median and the 99th
+    percentile, and at most four times at the maximum."""
+    _, _, sd = load_golden("cs_1024")
+    sub = {k[len("regress_fine."):]: torch.from_numpy(np.asarray(v))
+           for k, v in sd.items() if k.startswith("regress_fine.")}
+    nets = {}
+    for dt in (torch.bfloat16, torch.float32):
+        nets[dt] = FeatRegressNet(feat_dim=sum(c for _, c in LEVELS), dtype=dt, device=dev)
+        nets[dt].load_state_dict(sub)
+        nets[dt].eval()
+    m = BATCH * FINE_CAP
+    rs = np.random.RandomState(7)
+    rows = [[torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
+             .to(dev, torch.bfloat16) for t, c in LEVELS] for _ in range(2)]
+    corners = [torch.from_numpy(rs.randint(0, 2 * PSIZE, (m,)).astype(np.int32)).to(dev)
+               for _ in range(4)]
+    smap = output_slice_map([PSIZE // t for t, _ in LEVELS], [c for _, c in LEVELS], PSIZE)
+
+    def fused(dt):
+        r = [[x.to(dt) for x in side] for side in rows]
+        return fused_fine_stage(nets[dt], r[0], r[1], *corners, PSIZE)
+
+    def unfused(dt):
+        r = [[x.to(dt) for x in side] for side in rows]
+        patches = expand_scale_pair(r[0], r[1], *corners, PSIZE, dt)
+        pooled = nets[dt].pooled(patches, None, slice_map=smap)
+        return pooled, nets[dt].fc_head(pooled)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        fp, fo = fused(torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = counts()
+        reset_counts()
+        up, uo = unfused(torch.bfloat16)
+        torch.cuda.synchronize()
+        unfused_launches = counts()
+        fp32, fo32 = fused(torch.float32)
+        up32, uo32 = unfused(torch.float32)
+        torch.cuda.synchronize()
+    expect = {**{k: 0 for k in launches}, "expand_level": 10, "fused_fine_head": 1}
+    expect_u = {**{k: 0 for k in launches}, "expand_scale_pair": 1}
+    if launches != expect or unfused_launches != expect_u:
+        fail(f"fine-head path launches {launches} / {unfused_launches}, expected "
+             f"{expect} / {expect_u}")
+    for name, t in (("fused", fo), ("unfused", uo), ("fused f32", fo32)):
+        if t.shape != (m, 5) or not torch.isfinite(t).all():
+            fail(f"fine-head path: {name} outputs {tuple(t.shape)} or non-finite")
+    bad = (fp32 - up32).abs() > 2e-4 + 2e-4 * up32.abs()
+    if bad.any():
+        fail(f"fine-head path f32: {int(bad.sum())} pooled values beyond rtol/atol 2e-4 "
+             f"(max abs err {(fp32 - up32).abs().max().item()})")
+    e_f, e_u = (fo.float() - uo32).abs().flatten(), (uo.float() - uo32).abs().flatten()
+    stats = {}
+    for name, q in (("median", 0.5), ("p99", 0.99), ("max", 1.0)):
+        stats[name] = (torch.quantile(e_f, q).item(), torch.quantile(e_u, q).item())
+    limits = {"median": 2, "p99": 2, "max": 4}
+    for name, (a, b) in stats.items():
+        if not a <= limits[name] * b:
+            fail(f"fine-head path bf16: fused {name} error {a} > {limits[name]} x unfused {b}")
+    ms_f = time_ms(lambda: fused(torch.bfloat16), iters=5)
+    ms_u = time_ms(lambda: unfused(torch.bfloat16), iters=5)
+    log(f"fine-head path [M={m}, F={F_REG}, bf16]: launches fused {launches}, unfused "
+        f"{unfused_launches}; f32 pooled fused vs unfused max abs err "
+        f"{(fp32 - up32).abs().max().item():.3g}, (M, 5) {(fo32 - uo32).abs().max().item():.3g}; "
+        f"bf16 (M, 5) error to the f32 unfused outputs, fused / unfused: "
+        + ", ".join(f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in stats.items())
+        + f"; fused - unfused bf16 max {(fo.float() - uo.float()).abs().max().item():.4g}; "
+        f"{ms_f:.3f} ms per call fused (prolog + B5 + fc_head), {ms_u:.3f} ms unfused "
+        f"(B3 + forward)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -385,7 +723,8 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     checks = {tap_sum: check_tap_sum, corr_pool: check_corr_pool,
-              expand_scale_pair: check_expand}
+              expand_scale_pair: check_expand, conv4d_small: check_conv4d_small,
+              fused_fine_head: check_fine_head, expand_level: check_expand_level}
     results = {}
     for fn, check in checks.items():
         name = KERNELS[fn][0]
@@ -418,7 +757,7 @@ def main():
             log(f"golden {tag} [{meta['h']}x{meta['w']} f32] batch {b}: {n} "
                 f"matches, max errs " + " ".join(f"{k} {v:.3g}" for k, v in errs.items()))
         del model
-    golden_counts = counts()
+    golden_counts = {k: counts()[k] for k in ("tap_sum", "corr_pool", "expand_scale_pair")}
     log(f"golden launches: {golden_counts}")
     if min(golden_counts.values()) == 0:
         fail(f"a kernel was not launched by the golden runs: {golden_counts}")
@@ -469,14 +808,16 @@ def main():
             f"{np.median(times):.2f} ms/call of 10 (min {min(times):.2f}, max "
             f"{max(times):.2f}); peak device memory {peak_gb:.2f} GB; valid "
             f"matches per pair {n_valid}; launches per call {per_call[tag]}")
-    main_counts = counts()
+    main_counts = {k: counts()[k] for k in ("tap_sum", "corr_pool", "expand_scale_pair")}
     log(f"main-path launches: {main_counts}")
     if min(main_counts.values()) == 0:
         fail(f"a kernel was not launched on the main path: {main_counts}")
+    # B4, B5 and B7 are off predict_fine: zero launches there
+    off_path = {"conv4d_small": 0, "fused_fine_head": 0, "expand_level": 0}
     expect = {"change_stride (upsample 8)": {"tap_sum": 2, "corr_pool": 1,
-                                             "expand_scale_pair": 2},
+                                             "expand_scale_pair": 2, **off_path},
               "upsample 16": {"tap_sum": 2, "corr_pool": 1,
-                              "expand_scale_pair": 1}}
+                              "expand_scale_pair": 1, **off_path}}
     if per_call != expect:
         fail(f"launches per call {per_call}, expected {expect}")
     for cs, model in models.items():
@@ -484,10 +825,20 @@ def main():
             "change_stride (upsample 8)" if cs else "upsample 16",
             lambda: model.predict_fine(ims[0], ims[1], ksize=2, fine_cap=FINE_CAP))
 
-    # phase 5: report
+    del models
+    torch.cuda.empty_cache()
+
+    # phase 5: the conv4d path; phase 6: the fine-head path
+    path_counts = {**main_counts}
+    path_counts["conv4d_small"] = conv4d_path(dev)["conv4d_small"]
+    torch.cuda.empty_cache()
+    fine_counts = fine_head_path(dev)
+    path_counts.update({k: fine_counts[k] for k in ("fused_fine_head", "expand_level")})
+
+    # phase 7: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
-             replaces=KERNELS[fn][2], launches=main_counts[KERNELS[fn][0]],
+             replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"])

@@ -7,9 +7,10 @@ function by function:
 
   * ``models``: ResNet34 feature pyramid, symmetric neighbourhood
     consensus, mid/fine regressors and the ``Patch2Pix`` pipeline,
-  * ``ops``: correlation, conv4d, match extraction and patch gathers,
-    each kernel (``tap_sum``, ``corr_pool``, ``patch_expand``) beside
-    its plain PyTorch version,
+  * ``ops``: correlation, conv4d, match extraction, patch gathers and
+    the fused fine-stage head, each kernel (``tap_sum``, ``corr_pool``,
+    ``patch_expand``, ``conv4d_small``, ``fine_stage``) beside its plain
+    PyTorch version,
   * ``evaluation.Matcher``: the inference façade.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``;

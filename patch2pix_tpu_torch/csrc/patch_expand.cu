@@ -1,5 +1,6 @@
 // B3: superblock-row window expansion + cross-level hypercolumn
-// normalisation + scaling, for both sides of each proposal pair.
+// normalisation + scaling, for both sides of each proposal pair; and B7,
+// the one-level, one-sided, unscaled expansion.
 //
 // Replaces patch2pix_tpu/ops/patch_expand_pallas.py
 // expand_scale_pair_pallas (_pallas_impl / _kernel). Per pyramid level l
@@ -109,9 +110,49 @@ __global__ void __launch_bounds__(256) expand_kernel(Args a) {
   }
 }
 
+// B7: replaces tools/try_expand_kernels.py build (and the function of
+// patch_expand_pallas.py _xla_expand_side): out[m, p, q, :] = the window
+// cell of pixel (p, q) in one level's rows, a pure copy in the rows'
+// type. Bound: memory (the window reads and the patch writes). One block
+// per proposal; consecutive threads copy consecutive channels of a pixel.
+template <typename T>
+__global__ void __launch_bounds__(256)
+expand_level_kernel(const T* __restrict__ rows, const int* __restrict__ ys,
+                    const int* __restrict__ xs, T* __restrict__ out, int psize, int t,
+                    int c) {
+  const int m = blockIdx.x, npix = psize * psize;
+  const int y0 = max(ys[m], 0), x0 = max(xs[m], 0);
+  for (int e = threadIdx.x; e < npix * c; e += blockDim.x) {
+    const int pix = e / c, k = e % c;
+    out[((int64_t)m * npix + pix) * c + k] =
+        rows[pixel_offset(m, pix / psize, pix % psize, y0, x0, psize, t, c) + k];
+  }
+}
+
 }  // namespace
 
-// rows1/rows2/out1/out2: per-level pointer arrays; t, c, ostride:
+// B7. rows: (M, 4, t, t*c); y0, x0: (M,) int32 padded corners; out:
+// (M, psize, psize, c). elsize: bytes per element (2 or 4; the copy is
+// type-blind). Returns a cudaError_t.
+extern "C" int p2p_expand_level(const void* rows, const void* y0, const void* x0, void* out,
+                                int m, int psize, int t, int c, int elsize, void* stream) {
+  if (m <= 0 || c <= 0 || t <= 0 || psize % t != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elsize == 2) {
+    expand_level_kernel<uint16_t><<<m, 256, 0, s>>>(
+        (const uint16_t*)rows, (const int*)y0, (const int*)x0, (uint16_t*)out, psize, t, c);
+  } else if (elsize == 4) {
+    expand_level_kernel<uint32_t><<<m, 256, 0, s>>>(
+        (const uint32_t*)rows, (const int*)y0, (const int*)x0, (uint32_t*)out, psize, t, c);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// B3. rows1/rows2/out1/out2: per-level pointer arrays; t, c, ostride:
 // per-level ints; y1, x1, y2, x2: (M,) int32 padded corners on the
 // device. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int p2p_patch_expand(const void* const* rows1, const void* const* rows2,

@@ -17,6 +17,11 @@ Inference arithmetic, as in the JAX package:
     (``conv(x*s + t) = conv_{k*s}(x) + conv_k(t_map)``), the last BN +
     ReLU + global max folds into per-channel max/min reductions;
   * the fc BatchNorms normalise in float32 and cast back.
+
+``forward`` is ``fc_head(pooled(...))``: the conv part and the fc part
+are separate methods so that the fused fine-stage head
+(``ops/fine_stage.py``) can feed its pooled features to the same fc
+layers.
 """
 
 from __future__ import annotations
@@ -98,7 +103,13 @@ class FeatRegressNet(nn.Module):
         """``f1``/``f2``: each a hypercolumn tensor or a sequence of
         per-level tensors. ``f2=None`` marks ``f1`` as the fused-gather
         layout: a flat tuple of patch tensors whose kernel-channel
-        slices are given by ``slice_map``."""
+        slices are given by ``slice_map``. Returns (M, 5) float32."""
+        return self.fc_head(self.pooled(f1, f2, slice_map))
+
+    def pooled(self, f1, f2=None, slice_map=None):
+        """The conv layers, their BatchNorms and the global max-pool:
+        (M, F) features in the compute dtype (arguments as
+        :meth:`forward`)."""
         dtype = self.dtype
         convs = list(self.conv)
         xs = _as_tuple(f1) if f2 is None else _as_tuple(f1) + _as_tuple(f2)
@@ -112,8 +123,12 @@ class FeatRegressNet(nn.Module):
         sa, ta = affine
         xmax = torch.amax(y, dim=(1, 2)).float()
         xmin = torch.amin(y, dim=(1, 2)).float()
-        feat = torch.relu(sa * torch.where(sa > 0, xmax, xmin) + ta).to(dtype)
+        return torch.relu(sa * torch.where(sa > 0, xmax, xmin) + ta).to(dtype)
 
+    def fc_head(self, feat):
+        """(M, F) pooled features -> (M, 5) float32: the fc layers with
+        their BatchNorms and ReLUs, then the output layer."""
+        dtype = self.dtype
         fcs = list(self.fc)
         for li in range(len(fcs) // 3):
             lin, bn = fcs[3 * li], fcs[3 * li + 1]

@@ -21,14 +21,15 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("tap_sum", "corr_pool", "patch_expand")
+KERNELS = ("tap_sum", "corr_pool", "patch_expand", "conv4d", "fine_head")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# ctypes type codes of the C signatures: p = pointer / stream, i = int
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+# ctypes type codes of the C signatures: p = pointer / stream, i = int,
+# l = long long
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

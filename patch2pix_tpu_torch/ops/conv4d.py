@@ -11,7 +11,10 @@ are channels-last 6D, ``(B, h1, w1, h2, w2, C)``; filters are
 with SAME zero padding p = k // 2. The outer (h1, w1) taps are folded
 into the channels of ONE ordinary 2D convolution over (h2, w2): into
 Cin for tiny Cin (:func:`conv4d_fold_in`), into Cout for tiny Cout
-(:func:`conv4d_fold_out`, whose shift-add is kernel B1). The 2D convs
+(:func:`conv4d_fold_out`, whose shift-add is kernel B1). Other k=3
+layers with cin*cout <= 16 go to the direct kernel B4
+(:mod:`.conv4d_small`); the rest accumulate one 2D conv per outer tap
+(:func:`conv4d_xla_taps`). The 2D convs
 run in PyTorch's NCHW layout on the flat ``(B*h1*w1, C, h2, w2)`` view:
 for the NCN's 1- and 16-channel volumes this is the layout cuDNN gives
 naturally, and the 6D channels-last tensors the functions return are
@@ -23,20 +26,36 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small
 from patch2pix_tpu_torch.ops.tap_sum import flat_shift_masks, tap_sum
 
-K_FOLD = 3  # kernel size of the fold formulations
+K_FOLD = 3  # kernel size of the fold and small-channel formulations
+
+
+def conv4d_route(k: int, cin: int, cout: int, device_type: str) -> str:
+    """The formulation :func:`conv4d` takes, in the JAX package's
+    dispatch order (``patch2pix_tpu/ops/conv4d.py:80-90``):
+    ``fold_in``, ``fold_out``, ``small_kernel`` (B4 on a CUDA tensor),
+    ``small_plain`` (its plain version on a CPU tensor) or ``xla_taps``."""
+    if k == K_FOLD and cin <= 2:
+        return "fold_in"
+    if k == K_FOLD and cout <= 2:
+        return "fold_out"
+    if k == K_FOLD and cin * cout <= 16:
+        return "small_kernel" if device_type == "cuda" else "small_plain"
+    return "xla_taps"
 
 
 def conv4d(x, w, b=None, out_dtype=None):
     """SAME 4D convolution, stride 1; output in float32 unless
     ``out_dtype`` is given (accumulation is float32)."""
-    k = w.shape[0]
-    cin, cout = w.shape[4], w.shape[5]
-    if k == K_FOLD and cin <= 2:
+    route = conv4d_route(w.shape[0], w.shape[4], w.shape[5], x.device.type)
+    if route == "fold_in":
         return conv4d_fold_in(x, w, b, out_dtype)
-    if k == K_FOLD and cout <= 2:
+    if route == "fold_out":
         return conv4d_fold_out(x, w, b, out_dtype)
+    if route in ("small_kernel", "small_plain"):
+        return conv4d_small(x, w, b, out_dtype)
     out = conv4d_xla_taps(x, w, b)
     return out if out_dtype is None else out.to(out_dtype)
 

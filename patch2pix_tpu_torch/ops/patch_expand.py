@@ -14,6 +14,11 @@ pyramid order; ``inv`` rounded once to ``out_dtype``; then the float32
 product of the rounded operands, rounded once. On CUDA tensors
 :func:`expand_scale_pair` launches ``csrc/patch_expand.cu``; on CPU
 tensors it runs :func:`expand_scale_pair_plain`.
+
+:func:`expand_level` (kernel B7, a second entry point of the same
+source) is the one-level, one-sided, unscaled expansion that the fused
+fine-stage head's prolog needs; it is a pure gather, bit-identical to
+:func:`expand_level_plain`.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from patch2pix_tpu_torch.ops import _build
 
 EPS = 1e-6
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"p2p_patch_expand": "pppppppippppiiip"}
+_SIGNATURES = {"p2p_patch_expand": "pppppppippppiiip",
+               "p2p_expand_level": "ppppiiiiip"}
 
 
 def _paired(c: int) -> bool:
@@ -63,7 +69,7 @@ def _window_indices(base: torch.Tensor, psize: int, ds: int) -> torch.Tensor:
         b, psize, rounding_mode="floor") * t
 
 
-def _expand_side(rows: torch.Tensor, y0, x0, psize: int) -> torch.Tensor:
+def expand_level_plain(rows: torch.Tensor, y0, x0, psize: int) -> torch.Tensor:
     """One level, one side: (M, 4, t, t*C) rows -> (M, p, p, C) window
     values by plain indexed reads."""
     m, _, t, tc = rows.shape
@@ -85,7 +91,7 @@ def expand_scale_pair_plain(rows1, rows2, y1, x1, y2, x2, psize: int,
     adds differs from the kernel's; levels are added in pyramid order."""
     sides = []
     for rows, y0, x0 in ((rows1, y1, x1), (rows2, y2, x2)):
-        es = [_expand_side(r, y0, x0, psize) for r in rows]
+        es = [expand_level_plain(r, y0, x0, psize) for r in rows]
         sq = None
         for e in es:
             s = e.float().square().sum(dim=-1)
@@ -100,6 +106,39 @@ def expand_scale_pair_plain(rows1, rows2, y1, x1, y2, x2, psize: int,
         else:
             outs += [sides[0][li], sides[1][li]]
     return tuple(outs)
+
+
+def expand_level(rows: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                 psize: int) -> torch.Tensor:
+    """rows ``(M, 4, t, t*C)`` of any 2- or 4-byte dtype, y0/x0 ``(M,)``
+    int32 padded corners (a negative corner counts as 0) -> ``(M, psize,
+    psize, C)`` window values in rows' dtype."""
+    if all(v.device.type == "cpu" for v in (rows, y0, x0)):
+        return expand_level_plain(rows, y0, x0, psize)
+    dev = rows.device
+    if dev.type != "cuda" or y0.device != dev or x0.device != dev:
+        raise ValueError("expand_level: tensors must share one CUDA device")
+    m, four, t, tc = rows.shape
+    c = tc // t
+    if four != 4 or tc != t * c or psize % t or not rows.is_contiguous():
+        raise ValueError(f"expand_level: rows {tuple(rows.shape)} for psize {psize}")
+    if rows.element_size() not in (2, 4):
+        raise TypeError(f"expand_level: rows {rows.dtype}")
+    for v in (y0, x0):
+        if v.dtype != torch.int32 or v.shape != (m,) or not v.is_contiguous():
+            raise ValueError("expand_level: corners must be contiguous (M,) int32")
+    out = torch.empty((m, psize, psize, c), dtype=rows.dtype, device=dev)
+    lib = _build.library("patch_expand", _SIGNATURES)
+    rc = lib.p2p_expand_level(
+        rows.data_ptr(), y0.data_ptr(), x0.data_ptr(), out.data_ptr(),
+        m, psize, t, c, rows.element_size(), _build.current_stream(dev),
+    )
+    _build.check_launch(rc, "expand_level")
+    expand_level.launches += 1
+    return out
+
+
+expand_level.launches = 0
 
 
 def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,

@@ -72,12 +72,11 @@ def _resnet(out, params, stats):
                     bs["downsample_bn"])
 
 
-def _ncn(out, params):
-    p = params["ncn"]
+def _ncn(out, p, prefix="ncn."):
     li = 0
     while f"conv{li}_kernel" in p:
-        out[f"ncn.conv.{2 * li}.weight"] = _conv4d(p[f"conv{li}_kernel"])
-        out[f"ncn.conv.{2 * li}.bias"] = np.asarray(p[f"conv{li}_bias"])
+        out[f"{prefix}conv.{2 * li}.weight"] = _conv4d(p[f"conv{li}_kernel"])
+        out[f"{prefix}conv.{2 * li}.bias"] = np.asarray(p[f"conv{li}_bias"])
         li += 1
 
 
@@ -97,6 +96,10 @@ def _regressor(out, name, params, stats):
     out[f"{name}.fc.{3 * n_fc}.bias"] = np.asarray(p["fc_out"]["bias"])
 
 
+def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` tree of numpy arrays -> the port's
     state dict (reference key names, reference layouts)."""
@@ -104,12 +107,20 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     stats = variables.get("batch_stats", {})
     out: Dict[str, np.ndarray] = {}
     _resnet(out, params, stats)
-    _ncn(out, params)
+    _ncn(out, params["ncn"])
     for name in ("regress_mid", "regress_fine"):
         if name in params:
             _regressor(out, name, params, stats)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            for k, v in out.items()}
+    return _to_torch(out)
+
+
+def ncn_state_dict_from_jax(ncn_params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``NeighConsensus`` params dict (``conv{i}_kernel``,
+    ``conv{i}_bias``, any number of layers) -> the state dict of the
+    port's ``NeighConsensus``."""
+    out: Dict[str, np.ndarray] = {}
+    _ncn(out, ncn_params, prefix="")
+    return _to_torch(out)
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:

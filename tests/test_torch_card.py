@@ -13,7 +13,14 @@ multiple of 8, a t=1 pyramid level), to its kernel's tolerance: tap_sum
 bit-identical, corr_pool atol 1e-4 on unit-norm features,
 expand_scale_pair f32 rtol 1e-6 / bf16 bit for bit, except at patch
 pixels whose inverse norm rounds to the neighbouring bf16 value (one in
-10^4 at most; chip_smoke's ``expand_bf16_mismatch``). The whole
+10^4 at most; chip_smoke's ``expand_bf16_mismatch``); conv4d_small
+float32 atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
+cancels to near zero keeps the float32 rounding of its terms), its backward
+through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
+expand_level bit-identical; fused_fine_head float32 rtol/atol 2e-4,
+bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
+midpoint moves a BN0 output by one ulp; chip_smoke's
+``bf16_ulps``). The whole
 pipeline on the card (f32, TF32 off) is held against the same model on
 the CPU, which runs the plain versions.
 """
@@ -25,11 +32,23 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import expand_bf16_mismatch
+from chip_smoke import bf16_ulps, expand_bf16_mismatch
 from patch2pix_tpu_torch.config import ModelConfig
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
+from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
 from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_plain
-from patch2pix_tpu_torch.ops.patch_expand import expand_scale_pair, expand_scale_pair_plain
+from patch2pix_tpu_torch.ops.fine_stage import (
+    fused_fine_head,
+    fused_fine_head_plain,
+    head_prolog,
+    segment_weights,
+)
+from patch2pix_tpu_torch.ops.patch_expand import (
+    expand_level,
+    expand_level_plain,
+    expand_scale_pair,
+    expand_scale_pair_plain,
+)
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_plain
 from tests.ref_loader import seeded_state_dict
 
@@ -102,6 +121,90 @@ def test_expand_scale_pair_matches_plain(cuda, dtype, levels):
         assert flipped * 1e4 <= pixels
 
 
+@pytest.mark.parametrize("odtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(3, 3), (3, 4), (3, 5), (4, 3), (4, 4), (5, 3)])
+def test_conv4d_small_matches_plain(cuda, cin, cout, dtype, odtype):
+    rs = _rs(5)
+    dims = (2, 3, 5, 11, 37)  # ragged (k, l) tiles
+    x = torch.from_numpy(rs.standard_normal(dims + (cin,)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rs.standard_normal((3, 3, 3, 3, cin, cout)) * 0.1)
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rs.standard_normal(cout).astype(np.float32)).to(cuda)
+    # channels-last, and the NCHW-per-cell view the NCN's fold-in leaves
+    nchw = x.reshape(-1, *dims[3:], cin).permute(0, 3, 1, 2).contiguous()
+    nchw = nchw.reshape(*dims[:3], cin, *dims[3:]).permute(0, 1, 2, 4, 5, 3)
+    for xin in (x, nchw):
+        n0 = conv4d_small.launches
+        got = conv4d_small(xin, w, b, odtype)
+        assert conv4d_small.launches == n0 + 1
+        want = conv4d_small_plain(x, w, b, odtype)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if odtype is None:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        else:
+            assert bf16_ulps(got.float(), want.float(), atol=1e-5).max() <= 1
+
+
+def test_conv4d_small_backward_matches_cpu(cuda):
+    rs = _rs(6)
+    x, w, b = (rs.standard_normal(s).astype(np.float32) * sc for s, sc in
+               (((1, 4, 5, 6, 4, 4), 1.0), ((3, 3, 3, 3, 4, 3), 0.1), ((3,), 1.0)))
+    g = torch.from_numpy(rs.standard_normal((1, 4, 5, 6, 4, 3)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (x, w, b)]
+        conv4d_small(*ts).backward(g.to(dev))
+        grads.append([t.grad.cpu() for t in ts])
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expand_level_bit_identical(cuda, dtype):
+    rs, m = _rs(7), 29
+    y0, x0 = (torch.from_numpy(rs.randint(-20, 80, (m,)).astype(np.int32)).to(cuda)
+              for _ in range(2))
+    for t, c in ((16, 3), (8, 64), (4, 64), (2, 128), (1, 256), (16, 1)):
+        rows = torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
+        rows = rows.to(cuda, dtype)
+        n0 = expand_level.launches
+        got = expand_level(rows, y0, x0, PSIZE)
+        assert expand_level.launches == n0 + 1
+        assert torch.equal(got, expand_level_plain(rows, y0, x0, PSIZE))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [64, 96])
+def test_fused_fine_head_matches_plain(cuda, dtype, f):
+    rs, m = _rs(8), 37
+    levels = ((16, 3), (8, 64), (4, 64), (2, 128))
+    cs = [c for _, c in levels]
+    rows = [[torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
+             .to(cuda, dtype) for t, c in levels] for _ in range(2)]
+    corners = [torch.from_numpy(rs.randint(0, 2 * PSIZE, (m,)).astype(np.int32)).to(cuda)
+               for _ in range(4)]
+    k0 = torch.from_numpy((rs.standard_normal((3, 3, 2 * sum(cs), f)) * 0.05)
+                          .astype(np.float32)).to(cuda)
+    k1 = torch.from_numpy((rs.standard_normal((3, 3, f, f)) * 0.05).astype(np.float32)).to(cuda)
+    bn = [tuple(torch.from_numpy(a.astype(np.float32)).to(cuda)
+                for a in (rs.uniform(0.5, 1.5, f), rs.uniform(-0.2, 0.2, f)))
+          for _ in range(2)]
+    inv1, inv2, partial0 = head_prolog(rows[0], rows[1], *corners, k0.to(dtype), PSIZE, dtype)
+    args = (rows[0][1:], rows[1][1:], *corners, inv1, inv2, partial0,
+            segment_weights(k0, cs, dtype), k1.reshape(9, f, f).to(dtype), bn[0], bn[1],
+            PSIZE, dtype)
+    n0 = fused_fine_head.launches
+    got = fused_fine_head(*args)
+    assert fused_fine_head.launches == n0 + 1
+    want = fused_fine_head_plain(*args)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (m, f)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert bf16_ulps(got.float(), want.float(), atol=1e-3).max() <= 2
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     z = torch.zeros((8, 9, 4), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -111,6 +214,12 @@ def test_wrappers_reject_bad_inputs(cuda):
         corr_pool(f, f.cpu())
     with pytest.raises(ValueError):
         corr_pool(f[:, :3], f)
+    x = torch.zeros((1, 2, 2, 3, 3, 4), device=cuda)
+    with pytest.raises(ValueError):  # cin * cout > 16: not B4's range
+        conv4d_small(x, torch.zeros((3, 3, 3, 3, 4, 5), device=cuda))
+    with pytest.raises(TypeError):
+        expand_level(torch.zeros((2, 4, 2, 2), device=cuda, dtype=torch.float64),
+                     *(torch.zeros(2, device=cuda, dtype=torch.int32),) * 2, PSIZE)
 
 
 @pytest.mark.parametrize("change_stride", [False, True])
