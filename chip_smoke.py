@@ -10,10 +10,10 @@ Phases, each fatal on failure:
   2. for each kernel (B1 tap_sum, B2 corr_pool, B3 expand_scale_pair, B4
      conv4d_small, B5 fused_fine_head, B7 expand_level), at the shapes of
      its path (change_stride, 1024x768, B=2: the NCN volume, M = 2400
-     proposals, F = 512), in bf16 and in float32: hold the kernel against
-     its plain PyTorch version on the card, time kernel, plain version and
-     library yardstick, and compute the bound from the bytes and
-     operations this run's inputs need;
+     proposals, F = 512; B2 also at upsample 16), in bf16 and in float32:
+     hold the kernel against its plain PyTorch version on the card, time
+     kernel, plain version and library yardstick, and compute the bound
+     from the bytes and operations this run's inputs need;
   3. golden parity in float32 with TF32 off: rebuild the seeded weights
      and reproduce ``tests/fixtures/pipeline_golden_{s16,cs}_1024.npz``
      (identical coarse set, coords 0.05 px, scores 5e-3) — every kernel's
@@ -60,7 +60,8 @@ from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops import conv4d as conv4d_module
 from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
-from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_plain
+from patch2pix_tpu_torch.ops.corr_pool import LAYOUTS as CORR_POOL_LAYOUTS
+from patch2pix_tpu_torch.ops.corr_pool import cell_parity_rows, corr_pool, corr_pool_plain
 from patch2pix_tpu_torch.ops.correlation import l2_normalize
 from patch2pix_tpu_torch.ops.fine_stage import (
     fused_fine_head,
@@ -189,9 +190,33 @@ def check_tap_sum(dtype, gen, dev):
                 shape=f"z {tuple(z.shape)} {dtype} -> {tuple(got.shape)} f32")
 
 
-def check_corr_pool(dtype, gen, dev):
-    """B2 at the cs main-path shape: layer3 (B, 96, 128, 256)."""
-    h, w, c = H // 8, W // 8, 256
+def bmm_amax(f1, f2, out_dtype=None):
+    """The library yardstick: one cuBLAS bmm then the 2^4 values pool."""
+    b, h1, w1, c = f1.shape
+    _, h2, w2, _ = f2.shape
+    a, m = f1.reshape(b, h1 * w1, c), f2.reshape(b, h2 * w2, c).transpose(1, 2)
+    c4 = torch.bmm(a, m) if out_dtype is None else torch.bmm(a, m, out_dtype=out_dtype)
+    return c4.reshape(b, h1 // 2, 2, w1 // 2, 2, h2 // 2, 2, w2 // 2, 2).amax(dim=(2, 4, 6, 8))
+
+
+def corr_pool_library(f1, f2):
+    """(call, label): for bf16, ``torch.bmm(..., out_dtype=torch.float32)``
+    computes the kernel's function (f32 sums and output) where this torch
+    has that overload; else the bf16-output bmm, labelled so."""
+    if f1.dtype == torch.float32:
+        return (lambda: bmm_amax(f1, f2)), "bmm + amax"
+    try:
+        bmm_amax(f1[:1, :2, :2], f2[:1, :2, :2], torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda: bmm_amax(f1, f2)), "bf16-output bmm + amax"
+    return (lambda: bmm_amax(f1, f2, torch.float32)), "bmm (f32 out) + amax"
+
+
+def corr_pool_case(dtype, gen, dev, h, w):
+    """B2 on 2x (BATCH, h, w, 256) unit-norm features (layer3): held
+    against the plain version (max abs err <= 1e-4), timed beside it and
+    the library yardstick."""
+    c = 256
     f1 = l2_normalize(torch.randn((BATCH, h, w, c), generator=gen, device=dev)).to(dtype)
     f2 = l2_normalize(torch.randn((BATCH, h, w, c), generator=gen, device=dev)).to(dtype)
     got = corr_pool(f1, f2)
@@ -199,20 +224,32 @@ def check_corr_pool(dtype, gen, dev):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not err <= 1e-4:
-        fail(f"corr_pool {dtype}: max abs err {err} > 1e-4")
+        fail(f"corr_pool {dtype} {tuple(f1.shape)}: max abs err {err} > 1e-4")
     ms = time_ms(lambda: corr_pool(f1, f2))
     plain_ms = time_ms(lambda: corr_pool_plain(f1, f2), iters=5)
-
-    def library():
-        c4 = torch.bmm(f1.reshape(BATCH, h * w, c), f2.reshape(BATCH, h * w, c).transpose(1, 2))
-        return c4.reshape(BATCH, h // 2, 2, w // 2, 2, h // 2, 2, w // 2, 2).amax(dim=(2, 4, 6, 8))
-
+    library, label = corr_pool_library(f1, f2)
     library_ms = time_ms(library, iters=5)
+    # the wrapper's share: the two operand layout copies
+    rows1, rows2, chans, k_major = CORR_POOL_LAYOUTS[dtype]
+    layout_ms = time_ms(lambda: (cell_parity_rows(f1, rows1, chans, k_major),
+                                 cell_parity_rows(f2, rows2, chans, k_major)))
     flops = 2 * BATCH * (h * w) * (h * w) * c
     b_ms, b_by = bound(nbytes(f1, f2, got), flops, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms,
-                shape=f"2x {tuple(f1.shape)} {dtype} -> {tuple(got.shape)} f32")
+                shape=f"2x {tuple(f1.shape)} {dtype} -> {tuple(got.shape)} f32, "
+                      f"library = {label}, of ms the layout copies {layout_ms:.4f}")
+
+
+def check_corr_pool(dtype, gen, dev):
+    """B2 at the cs main-path shape, layer3 (B, 96, 128, 256); first the
+    upsample-16 shape (B, 48, 64, 256), which runs it too, is checked and
+    its numbers logged."""
+    u = corr_pool_case(dtype, gen, dev, H // 16, W // 16)
+    log(f"kernel corr_pool [{str(dtype)[6:]}] upsample 16, {u['shape']}: max_abs_err "
+        f"{u['max_abs_err']:.3g} ms {u['ms']:.4f} plain_ms {u['plain_ms']:.4f} library_ms "
+        f"{u['library_ms']:.4f} bound_ms {u['bound_ms']:.4f} ({u['bound_by']})")
+    return corr_pool_case(dtype, gen, dev, H // 8, W // 8)
 
 
 def check_expand(dtype, gen, dev):
@@ -716,7 +753,9 @@ def main():
     log(f"kernel build: {secs:.1f} s ({len(reports)} sources compiled)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            # every kernel's registers and spills; corr_pool's entry names too
+            if ("registers" in line or "spill" in line
+                    or (name == "corr_pool" and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions

@@ -11,212 +11,466 @@
 // q, s2 for image 2). out is (B, h1/2 * w1/2, h2/2 * w2/2) float32: the
 // pooled volume, without the 16x larger pre-pool volume ever existing.
 //
-// Bound on the H100: operations (2 * B * h1*w1 * h2*w2 * C of them;
-// the inputs are a few MB and stay in L2). Design: a block owns a tile
-// of 16*WM pooled cells of image 1 by 16 of image 2. Its feature rows are
-// staged through shared memory in K-chunks, ordered (parity, pooled cell),
-// so the raw product tile splits into 16x16 sub-tiles, one per
-// (s1, s2) parity pair, that share one element layout. bf16 runs on the
-// tensor cores (WMMA m16n16k16, f32 accumulation): warp (pi, s1) keeps
-// four accumulators, one per s2, across the whole K loop; the pool is
-// then an elementwise max of fragments, and a max across the four s1
-// warps through shared memory. float32 runs on plain f32 FMA (never
-// TF32): thread (ty, tx) accumulates exactly the 16 dot products of its
-// pooled cell and takes their max. Sums are in another order than a
-// matmul library's, so results agree with the plain version to rounding.
+// Operands come laid out by the wrapper (ops/corr_pool.py
+// cell_parity_rows): feature row 4*p + s holds cell(p, s), rows and
+// channels zero-padded to the tile. The four parities of a pooled cell
+// are then four neighbouring rows, so a tile of raw rows is a tile of
+// pooled cells and the pool is a max over aligned groups of 4 x 4
+// products, taken in registers: no pre-pool value leaves a thread.
+//
+// Bound on the H100 (change_stride, 2 x (96, 128, 256)): operations,
+// 154.6 GFLOP — 2.31 ms at the 67 TFLOP/s float32 peak, 0.156 ms at
+// the 989 TFLOP/s bf16 tensor peak. The inputs (25 MB f32, 12.6 MB bf16)
+// stay in L2, so the traffic that matters is L2 -> SM.
+//
+// float32 (never TF32): register-blocked SIMT. A block of 256 threads
+// owns 128 x 128 raw rows (32 x 32 pooled cells); thread (ty, tx) owns
+// image-1 cells ty and 16 + ty and image-2 cells tx and 16 + tx: 8 x 8
+// raw products = 2 x 2 pooled cells. Operands are K-major ((B, Cp, R)
+// from the wrapper), so per channel a thread reads 4 float4 (LDS.128,
+// consecutive threads on consecutive 16 bytes) for 64 FMAs. K chunks of
+// 16 channels are double-buffered with cp.async. L2 -> SM traffic:
+// 2 x 96 x 96 blocks x 256 rows x 1 KB = 4.7 GB.
+//
+// bf16: Hopper wgmma fed by TMA. A persistent block (one per SM) walks a
+// contiguous range of (batch, image-1 panel, image-2 tile) work items.
+// The image-1 panel (256 raw rows = 64 pooled cells, all C channels,
+// 128 KB at C = 256) stays resident in shared memory; image-2 tiles of
+// 64 rows x 64 channels (8 KB) stream through a 4-stage TMA ring with
+// full/empty mbarriers, so the next tile's loads overlap this tile's
+// epilogue. Warpgroups 0 and 1 each own 128 panel rows (two m64n64k16
+// accumulators, 64 registers a thread); warpgroup 2 is the producer
+// (one thread issues the TMA copies). Why 256 panel rows: the image-2
+// stream is 2 x (12288 / panel rows) x 6.3 MB of L2 -> SM traffic,
+// 1.2 GB at 128 rows (about the compute time) and 0.6 GB at 256 (well
+// below it). Operands use the 128-byte swizzle that TMA writes and
+// wgmma reads. Epilogue: in the wgmma accumulator layout, a row's four
+// image-1 parities sit on lanes l ^ 4, l ^ 8, the image-2 parities in a
+// thread's register pair and on lane l ^ 1; three butterfly rounds
+// (each halves the values a lane holds) leave every lane with 4
+// distinct pooled cells, stored as 32-byte runs. Products of bf16 values
+// are exact in f32; sums are in another order than a matmul library's,
+// so results agree with the plain version to rounding.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int TP = 16;   // pooled cells per WMMA sub-tile side
-constexpr int WM = 2;    // image-1 sub-tiles per block (bf16 kernel)
-constexpr int KC = 64;   // channels per shared-memory stage (bf16)
-constexpr int LDS = KC + 8;  // padded row stride (multiple of 8 for WMMA)
-
-// Global row of the feature map for pooled cell p with window parity s
-// (or -1 past the end), for a map of width w and pooled width wp.
-__device__ __forceinline__ int64_t cell_row(int p, int s, int np, int wp, int w) {
-  if (p >= np) return -1;
-  const int i = p / wp, j = p % wp;
-  return (int64_t)(2 * i + (s >> 1)) * w + 2 * j + (s & 1);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Stage channels [k0, k0+KC) of `nrows` tile rows into shared memory.
-// Row r is (sub-tile r / (4*TP), parity (r / TP) % 4, cell r % TP);
-// rows past the map and channels past c are zero.
-__device__ __forceinline__ void stage_rows_bf16(
-    __nv_bfloat16 (*dst)[LDS], const __nv_bfloat16* __restrict__ base,
-    int nrows, int tile0, int np, int wp, int w, int c, int k0, bool vec) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  if (vec) {
-    // 16-byte loads: 8 channels per load; c % 8 == 0 keeps them aligned
-    const int per_row = KC / 8;
-    for (int e = tid; e < nrows * per_row; e += nthr) {
-      const int r = e / per_row, k = (e % per_row) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      const int s = (r / TP) % 4;
-      const int p = tile0 + (r / (4 * TP)) * TP + r % TP;
-      const int64_t g = cell_row(p, s, np, wp, w);
-      if (g >= 0 && k0 + k < c) {
-        v = *reinterpret_cast<const uint4*>(base + g * c + k0 + k);
-      }
-      *reinterpret_cast<uint4*>(&dst[r][k]) = v;
-    }
-  } else {
-    for (int e = tid; e < nrows * KC; e += nthr) {
-      const int r = e / KC, k = e % KC;
-      const int s = (r / TP) % 4;
-      const int p = tile0 + (r / (4 * TP)) * TP + r % TP;
-      const int64_t g = cell_row(p, s, np, wp, w);
-      dst[r][k] = (g >= 0 && k0 + k < c) ? base[g * c + k0 + k]
-                                          : __float2bfloat16(0.0f);
-    }
-  }
+// ------------------------------------------------------------ float32
+
+constexpr int F_TILE = 128;  // raw rows per tile side (32 pooled cells)
+constexpr int F_KC = 16;     // channels per stage
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
 }
 
-// Block = 4*WM warps; warp w owns image-1 sub-tile w / 4 and parity
-// s1 = w % 4, against all four image-2 parities.
-__global__ void __launch_bounds__(128 * WM)
-corr_pool_bf16_kernel(const __nv_bfloat16* __restrict__ f1,
-                      const __nv_bfloat16* __restrict__ f2,
-                      float* __restrict__ out,
-                      int h1, int w1, int h2, int w2, int c, int vec) {
-  __shared__ __align__(128) __nv_bfloat16 As[4 * TP * WM][LDS];
-  __shared__ __align__(128) __nv_bfloat16 Bs[4 * TP][LDS];
-  __shared__ __align__(128) float Red[4 * WM][TP * TP];
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-  const int w1p = w1 / 2, w2p = w2 / 2;
-  const int np1 = (h1 / 2) * w1p, np2 = (h2 / 2) * w2p;
-  const int b = blockIdx.z;
-  const int p0 = blockIdx.y * TP * WM;
-  const int q0 = blockIdx.x * TP;
-  const __nv_bfloat16* a_base = f1 + (int64_t)b * h1 * w1 * c;
-  const __nv_bfloat16* b_base = f2 + (int64_t)b * h2 * w2 * c;
-  const int warp = threadIdx.x / 32;
-  const int pi = warp / 4, s1 = warp % 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int s2 = 0; s2 < 4; ++s2) wmma::fill_fragment(acc[s2], 0.0f);
-
-  for (int k0 = 0; k0 < c; k0 += KC) {
-    stage_rows_bf16(As, a_base, 4 * TP * WM, p0, np1, w1p, w1, c, k0, vec);
-    stage_rows_bf16(Bs, b_base, 4 * TP, q0, np2, w2p, w2, c, k0, vec);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, &As[(pi * 4 + s1) * TP][kk], LDS);
-#pragma unroll
-      for (int s2 = 0; s2 < 4; ++s2) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, &Bs[s2 * TP][kk], LDS);
-        wmma::mma_sync(acc[s2], fa, fb, acc[s2]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // pool over s2 in registers (same element layout in every fragment)
-#pragma unroll
-  for (int e = 0; e < acc[0].num_elements; ++e) {
-    acc[0].x[e] = fmaxf(fmaxf(acc[0].x[e], acc[1].x[e]),
-                        fmaxf(acc[2].x[e], acc[3].x[e]));
-  }
-  wmma::store_matrix_sync(Red[warp], acc[0], TP, wmma::mem_row_major);
-  __syncthreads();
-  // pool over s1 across the four warps of each image-1 sub-tile
-  for (int e = threadIdx.x; e < WM * TP * TP; e += blockDim.x) {
-    const int sub = e / (TP * TP), cell = e % (TP * TP);
-    const float* r = &Red[sub * 4][cell];
-    const float v = fmaxf(fmaxf(r[0], r[TP * TP]), fmaxf(r[2 * TP * TP], r[3 * TP * TP]));
-    const int p = p0 + sub * TP + cell / TP, q = q0 + cell % TP;
-    if (p < np1 && q < np2) out[((int64_t)b * np1 + p) * np2 + q] = v;
-  }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-constexpr int KF = 16;  // channels per stage (f32)
-
-__global__ void __launch_bounds__(256)
+// f1: (B, cp, rp1), f2: (B, cp, rp2) K-major; rp1, rp2 multiples of
+// F_TILE, cp a multiple of F_KC.
+__global__ void __launch_bounds__(256, 2)
 corr_pool_f32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                     float* __restrict__ out,
-                     int h1, int w1, int h2, int w2, int c) {
-  __shared__ float As[KF][4 * TP + 1];
-  __shared__ float Bs[KF][4 * TP + 1];
-  const int w1p = w1 / 2, w2p = w2 / 2;
-  const int np1 = (h1 / 2) * w1p, np2 = (h2 / 2) * w2p;
+                     float* __restrict__ out, int np1, int np2, int rp1, int rp2, int cp) {
+  __shared__ __align__(16) float As[2][F_KC][F_TILE];
+  __shared__ __align__(16) float Bs[2][F_KC][F_TILE];
   const int b = blockIdx.z;
-  const int p0 = blockIdx.y * TP, q0 = blockIdx.x * TP;
-  const float* a_base = f1 + (int64_t)b * h1 * w1 * c;
-  const float* b_base = f2 + (int64_t)b * h2 * w2 * c;
-  const int tx = threadIdx.x % TP, ty = threadIdx.x / TP;
+  const float* a_src = f1 + (int64_t)b * cp * rp1 + blockIdx.y * F_TILE;
+  const float* b_src = f2 + (int64_t)b * cp * rp2 + blockIdx.x * F_TILE;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
-  float acc[4][4];
+  // one stage: 16 channels x 128 rows of each operand, two 16-byte
+  // copies of each per thread
+  auto stage = [&](int buf, int k0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + 256 * u, k = e / 32, r = (e % 32) * 4;
+      cp_async16(&As[buf][k][r], a_src + (int64_t)(k0 + k) * rp1 + r);
+      cp_async16(&Bs[buf][k][r], b_src + (int64_t)(k0 + k) * rp2 + r);
+    }
+    cp_async_commit();
+  };
 
-  for (int k0 = 0; k0 < c; k0 += KF) {
-    for (int e = threadIdx.x; e < 4 * TP * KF; e += blockDim.x) {
-      const int r = e / KF, k = e % KF;  // row (parity, cell), channel
-      const int s = r / TP;
-      const int64_t ga = cell_row(p0 + r % TP, s, np1, w1p, w1);
-      const int64_t gb = cell_row(q0 + r % TP, s, np2, w2p, w2);
-      As[k][r] = (ga >= 0 && k0 + k < c) ? a_base[ga * c + k0 + k] : 0.0f;
-      Bs[k][r] = (gb >= 0 && k0 + k < c) ? b_base[gb * c + k0 + k] : 0.0f;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  const int nk = cp / F_KC;
+  stage(0, 0);
+  for (int kc = 0; kc < nk; ++kc) {
+    if (kc + 1 < nk) {
+      stage((kc + 1) & 1, (kc + 1) * F_KC);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int buf = kc & 1;
 #pragma unroll
-    for (int k = 0; k < KF; ++k) {
-      float a[4], bv[4];
+    for (int k = 0; k < F_KC; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        a[s] = As[k][s * TP + ty];
-        bv[s] = Bs[k][s * TP + tx];
-      }
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
-  float m = acc[0][0];
+
+  // acc[4*ci + s1][4*cj + s2]: image-1 cell ty + 16*ci, image-2 cell
+  // tx + 16*cj, parities (s1, s2)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int ci = 0; ci < 2; ++ci) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) m = fmaxf(m, acc[i][j]);
-  const int p = p0 + ty, q = q0 + tx;
-  if (p < np1 && q < np2) out[((int64_t)b * np1 + p) * np2 + q] = m;
+    for (int cj = 0; cj < 2; ++cj) {
+      float m = acc[4 * ci][4 * cj];
+#pragma unroll
+      for (int s1 = 0; s1 < 4; ++s1)
+#pragma unroll
+        for (int s2 = 0; s2 < 4; ++s2) m = fmaxf(m, acc[4 * ci + s1][4 * cj + s2]);
+      const int p = blockIdx.y * 32 + ty + 16 * ci, q = blockIdx.x * 32 + tx + 16 * cj;
+      if (p < np1 && q < np2) out[((int64_t)b * np1 + p) * np2 + q] = m;
+    }
+  }
+}
+
+// --------------------------------------------------------------- bf16
+
+constexpr int H_BM = 256;       // image-1 panel rows (64 pooled cells)
+constexpr int H_BN = 64;        // image-2 tile rows (16 pooled cells)
+constexpr int H_KB = 64;        // channels per 128-byte swizzled row
+constexpr int H_STAGES = 4;     // image-2 ring depth
+constexpr int H_MAX_CP = 384;   // the resident panel's limit
+constexpr int H_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr uint32_t H_ABLOCK_BYTES = H_BM * H_KB * 2;  // 32 KB per K block
+constexpr uint32_t H_BTILE_BYTES = H_BN * H_KB * 2;   // 8 KB per stage
+
+size_t h_smem_bytes(int cp) {
+  // 1 KB of slack to align the base to the swizzle's 1024 bytes
+  return 1024 + (size_t)(cp / H_KB) * H_ABLOCK_BYTES + (size_t)H_STAGES * H_BTILE_BYTES;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Box (H_KB channels, rows) at (channel x, row y) of a 2D map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row
+// groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16, K-major) * B (64 x 16, K-major)^T; scale_d 0
+// starts the sum.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// map1 over (B * rp1 rows, cp) with (H_KB, H_BM) boxes, map2 over
+// (B * rp2, cp) with (H_KB, H_BN) boxes; rp1 % H_BM == rp2 % H_BN ==
+// cp % H_KB == 0, cp <= H_MAX_CP.
+__global__ void __launch_bounds__(H_THREADS, 1)
+corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
+                      const __grid_constant__ CUtensorMap map2, float* __restrict__ out,
+                      int batch, int np1, int np2, int rp1, int rp2, int cp) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 2 * H_STAGES];
+  uint8_t* a_panel = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int nkb = cp / H_KB;
+  uint8_t* ring = a_panel + nkb * H_ABLOCK_BYTES;
+  uint64_t* a_full = &bars[0];
+  uint64_t* a_empty = &bars[1];
+  uint64_t* full = &bars[2];
+  uint64_t* empty = &bars[2 + H_STAGES];
+
+  const int nap = rp1 / H_BM, nt2 = rp2 / H_BN;
+  const int64_t total = (int64_t)batch * nap * nt2;
+  const int64_t t_begin = total * blockIdx.x / gridDim.x;
+  const int64_t t_end = total * (blockIdx.x + 1) / gridDim.x;
+
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, 256);
+    for (int s = 0; s < H_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every copy
+    if (threadIdx.x != 256) return;
+    int64_t panel = -1;
+    uint32_t a_loads = 0, phase = 0;
+    int stage = 0;
+    for (int64_t t = t_begin; t < t_end; ++t) {
+      const int64_t pan = t / nt2;
+      const int tile = (int)(t % nt2), b = (int)(pan / nap), ap = (int)(pan % nap);
+      if (pan != panel) {
+        // a new panel: wait until both consumers are done with the old one
+        if (a_loads > 0) mbar_wait(a_empty, (a_loads - 1) & 1);
+        mbar_expect_tx(a_full, nkb * H_ABLOCK_BYTES);
+        for (int kb = 0; kb < nkb; ++kb)
+          tma_load_2d(a_panel + kb * H_ABLOCK_BYTES, &map1, a_full, kb * H_KB,
+                      b * rp1 + ap * H_BM);
+        ++a_loads;
+        panel = pan;
+      }
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], H_BTILE_BYTES);
+        tma_load_2d(ring + stage * H_BTILE_BYTES, &map2, &full[stage], kb * H_KB,
+                    b * rp2 + tile * H_BN);
+        if (++stage == H_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns panel rows [128 wg, 128 wg + 128) as two
+  // m64 halves h
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int b0 = lane & 1, b1 = (lane >> 1) & 1, b2 = (lane >> 2) & 1, b3 = (lane >> 3) & 1;
+  const uint32_t a_base = smem_u32(a_panel) + wg * 128 * 128;
+  const uint32_t r_base = smem_u32(ring);
+  float d[2][32];
+  int64_t panel = -1;
+  uint32_t a_loads = 0, phase = 0;
+  int stage = 0;
+  for (int64_t t = t_begin; t < t_end; ++t) {
+    const int64_t pan = t / nt2;
+    const int tile = (int)(t % nt2), b = (int)(pan / nap), ap = (int)(pan % nap);
+    if (pan != panel) {
+      if (a_loads > 0) mbar_arrive(a_empty);
+      mbar_wait(a_full, a_loads & 1);
+      ++a_loads;
+      panel = pan;
+    }
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(&full[stage], phase);
+      fence_acc(d[0]);
+      fence_acc(d[1]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < H_KB / 16; ++kk) {
+        const uint64_t db = sw128_desc(r_base + stage * H_BTILE_BYTES + kk * 32);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint64_t da = sw128_desc(a_base + kb * H_ABLOCK_BYTES + h * 64 * 128 + kk * 32);
+          wgmma_m64n64k16(d[h], da, db, (kb | kk) != 0);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(d[0]);
+      fence_acc(d[1]);
+      mbar_arrive(&empty[stage]);
+      if (++stage == H_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // Pool. d[h][4j + 2i + c] is row 16 warp + (lane >> 2) + 8i of half
+    // h and column 8j + 2 (lane & 3) + c: pooled cell (lane >> 4) + 2i
+    // of the warp's four, parity (lane >> 2) & 3; image-2 cell 2j + b1,
+    // parity 2 b0 + c. Each round pairs lanes and halves what a lane
+    // holds: over c in registers, b0 (splitting j), b2 (splitting i),
+    // b3 (splitting j / 2).
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2][8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i][j] = fmaxf(d[h][4 * j + 2 * i], d[h][4 * j + 2 * i + 1]);
+      float u[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float keep = b0 ? v[i][2 * k + 1] : v[i][2 * k];
+          const float send = b0 ? v[i][2 * k] : v[i][2 * k + 1];
+          u[i][k] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, 1));
+        }
+      float v2[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float keep = b2 ? u[1][k] : u[0][k];
+        const float send = b2 ? u[0][k] : u[1][k];
+        v2[k] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, 4));
+      }
+      // image-1 cell: panel ap, warpgroup wg, half h, warp, 2 b2 + lane bit 4
+      const int p = ap * (H_BM / 4) + wg * 32 + h * 16 + warp * 4 + 2 * b2 + (lane >> 4);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float keep = b3 ? v2[2 * m + 1] : v2[2 * m];
+        const float send = b3 ? v2[2 * m] : v2[2 * m + 1];
+        const float val = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, 8));
+        const int q = tile * (H_BN / 4) + 8 * m + 4 * b3 + 2 * b0 + b1;
+        if (p < np1 && q < np2) out[((int64_t)b * np1 + p) * np2 + q] = val;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// the library needs no link against libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                      cudaEnableDefault, &q);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A 2D bf16 map over (rows, cp) row-major with (H_KB, box_rows) boxes.
+bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cp, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cp, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cp * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)H_KB, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
-extern "C" int p2p_corr_pool(const void* f1, const void* f2, void* out,
-                             int batch, int h1, int w1, int h2, int w2, int c,
-                             int dtype, void* stream) {
-  if (batch <= 0 || c <= 0 || (h1 | w1 | h2 | w2) & 1) return (int)cudaErrorInvalidValue;
-  const int np1 = (h1 / 2) * (w1 / 2), np2 = (h2 / 2) * (w2 / 2);
+// f1, f2: the wrapper's layouts (float32 (B, cp, rp), K-major; bf16
+// (B, rp, cp)); out (B, np1, np2) float32. dtype: 0 = float32,
+// 1 = bfloat16. Returns a cudaError_t.
+extern "C" int p2p_corr_pool(const void* f1, const void* f2, void* out, int batch, int np1,
+                             int np2, int rp1, int rp2, int cp, int dtype, void* stream) {
+  if (batch <= 0 || np1 <= 0 || np2 <= 0 || rp1 < 4 * np1 || rp2 < 4 * np2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) {
-    dim3 grid((np2 + TP - 1) / TP, (np1 + TP * WM - 1) / (TP * WM), batch);
+  if (dtype == 0) {
+    if (rp1 % F_TILE || rp2 % F_TILE || cp <= 0 || cp % F_KC) return (int)cudaErrorInvalidValue;
+    dim3 grid(rp2 / F_TILE, rp1 / F_TILE, batch);
     if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-    corr_pool_bf16_kernel<<<grid, 128 * WM, 0, s>>>(
-        (const __nv_bfloat16*)f1, (const __nv_bfloat16*)f2, (float*)out,
-        h1, w1, h2, w2, c, (c % 8) == 0);
-  } else if (dtype == 0) {
-    dim3 grid((np2 + TP - 1) / TP, (np1 + TP - 1) / TP, batch);
-    if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-    corr_pool_f32_kernel<<<grid, 256, 0, s>>>(
-        (const float*)f1, (const float*)f2, (float*)out, h1, w1, h2, w2, c);
+    corr_pool_f32_kernel<<<grid, 256, 0, s>>>((const float*)f1, (const float*)f2, (float*)out,
+                                              np1, np2, rp1, rp2, cp);
+  } else if (dtype == 1) {
+    if (rp1 % H_BM || rp2 % H_BN || cp <= 0 || cp % H_KB || cp > H_MAX_CP)
+      return (int)cudaErrorInvalidValue;
+    static bool attr_set = false;
+    if (!attr_set) {
+      cudaError_t rc = cudaFuncSetAttribute(corr_pool_bf16_kernel,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            (int)h_smem_bytes(H_MAX_CP));
+      if (rc != cudaSuccess) return (int)rc;
+      attr_set = true;
+    }
+    CUtensorMap map1, map2;
+    if (!make_map(&map1, f1, (int64_t)batch * rp1, cp, H_BM) ||
+        !make_map(&map2, f2, (int64_t)batch * rp2, cp, H_BN))
+      return (int)cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    const int64_t total = (int64_t)batch * (rp1 / H_BM) * (rp2 / H_BN);
+    const int grid = (int)(total < sms ? total : sms);
+    corr_pool_bf16_kernel<<<grid, H_THREADS, h_smem_bytes(cp), s>>>(map1, map2, (float*)out,
+                                                                     batch, np1, np2, rp1, rp2, cp);
   } else {
     return (int)cudaErrorInvalidValue;
   }

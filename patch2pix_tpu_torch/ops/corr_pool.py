@@ -3,7 +3,8 @@
 ``corr_pool(f1, f2)`` equals ``maxpool4d_values(feat_correlation(f1,
 f2), 2)`` without the pre-pool volume (port of
 ``patch2pix_tpu.ops.corr_pool_pallas.corr_pool_fused``). On CUDA tensors
-it launches ``csrc/corr_pool.cu``; on CPU tensors it runs
+it lays the features out for the kernel (:func:`cell_parity_rows`) and
+launches ``csrc/corr_pool.cu``; on CPU tensors it runs
 :func:`corr_pool_plain`. The within-window argmax offsets are not
 produced: :func:`decode_delta_from_feats` recomputes them from the
 features for the few selected cells.
@@ -23,6 +24,10 @@ from patch2pix_tpu_torch.ops.correlation import (
 KSIZE = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"p2p_corr_pool": "pppiiiiiiip"}
+# the kernels' operand layouts: (image-1 row multiple, image-2 row
+# multiple, channel multiple, K-major); see csrc/corr_pool.cu
+LAYOUTS = {torch.float32: (128, 128, 16, True), torch.bfloat16: (256, 64, 64, False)}
+BF16_MAX_C = 384  # the bf16 kernel keeps a 256-row panel of all channels in shared memory
 
 
 def corr_pool_supported(feat1: torch.Tensor, feat2: torch.Tensor, ksize: int) -> bool:
@@ -39,6 +44,34 @@ def corr_pool_plain(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
     return maxpool4d_values(feat_correlation(feat1, feat2), KSIZE)
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def cell_parity_rows(feat: torch.Tensor, row_mult: int, chan_mult: int,
+                     k_major: bool = False) -> torch.Tensor:
+    """The kernels' operand layout of ``(B, h, w, C)`` features (h, w
+    even): ``(B, R, Cp)``, or ``(B, Cp, R)`` if ``k_major``, whose row
+    ``4*p + s`` is feature ``(2*i + d, 2*j + e)`` of pooled cell
+    ``p = i*(w/2) + j`` at window parity ``s = 2*d + e``. R is ``h*w``
+    rounded up to a multiple of ``row_mult``, Cp is C rounded up to a
+    multiple of ``chan_mult``; the padding is zero, which leaves every
+    dot product as it is and only adds cells past the end."""
+    b, h, w, c = feat.shape
+    v = feat.reshape(b, h // 2, 2, w // 2, 2, c)
+    rows = (v.permute(0, 5, 1, 3, 2, 4).reshape(b, c, h * w) if k_major
+            else v.permute(0, 1, 3, 2, 4, 5).reshape(b, h * w, c))
+    rp, cp = _round_up(h * w, row_mult), _round_up(c, chan_mult)
+    if (rp, cp) == (h * w, c):
+        return rows.contiguous()
+    out = feat.new_zeros((b, cp, rp) if k_major else (b, rp, cp))
+    if k_major:
+        out[:, :c, :h * w] = rows
+    else:
+        out[:, :h * w, :c] = rows
+    return out
+
+
 def corr_pool(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
     """``(B, h1, w1, C)``, ``(B, h2, w2, C)`` even spatial dims ->
     ``(B, h1/2, w1/2, h2/2, w2/2)`` float32 pooled correlation."""
@@ -52,15 +85,19 @@ def corr_pool(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"corr_pool: dtypes {feat1.dtype}, {feat2.dtype}")
     if not corr_pool_supported(feat1, feat2, KSIZE) or feat2.shape[0] != b:
         raise ValueError(f"corr_pool: shapes {tuple(feat1.shape)}, {tuple(feat2.shape)}")
-    if not (feat1.is_contiguous() and feat2.is_contiguous()):
-        raise ValueError("corr_pool: inputs must be contiguous")
+    if feat1.dtype == torch.bfloat16 and c > BF16_MAX_C:
+        raise ValueError(f"corr_pool: bf16 takes at most {BF16_MAX_C} channels, not {c}")
+    rows1, rows2, chans, k_major = LAYOUTS[feat1.dtype]
+    a = cell_parity_rows(feat1, rows1, chans, k_major)
+    m = cell_parity_rows(feat2, rows2, chans, k_major)
+    rdim, cdim = (2, 1) if k_major else (1, 2)
     out = torch.empty((b, h1 // 2, w1 // 2, h2 // 2, w2 // 2),
                       dtype=torch.float32, device=feat1.device)
     lib = _build.library("corr_pool", _SIGNATURES)
     rc = lib.p2p_corr_pool(
-        feat1.data_ptr(), feat2.data_ptr(), out.data_ptr(),
-        b, h1, w1, h2, w2, c, _DTYPES[feat1.dtype],
-        _build.current_stream(feat1.device),
+        a.data_ptr(), m.data_ptr(), out.data_ptr(), b, (h1 // 2) * (w1 // 2),
+        (h2 // 2) * (w2 // 2), a.shape[rdim], m.shape[rdim], a.shape[cdim],
+        _DTYPES[feat1.dtype], _build.current_stream(feat1.device),
     )
     _build.check_launch(rc, "corr_pool")
     corr_pool.launches += 1

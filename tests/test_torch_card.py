@@ -88,7 +88,11 @@ def test_tap_sum_bit_identical(cuda, dtype, bs, h1, w1, hw, cout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h1,w1,h2,w2,c", [(2, 8, 12, 10, 6, 96), (1, 6, 70, 4, 36, 20)])
+@pytest.mark.parametrize("b,h1,w1,h2,w2,c", [
+    (2, 8, 12, 10, 6, 96), (1, 6, 70, 4, 36, 20),
+    (2, 18, 26, 22, 30, 256),  # C of the main path, pooled grids ragged against every tile
+    (2, 48, 64, 48, 64, 256),  # the upsample-16 main-path shape
+])
 def test_corr_pool_matches_plain(cuda, dtype, b, h1, w1, h2, w2, c):
     f1 = _unit_feats(1, b, h1, w1, c).to(cuda, dtype)
     f2 = _unit_feats(2, b, h2, w2, c).to(cuda, dtype)
@@ -214,6 +218,9 @@ def test_wrappers_reject_bad_inputs(cuda):
         corr_pool(f, f.cpu())
     with pytest.raises(ValueError):
         corr_pool(f[:, :3], f)
+    wide = torch.zeros((1, 4, 4, 392), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # beyond the bf16 kernel's resident panel
+        corr_pool(wide, wide)
     x = torch.zeros((1, 2, 2, 3, 3, 4), device=cuda)
     with pytest.raises(ValueError):  # cin * cout > 16: not B4's range
         conv4d_small(x, torch.zeros((3, 3, 3, 3, 4, 5), device=cuda))

@@ -7,6 +7,8 @@ them (Pallas in interpret mode, or their jnp formulation). Tolerances:
 
   * B1 tap_sum: exact in f32 (the same nine f32 adds in tap order);
   * B2 corr_pool: rtol 1e-5 (dot products summed in another order);
+    its kernels' operand layout, fed through a plain matmul and a max
+    over aligned groups of four rows, the same;
   * decode_delta_from_feats: exact, first max on ties;
   * B3 expand_scale_pair: f32 rtol 1e-6, bf16 one bf16 ulp (channel
     square-sums in another order), identical ``output_slice_map``.
@@ -31,6 +33,8 @@ from patch2pix_tpu.ops.patch_expand_pallas import (
 from patch2pix_tpu.ops.patch_expand_pallas import output_slice_map as jax_slice_map
 from patch2pix_tpu.ops.tap_sum_pallas import tap_sum_pallas, tap_sum_pallas_t
 from patch2pix_tpu_torch.ops.corr_pool import (
+    LAYOUTS,
+    cell_parity_rows,
     corr_pool,
     corr_pool_plain,
     decode_delta_from_feats,
@@ -115,6 +119,31 @@ def test_corr_pool_plain_matches_pallas(b, h1, w1, h2, w2, c):
     got = corr_pool_plain(torch.from_numpy(f1), torch.from_numpy(f2)).numpy()
     want = np.asarray(corr_pool_fused(jnp.asarray(f1), jnp.asarray(f2), True))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS, key=str), ids=str)
+@pytest.mark.parametrize("b,h1,w1,h2,w2,c", [(3, 6, 10, 10, 14, 20),   # 15 x 35 cells
+                                              (3, 12, 18, 8, 22, 96)])  # 54 x 44 cells
+def test_corr_pool_layout_matches_plain_and_pallas(layout, b, h1, w1, h2, w2, c):
+    """The (pooled cell, parity) rows the CUDA kernels read, padded to
+    their tiles: one matmul, then the max over each cell's four rows on
+    both sides, is the pooled correlation."""
+    rows1, rows2, chans, k_major = LAYOUTS[layout]
+    f1 = _unit_feats(5, b, h1, w1, c)
+    f2 = _unit_feats(6, b, h2, w2, c)
+    a = cell_parity_rows(torch.from_numpy(f1), rows1, chans, k_major)
+    m = cell_parity_rows(torch.from_numpy(f2), rows2, chans, k_major)
+    if k_major:
+        a, m = a.transpose(1, 2), m.transpose(1, 2)
+    r1, r2 = a.shape[1], m.shape[1]
+    assert r1 % rows1 == 0 and r2 % rows2 == 0 and a.shape[2] % chans == 0
+    np1, np2 = (h1 // 2) * (w1 // 2), (h2 // 2) * (w2 // 2)
+    pooled = torch.matmul(a, m.transpose(1, 2)).reshape(b, r1 // 4, 4, r2 // 4, 4)
+    got = pooled.amax(dim=(2, 4))[:, :np1, :np2].reshape(b, h1 // 2, w1 // 2, h2 // 2, w2 // 2)
+    want = corr_pool_plain(torch.from_numpy(f1), torch.from_numpy(f2))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    pallas = np.asarray(corr_pool_fused(jnp.asarray(f1), jnp.asarray(f2), True))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-6)
 
 
 def test_decode_delta_from_feats_matches_jax_with_ties():
