@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      proposals, F = 512; B2 also at upsample 16), in bf16 and in float32:
      hold the kernel against its plain PyTorch version on the card, time
      kernel, plain version and library yardstick, and compute the bound
-     from the bytes and operations this run's inputs need;
+     from the bytes and operations this run's inputs need (B3 also
+     prints its share of the bound);
   3. golden parity in float32 with TF32 off: rebuild the seeded weights
      and reproduce ``tests/fixtures/pipeline_golden_{s16,cs}_1024.npz``
      (identical coarse set, coords 0.05 px, scores 5e-3) — every kernel's
@@ -23,8 +24,9 @@ Phases, each fatal on failure:
      change_stride and upsample 16: output checks, kernel launches per
      call, pairs/s over 10 calls back to back, the median latency of 10
      calls each waited for, peak device memory; then, per stride, the
-     top device kernels and the device busy share over 3 calls under
-     torch.profiler (after the launch counts are read);
+     top device kernels (and the port's own wherever they rank) and the
+     device busy share over 3 calls under torch.profiler (after the
+     launch counts are read);
   5. the conv4d path: a symmetric NeighConsensus with channels (4, 4, 1)
      in bf16 on the change_stride volume — B4 twice and B1 twice per
      call, output held against the same NCN with B4's plain version;
@@ -77,7 +79,9 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_scale_pair,
     expand_scale_pair_plain,
     output_slice_map,
+    window_extent,
 )
+from patch2pix_tpu_torch.ops.patch_expand import plan as expand_plan
 from patch2pix_tpu_torch.ops.tap_sum import flat_shift_masks, tap_sum, tap_sum_plain
 from tests.ref_loader import seeded_state_dict
 
@@ -103,6 +107,11 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
     expand_level: ("expand_level", "patch2pix_tpu_torch/csrc/patch_expand.cu",
                    "tools/try_expand_kernels.py:93"),
 }
+
+# the device functions of csrc/*.cu, as the profiler names them
+PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_f32_kernel",
+                     "expand_kernel", "expand_level_kernel", "conv4d_small_kernel",
+                     "fine_head_bf16_kernel", "fine_head_f32_kernel")
 
 # the main path's setting: 1024x768, B=2, fine_cap 1200
 H, W, BATCH, FINE_CAP = 768, 1024, 2, 1200
@@ -259,8 +268,9 @@ def check_expand(dtype, gen, dev):
     levels = ((16, 3), (8, 64), (4, 64), (2, 128))
     rows = [[torch.randn((m, 4, t, t * c), generator=gen, device=dev).to(dtype)
              for t, c in levels] for _ in range(2)]
-    corners = [torch.randint(0, W + psize, (m,), generator=gen, device=dev,
-                             dtype=torch.int32) for _ in range(4)]
+    # (y1, x1, y2, x2): padded corners in [0, H + psize) and [0, W + psize)
+    corners = [torch.randint(0, lim + psize, (m,), generator=gen, device=dev,
+                             dtype=torch.int32) for lim in (H, W, H, W)]
     args = (rows[0], rows[1], *corners, psize, dtype)
     got = expand_scale_pair(*args)
     want = expand_scale_pair_plain(*args)
@@ -290,11 +300,13 @@ def check_expand(dtype, gen, dev):
     flops = 3 * 2 * m * psize * psize * sum(c for _, c in levels)
     rows_bytes = window_bytes(levels, corners, psize, rows[0][0].element_size())
     b_ms, b_by = bound(rows_bytes + nbytes(*corners, *got), flops, torch.float32)
+    smem = expand_plan(levels, psize, rows[0][0].element_size()).smem
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 shape=f"M={m} rows {[tuple(r.shape) for r in rows[0]]} {dtype}{note}, "
                       f"window reads {rows_bytes / 1e6:.1f} MB of "
-                      f"{nbytes(*rows[0], *rows[1]) / 1e6:.1f} MB rows")
+                      f"{nbytes(*rows[0], *rows[1]) / 1e6:.1f} MB rows, "
+                      f"{smem} B shared memory a block, {100 * b_ms / ms:.1f}% of its bound")
 
 
 def expand_bf16_mismatch(got, want, levels, psize):
@@ -334,12 +346,8 @@ def window_bytes(levels, corners, psize, elsize):
     alignment), C channels each."""
     total = 0
     for t, c in levels:
-        ds = psize // t
         for y0, x0 in zip(corners[0::2], corners[1::2]):
-            cells = 1
-            for b in (y0, x0):
-                b = b.long().clamp_min(0)
-                cells = cells * ((b + psize - 1) // ds - b // ds + 1)
+            cells = window_extent(y0, psize, t)[1] * window_extent(x0, psize, t)[1]
             total += int(cells.sum()) * c * elsize
     return total
 
@@ -540,8 +548,9 @@ def check_outputs(tag, fine, mid, cm, b, h, w):
 
 
 def profile_main_path(tag, call, iters=3):
-    """The top device kernels and the device busy share over ``iters``
-    main-path calls (torch.profiler)."""
+    """The top device kernels, the port's kernels wherever they rank,
+    and the device busy share over ``iters`` main-path calls
+    (torch.profiler)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -562,8 +571,12 @@ def profile_main_path(tag, call, iters=3):
     log(f"profile {tag}: device busy {100 * busy / wall_us:.1f}% of "
         f"{wall_us / iters / 1e3:.2f} ms/call wall, {sum(n for _, n in kernels.values()) / iters:.0f}"
         f" device ops/call")
-    for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"  kernel {us / iters / 1e3:8.3f} ms/call x{n // iters:<4d} {name[:110]}")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (us, n)) in enumerate(ranked):
+        # the top 15, and the port's own kernels wherever they rank
+        if rank < 15 or any(k in name for k in PORT_KERNEL_NAMES):
+            log(f"  kernel {us / iters / 1e3:8.3f} ms/call x{n // iters:<4d} #{rank + 1:<3d} "
+                f"{name[:110]}")
 
 
 # ------------------------------------------------------------ phase 5/6

@@ -2,7 +2,7 @@
 // normalisation + scaling, for both sides of each proposal pair; and B7,
 // the one-level, one-sided, unscaled expansion.
 //
-// Replaces patch2pix_tpu/ops/patch_expand_pallas.py
+// B3 replaces patch2pix_tpu/ops/patch_expand_pallas.py
 // expand_scale_pair_pallas (_pallas_impl / _kernel). Per pyramid level l
 // (tile side t, channels c, stride ds = psize / t) and side, the input
 // rows are (M, 4, t, t*c): the 2x2 superblock of space-to-depth tiles
@@ -18,16 +18,33 @@
 //
 // Every level, the 3-channel image level included, is done here. A
 // level's output is either channel-paired (side 1 in channels [0, c),
-// side 2 in [c, 2c) of one tensor) or one tensor per side; the caller
-// passes each side's output pointer and the output row stride.
+// side 2 in [c, 2c) of one tensor) or one tensor per side.
 //
-// Bound on the H100: memory (the rows are read once, the scaled
-// patches written once; the patches are 2.7x the rows). Design: one
-// block per (proposal, side). Phase 1 gives one thread per patch pixel
-// its square-sum; the inverse norms go to shared memory. Phase 2 walks
-// each level's output with consecutive threads on consecutive channels,
-// so both the row reads and the patch writes are coalesced. The window
-// selection is plain indexed reads.
+// Bound on the H100: memory. A call reads each side's window cells (at
+// most (t+1)^2 cells of c values a level: 8,704 values a proposal side
+// at the main path's levels) and writes the scaled patches (npix * 259
+// values a side there, 30x the window), at 3.35 TB/s; the operations are
+// a few per output value. So the design spends its instructions on the
+// writes. One block per proposal does both sides, so a channel-paired
+// pixel row is written whole by one block:
+//   1. the window's first cell on each axis and, per patch row and
+//      column, the window cell it reads (tables in shared memory);
+//   2. every level's and side's window, (t+1)^2 cells (t^2 where ds = 1),
+//      staged in shared memory once with 16-byte cp.async copies (element
+//      copies where a cell is not a whole number of 16-byte units);
+//   3. each staged cell's square-sum, once, in channel order (the first
+//      version summed a cell again for each of its ds^2 pixels);
+//   4. per pixel and side, the levels' cell sums in pyramid order, then
+//      inv, in shared memory;
+//   5. the writes: each thread scales and stores 16 bytes of one pixel's
+//      channels (one uint4 load from the window, one uint4 store); a level
+//      whose cell is not a whole number of 16-byte units (the C=3 image
+//      level) is written as flat 16-byte runs of its per-side output.
+// The window cell stride is padded to an odd number of 16-byte units, so
+// that threads summing neighbouring cells read distinct banks. Divisions
+// by runtime sizes are multiply-shifts whose constants the wrapper plans
+// (ops/patch_expand.py plan). The shared memory a block takes (44.6 KB
+// in bf16, 79.4 KB in f32 at the main path's levels) is planned there too.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,19 +53,40 @@
 namespace {
 
 constexpr int MAX_LEVELS = 8;
+constexpr int THREADS = 256;
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may take on sm_90
 
+// x / d for 0 <= x < 2^31 as (umulhi(x, m) + x) >> s
+struct FastDiv {
+  uint32_t m, s;
+};
+
+// B3's launch plan for one level. ops/patch_expand.py _Level mirrors the
+// layout and fills it.
 struct Level {
-  const void* rows[2];  // per side: (M, 4, t, t*c)
-  void* out[2];         // per side: first channel of the side's output
-  int t, c, ostride;    // tile side, channels, output elements per pixel
+  const void* rows[2];    // per side: (M, 4, t, t*c)
+  void* out[2];           // per side: first channel of the side's output
+  int32_t t, c, ostride;  // tile side, channels, output elements per pixel
+  int32_t w;              // staged window side in cells: t + 1, or t where ds = 1
+  int32_t cstride;        // staged elements per cell
+  int32_t win[2];         // per side: byte offset of the staged window
+  int32_t sq[2];          // per side: float offset of its cells' square-sums
+  int32_t vec;            // c * elsize % 16 == 0: cells move in 16-byte chunks
+  FastDiv by_w, by_chunks, by_c, by_pixel_chunks;  // w, c / V, c, 2c / V
 };
 
 struct Args {
   Level lv[MAX_LEVELS];
-  const int* y[2];
-  const int* x[2];
-  int n_levels, psize;
+  const int32_t* y[2];  // per side: (M,) padded corners
+  const int32_t* x[2];
+  int32_t n_levels, psize, m, elsize;
+  FastDiv by_psize;
+  int32_t inv_off, tab_off, geo_off, smem;  // shared-memory layout, bytes
 };
+
+__device__ __forceinline__ int fdiv(int x, FastDiv f) {
+  return (int)((__umulhi((uint32_t)x, f.m) + (uint32_t)x) >> f.s);
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -59,7 +97,42 @@ __device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Offset of pixel (p, q)'s channel 0 inside proposal m's level rows.
+// 16 bytes <-> 4 floats or 8 bf16 values widened to float
+__device__ __forceinline__ void unpack(uint4 u, float* f, float*) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(uint4 u, float* f, __nv_bfloat16*) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint4 pack(const float* f, float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *(const uint32_t*)&v;
+}
+__device__ __forceinline__ uint4 pack(const float* f, __nv_bfloat16*) {
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Offset of pixel (p, q)'s channel 0 inside proposal m's level rows (B7).
 __device__ __forceinline__ int64_t pixel_offset(int m, int p, int q, int y0, int x0,
                                                 int psize, int t, int c) {
   const int ds = psize / t;
@@ -70,42 +143,161 @@ __device__ __forceinline__ int64_t pixel_offset(int m, int p, int q, int y0, int
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256) expand_kernel(Args a) {
-  extern __shared__ float inv_s[];  // psize*psize inverse norms
-  const int m = blockIdx.x, side = blockIdx.y;
-  const int psize = a.psize, npix = psize * psize;
-  // a negative corner counts as 0 (the gather clips corners at 0), so
-  // every read stays inside the proposal's rows
-  const int y0 = max(a.y[side][m], 0), x0 = max(a.x[side][m], 0);
+__global__ void __launch_bounds__(THREADS) expand_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int V = 16 / sizeof(T);  // values per 16-byte chunk
+  const int m = blockIdx.x, tid = threadIdx.x;
+  const int psize = a.psize, npix = psize * psize, nl = a.n_levels;
+  float* inv_s = (float*)(smem + a.inv_off);  // [side][pixel]
+  // [side][level][axis][psize]: the window cell of each patch row (times
+  // the window side) and column
+  int* tab = (int*)(smem + a.tab_off);
+  int* geo = (int*)(smem + a.geo_off);  // [side][level][axis]: first window cell
 
-  for (int pix = threadIdx.x; pix < npix; pix += blockDim.x) {
-    const int p = pix / psize, q = pix % psize;
-    float sq = 0.0f;
-    for (int l = 0; l < a.n_levels; ++l) {
-      const Level& L = a.lv[l];
-      const T* src = (const T*)L.rows[side] + pixel_offset(m, p, q, y0, x0, psize, L.t, L.c);
-      float s = 0.0f;
-      for (int k = 0; k < L.c; ++k) {
-        const float v = widen(src[k]);
-        s = __fadd_rn(s, __fmul_rn(v, v));
-      }
-      sq = l == 0 ? s : __fadd_rn(sq, s);
-    }
-    inv_s[pix] = round_to(rsqrtf(__fadd_rn(sq, 1e-6f)), (T*)nullptr);
+  // 1. window geometry; a negative corner counts as 0 (the gather clips
+  // corners at 0), so every read stays inside the proposal's rows
+  for (int i = tid; i < 4 * nl * psize; i += THREADS) {
+    const int k = i / psize, d = i - k * psize;
+    const int axis = k & 1, l = (k >> 1) % nl, side = (k >> 1) / nl;
+    const Level& lv = a.lv[l];
+    const int base = max((axis ? a.x[side] : a.y[side])[m], 0);
+    const int ds = psize / lv.t, r = base % psize, w0 = r / ds;
+    const int cell = (r + d) / ds - w0;
+    tab[i] = axis ? cell : cell * lv.w;
+    if (d == 0) geo[k] = w0;
   }
   __syncthreads();
 
-  for (int l = 0; l < a.n_levels; ++l) {
-    const Level& L = a.lv[l];
-    const T* rows = (const T*)L.rows[side];
-    T* out = (T*)L.out[side];
-    const int c = L.c;
-    for (int e = threadIdx.x; e < npix * c; e += blockDim.x) {
-      const int pix = e / c, k = e % c;
-      const int p = pix / psize, q = pix % psize;
-      const float v = widen(rows[pixel_offset(m, p, q, y0, x0, psize, L.t, c) + k]);
-      narrow(__fmul_rn(v, inv_s[pix]),
-             out + ((int64_t)m * npix + pix) * L.ostride + k);
+  // 2. stage every level's and side's window
+  for (int l = 0; l < nl; ++l) {
+    const Level& lv = a.lv[l];
+    const int t = lv.t, c = lv.c, w = lv.w;
+    const bool vec = lv.vec && (((uintptr_t)lv.rows[0] | (uintptr_t)lv.rows[1]) & 15) == 0;
+    const int per_cell = vec ? c / V : c;
+    for (int side = 0; side < 2; ++side) {
+      const T* rows = (const T*)lv.rows[side] + (int64_t)m * 4 * t * t * c;
+      T* win = (T*)(smem + lv.win[side]);
+      const int wy0 = geo[(side * nl + l) * 2], wx0 = geo[(side * nl + l) * 2 + 1];
+      for (int u = tid; u < w * w * per_cell; u += THREADS) {
+        const int cell = fdiv(u, vec ? lv.by_chunks : lv.by_c);
+        const int k = (u - cell * per_cell) * (vec ? V : 1);
+        const int wy = fdiv(cell, lv.by_w), wx = cell - wy * w;
+        const int y = wy0 + wy, x = wx0 + wx, ty = y >= t, tx = x >= t;
+        const T* src = rows + (((ty * 2 + tx) * t + y - ty * t) * t + x - tx * t) * c + k;
+        T* dst = win + cell * lv.cstride + k;
+        if (vec) {
+          cp_async16(dst, src);
+        } else {
+          *dst = *src;
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 3. each staged cell's square-sum, in channel order. Cells are dealt
+  // out in one count over levels and sides, so the long cells of the
+  // wide levels fall to different threads.
+  int first = 0;
+  for (int l = 0; l < nl; ++l) {
+    const Level& lv = a.lv[l];
+    const int n = lv.w * lv.w;
+    for (int side = 0; side < 2; ++side, first += n) {
+      const T* win = (const T*)(smem + lv.win[side]);
+      float* sq = (float*)smem + lv.sq[side];
+      for (int cell = (tid + THREADS - first % THREADS) % THREADS; cell < n; cell += THREADS) {
+        const T* e = win + cell * lv.cstride;
+        float s = 0.0f;
+        if (lv.vec) {
+          for (int k = 0; k < lv.c; k += V) {
+            float f[V];
+            unpack(*(const uint4*)(e + k), f, (T*)nullptr);
+#pragma unroll
+            for (int j = 0; j < V; ++j) s = __fadd_rn(s, __fmul_rn(f[j], f[j]));
+          }
+        } else {
+          for (int k = 0; k < lv.c; ++k) {
+            const float v = widen(e[k]);
+            s = __fadd_rn(s, __fmul_rn(v, v));
+          }
+        }
+        sq[cell] = s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. per pixel and side: the levels' sums in pyramid order, then inv
+  for (int i = tid; i < 2 * npix; i += THREADS) {
+    const int side = i >= npix, pix = i - side * npix;
+    const int p = fdiv(pix, a.by_psize), q = pix - p * psize;
+    float sq = 0.0f;
+    for (int l = 0; l < nl; ++l) {
+      const int* tb = tab + (side * nl + l) * 2 * psize;
+      const float s = ((const float*)smem + a.lv[l].sq[side])[tb[p] + tb[psize + q]];
+      sq = l == 0 ? s : __fadd_rn(sq, s);
+    }
+    inv_s[i] = round_to(rsqrtf(__fadd_rn(sq, 1e-6f)), (T*)nullptr);
+  }
+  __syncthreads();
+
+  // 5. the scaled patches
+  for (int l = 0; l < nl; ++l) {
+    const Level& lv = a.lv[l];
+    const int c = lv.c;
+    // the staged window cell that pixel pix of one side reads
+    auto cell_of = [&](int side, int pix) {
+      const int p = fdiv(pix, a.by_psize), q = pix - p * psize;
+      const int* tb = tab + (side * nl + l) * 2 * psize;
+      return (const T*)(smem + lv.win[side]) + (tb[p] + tb[psize + q]) * lv.cstride;
+    };
+    auto scaled = [&](int side, int pix, int ch) {
+      return __fmul_rn(widen(cell_of(side, pix)[ch]), inv_s[side * npix + pix]);
+    };
+    if (lv.vec) {
+      // chunk k: 16 bytes of pixel k / (2c/V), side 1's chunks then side 2's
+      const int chunks = c / V, per_pix = 2 * chunks;
+      for (int k = tid; k < npix * per_pix; k += THREADS) {
+        const int pix = fdiv(k, lv.by_pixel_chunks), j = k - pix * per_pix;
+        const int side = j >= chunks, ch = (j - side * chunks) * V;
+        const float iv = inv_s[side * npix + pix];
+        float f[V];
+        unpack(*(const uint4*)(cell_of(side, pix) + ch), f, (T*)nullptr);
+#pragma unroll
+        for (int j2 = 0; j2 < V; ++j2) f[j2] = __fmul_rn(f[j2], iv);
+        *(uint4*)((T*)lv.out[side] + ((int64_t)m * npix + pix) * lv.ostride + ch) =
+            pack(f, (T*)nullptr);
+      }
+    } else {
+      // a per-side output (ostride == c): the proposal's npix * c values
+      // are one flat run, written in 16-byte chunks between an unaligned
+      // head and tail of single values
+      const int len = npix * c;
+      for (int side = 0; side < 2; ++side) {
+        T* out = (T*)lv.out[side] + (int64_t)m * len;
+        const int head = min(len, (int)(((16 - ((uintptr_t)out & 15)) & 15) / sizeof(T)));
+        const int chunks = (len - head) / V, tail = head + chunks * V;
+        for (int k = tid; k < chunks; k += THREADS) {
+          const int e0 = head + k * V;
+          int pix = fdiv(e0, lv.by_c), ch = e0 - pix * c;
+          float f[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            f[j] = scaled(side, pix, ch);
+            if (++ch == c) {
+              ch = 0;
+              ++pix;
+            }
+          }
+          *(uint4*)(out + e0) = pack(f, (T*)nullptr);
+        }
+        for (int k = tid; k < head + len - tail; k += THREADS) {
+          const int e = k < head ? k : tail + k - head;
+          const int pix = fdiv(e, lv.by_c);
+          narrow(scaled(side, pix, e - pix * c), out + e);
+        }
+      }
     }
   }
 }
@@ -152,45 +344,40 @@ extern "C" int p2p_expand_level(const void* rows, const void* y0, const void* x0
   return (int)cudaGetLastError();
 }
 
-// B3. rows1/rows2/out1/out2: per-level pointer arrays; t, c, ostride:
-// per-level ints; y1, x1, y2, x2: (M,) int32 padded corners on the
-// device. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
-extern "C" int p2p_patch_expand(const void* const* rows1, const void* const* rows2,
-                                void* const* out1, void* const* out2,
-                                const int* t, const int* c, const int* ostride,
-                                int n_levels, const void* y1, const void* x1,
-                                const void* y2, const void* x2, int m, int psize,
-                                int dtype, void* stream) {
-  if (n_levels <= 0 || n_levels > MAX_LEVELS || m <= 0 || psize <= 0 ||
-      psize * psize > 4096) {
+// The size of B3's Args, which the wrapper checks its mirror against.
+extern "C" int p2p_expand_args_size() { return (int)sizeof(Args); }
+
+// B3. args: an Args (the plan of ops/patch_expand.py with its pointers
+// filled in); dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int p2p_patch_expand(const void* args, int dtype, void* stream) {
+  const Args& a = *(const Args*)args;
+  if ((dtype != 0 && dtype != 1) || a.elsize != (dtype == 1 ? 2 : 4) || a.n_levels <= 0 ||
+      a.n_levels > MAX_LEVELS || a.m <= 0 || a.psize <= 0 || a.psize * a.psize > 4096 ||
+      a.smem <= 0 || a.smem > MAX_SMEM) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
-  for (int l = 0; l < n_levels; ++l) {
-    if (t[l] <= 0 || psize % t[l] != 0) return (int)cudaErrorInvalidValue;
-    a.lv[l].rows[0] = rows1[l];
-    a.lv[l].rows[1] = rows2[l];
-    a.lv[l].out[0] = out1[l];
-    a.lv[l].out[1] = out2[l];
-    a.lv[l].t = t[l];
-    a.lv[l].c = c[l];
-    a.lv[l].ostride = ostride[l];
+  for (int l = 0; l < a.n_levels; ++l) {
+    const Level& lv = a.lv[l];
+    if (lv.t <= 0 || lv.c <= 0 || a.psize % lv.t != 0) return (int)cudaErrorInvalidValue;
+    // 16-byte stores need aligned outputs; flat runs need per-side outputs
+    const bool ok = lv.vec ? (lv.c * a.elsize % 16 == 0 && lv.ostride * a.elsize % 16 == 0 &&
+                              (((uintptr_t)lv.out[0] | (uintptr_t)lv.out[1]) & 15) == 0)
+                           : lv.ostride == lv.c;
+    if (!ok) return (int)cudaErrorInvalidValue;
   }
-  a.y[0] = (const int*)y1;
-  a.x[0] = (const int*)x1;
-  a.y[1] = (const int*)y2;
-  a.x[1] = (const int*)x2;
-  a.n_levels = n_levels;
-  a.psize = psize;
-  dim3 grid(m, 2);
-  const size_t smem = sizeof(float) * psize * psize;
+  static int attr_smem[2] = {0, 0};  // dynamic shared memory set up per instantiation
+  if (a.smem > attr_smem[dtype]) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        dtype == 1 ? (const void*)expand_kernel<__nv_bfloat16> : (const void*)expand_kernel<float>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (rc != cudaSuccess) return (int)rc;
+    attr_smem[dtype] = a.smem;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
-    expand_kernel<__nv_bfloat16><<<grid, 256, smem, s>>>(a);
-  } else if (dtype == 0) {
-    expand_kernel<float><<<grid, 256, smem, s>>>(a);
+    expand_kernel<__nv_bfloat16><<<a.m, THREADS, a.smem, s>>>(a);
   } else {
-    return (int)cudaErrorInvalidValue;
+    expand_kernel<float><<<a.m, THREADS, a.smem, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,9 @@ Order of work: square-sums in float32 per level, levels added in
 pyramid order; ``inv`` rounded once to ``out_dtype``; then the float32
 product of the rounded operands, rounded once. On CUDA tensors
 :func:`expand_scale_pair` launches ``csrc/patch_expand.cu``; on CPU
-tensors it runs :func:`expand_scale_pair_plain`.
+tensors it runs :func:`expand_scale_pair_plain`. The kernel stages each
+proposal's windows in shared memory; :func:`plan` lays that memory out
+and gives the kernel its divisor constants.
 
 :func:`expand_level` (kernel B7, a second entry point of the same
 source) is the one-level, one-sided, unscaled expansion that the fused
@@ -24,6 +26,7 @@ fine-stage head's prolog needs; it is a pure gather, bit-identical to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -32,8 +35,11 @@ from patch2pix_tpu_torch.ops import _build
 
 EPS = 1e-6
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"p2p_patch_expand": "pppppppippppiiip",
+_SIGNATURES = {"p2p_patch_expand": "pip",
+               "p2p_expand_args_size": "",
                "p2p_expand_level": "ppppiiiiip"}
+MAX_LEVELS = 8
+SMEM_LIMIT = 232448  # bytes of shared memory one block may take on the H100
 
 
 def _paired(c: int) -> bool:
@@ -67,6 +73,111 @@ def _window_indices(base: torch.Tensor, psize: int, ds: int) -> torch.Tensor:
     b = base.long().clamp_min(0)[:, None]
     return torch.div(b + d, ds, rounding_mode="floor") - torch.div(
         b, psize, rounding_mode="floor") * t
+
+
+def window_extent(base: torch.Tensor, psize: int, t: int):
+    """(M,) padded corners -> (first cell, cells) of each patch's window
+    along one axis of a level with tile side ``t``: the span of
+    :func:`_window_indices`, as the kernel computes it."""
+    ds = psize // t
+    r = base.long().clamp_min(0) % psize
+    first = r // ds
+    return first, (r + psize - 1) // ds - first + 1
+
+
+def window_side(t: int, psize: int) -> int:
+    """Cells a side of the window the kernel stages: psize pixels at
+    stride ds = psize / t cover t cells, or t + 1 where they start inside
+    a cell, which needs ds > 1. It never leaves the superblock: the first
+    cell is at most t - 1."""
+    return t + (psize // t > 1)
+
+
+def fast_div(d: int) -> Tuple[int, int]:
+    """(m, s) with x // d == (umulhi(x, m) + x) >> s for 0 <= x < 2**31,
+    where umulhi(x, m) = (x * m) >> 32: the kernel's divisions."""
+    s = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << s) - d)) // d + 1, s
+
+
+def _cell_stride(c: int, elsize: int) -> int:
+    """Staged elements per window cell: C, padded where a cell is whole
+    16-byte units to an odd count of them, so that threads reading
+    neighbouring cells at one offset hit different banks."""
+    units, rest = divmod(c * elsize, 16)
+    return c if rest else (units | 1) * 16 // elsize
+
+
+class _FastDiv(ctypes.Structure):
+    _fields_ = [("m", ctypes.c_uint32), ("s", ctypes.c_uint32)]
+
+
+class _Level(ctypes.Structure):
+    """``Level`` of ``csrc/patch_expand.cu``, field for field."""
+    _fields_ = [("rows", ctypes.c_void_p * 2), ("out", ctypes.c_void_p * 2),
+                ("t", ctypes.c_int32), ("c", ctypes.c_int32), ("ostride", ctypes.c_int32),
+                ("w", ctypes.c_int32), ("cstride", ctypes.c_int32),
+                ("win", ctypes.c_int32 * 2), ("sq", ctypes.c_int32 * 2),
+                ("vec", ctypes.c_int32),
+                ("by_w", _FastDiv), ("by_chunks", _FastDiv), ("by_c", _FastDiv),
+                ("by_pixel_chunks", _FastDiv)]
+
+
+class _Args(ctypes.Structure):
+    """``Args`` of ``csrc/patch_expand.cu``, field for field."""
+    _fields_ = [("lv", _Level * MAX_LEVELS),
+                ("y", ctypes.c_void_p * 2), ("x", ctypes.c_void_p * 2),
+                ("n_levels", ctypes.c_int32), ("psize", ctypes.c_int32),
+                ("m", ctypes.c_int32), ("elsize", ctypes.c_int32),
+                ("by_psize", _FastDiv),
+                ("inv_off", ctypes.c_int32), ("tab_off", ctypes.c_int32),
+                ("geo_off", ctypes.c_int32), ("smem", ctypes.c_int32)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(shapes: Tuple[Tuple[int, int], ...], psize: int, elsize: int) -> _Args:
+    """B3's launch plan for levels ``shapes`` = ((t, C), ...) at ``psize``
+    and ``elsize`` bytes per value, pointers unset: window sides, staged
+    cell strides, divisor constants and the shared-memory layout (bytes):
+    both sides' windows, 16-byte aligned; each window cell's square-sum
+    (float32); ``inv`` per side and pixel (float32); the cell tables
+    (int32, per side, level and axis, psize each); the first window cells
+    (int32, per side, level and axis). Raises ValueError on shapes the
+    kernel does not take."""
+    if not 0 < len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"expand_scale_pair: {len(shapes)} levels, at most {MAX_LEVELS}")
+    if psize <= 0 or psize * psize > 4096 or any(
+            t <= 0 or c <= 0 or psize % t for t, c in shapes):
+        raise ValueError(f"expand_scale_pair: levels {shapes} at psize {psize}")
+    vec = 16 // elsize
+    a = _Args(n_levels=len(shapes), psize=psize, elsize=elsize,
+              by_psize=_FastDiv(*fast_div(psize)))
+    off = 0
+    for side in (0, 1):
+        for lv, (t, c) in zip(a.lv, shapes):
+            lv.win[side] = off
+            off += -(-window_side(t, psize) ** 2 * _cell_stride(c, elsize) * elsize // 16) * 16
+    sq = off // 4
+    for side in (0, 1):
+        for lv, (t, _) in zip(a.lv, shapes):
+            lv.sq[side] = sq
+            sq += window_side(t, psize) ** 2
+    a.inv_off = 4 * sq
+    a.tab_off = a.inv_off + 4 * 2 * psize * psize
+    a.geo_off = a.tab_off + 4 * 4 * len(shapes) * psize
+    a.smem = a.geo_off + 4 * 4 * len(shapes)
+    if a.smem > SMEM_LIMIT:
+        raise ValueError(f"expand_scale_pair: levels {shapes} at psize {psize} need "
+                         f"{a.smem} bytes of shared memory, more than {SMEM_LIMIT}")
+    for lv, (t, c) in zip(a.lv, shapes):
+        w = window_side(t, psize)
+        lv.t, lv.c, lv.w, lv.cstride = t, c, w, _cell_stride(c, elsize)
+        lv.ostride = 2 * c if _paired(c) else c
+        lv.vec = int(c % vec == 0)
+        for name, d in (("by_w", w), ("by_chunks", max(c // vec, 1)), ("by_c", c),
+                        ("by_pixel_chunks", max(2 * c // vec, 1))):
+            setattr(lv, name, _FastDiv(*fast_div(d)))
+    return a
 
 
 def expand_level_plain(rows: torch.Tensor, y0, x0, psize: int) -> torch.Tensor:
@@ -163,34 +274,38 @@ def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
         if c.dtype != torch.int32 or c.shape != (m,) or not c.is_contiguous():
             raise ValueError("expand_scale_pair: corners must be contiguous "
                              "(M,) int32")
-    outs, levels = [], []  # per level: rows1, rows2, out1, out2, t, c, stride
+    if len(rows1) != len(rows2):
+        raise ValueError(f"expand_scale_pair: {len(rows1)} levels of side 1, "
+                         f"{len(rows2)} of side 2")
+    shapes = []
     for r1, r2 in zip(rows1, rows2):
         m_, four, t, tc = r1.shape
-        c = tc // t
-        if (r2.shape != r1.shape or m_ != m or four != 4 or tc != t * c
-                or psize % t or not (r1.is_contiguous() and r2.is_contiguous())):
+        if (r2.shape != r1.shape or m_ != m or four != 4 or tc % t
+                or not (r1.is_contiguous() and r2.is_contiguous())):
             raise ValueError(f"expand_scale_pair: rows {tuple(r1.shape)}, "
                              f"{tuple(r2.shape)}")
+        shapes.append((t, tc // t))
+    elsize = out_dtype.itemsize
+    a = _Args.from_buffer_copy(plan(tuple(shapes), psize, elsize))
+    outs = []
+    for lv, r1, r2, (_, c) in zip(a.lv, rows1, rows2, shapes):
         if _paired(c):
             o = torch.empty((m, psize, psize, 2 * c), dtype=out_dtype, device=dev)
             outs.append(o)
-            o1, o2, stride = o.data_ptr(), o.data_ptr() + c * o.element_size(), 2 * c
+            lv.out[0], lv.out[1] = o.data_ptr(), o.data_ptr() + c * elsize
         else:
             oa = torch.empty((m, psize, psize, c), dtype=out_dtype, device=dev)
             ob = torch.empty_like(oa)
             outs += [oa, ob]
-            o1, o2, stride = oa.data_ptr(), ob.data_ptr(), c
-        levels.append((r1.data_ptr(), r2.data_ptr(), o1, o2, t, c, stride))
-    n = len(levels)
-    cols = list(zip(*levels))
-    arrays = ([(ctypes.c_void_p * n)(*col) for col in cols[:4]]
-              + [(ctypes.c_int * n)(*col) for col in cols[4:]])
+            lv.out[0], lv.out[1] = oa.data_ptr(), ob.data_ptr()
+        lv.rows[0], lv.rows[1] = r1.data_ptr(), r2.data_ptr()
+    a.y[0], a.x[0], a.y[1], a.x[1] = (v.data_ptr() for v in (y1, x1, y2, x2))
+    a.m = m
     lib = _build.library("patch_expand", _SIGNATURES)
-    rc = lib.p2p_patch_expand(
-        *(ctypes.addressof(a) for a in arrays), n,
-        y1.data_ptr(), x1.data_ptr(), y2.data_ptr(), x2.data_ptr(),
-        m, psize, _DTYPES[out_dtype], _build.current_stream(dev),
-    )
+    if lib.p2p_expand_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError("expand_scale_pair: _Args does not match the kernel's Args")
+    rc = lib.p2p_patch_expand(ctypes.addressof(a), _DTYPES[out_dtype],
+                              _build.current_stream(dev))
     _build.check_launch(rc, "expand_scale_pair")
     expand_scale_pair.launches += 1
     return tuple(outs)

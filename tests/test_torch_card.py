@@ -13,7 +13,9 @@ multiple of 8, a t=1 pyramid level), to its kernel's tolerance: tap_sum
 bit-identical, corr_pool atol 1e-4 on unit-norm features,
 expand_scale_pair f32 rtol 1e-6 / bf16 bit for bit, except at patch
 pixels whose inverse norm rounds to the neighbouring bf16 value (one in
-10^4 at most; chip_smoke's ``expand_bf16_mismatch``); conv4d_small
+10^4 at most; chip_smoke's ``expand_bf16_mismatch``), with corners
+aligned to the cells and not, negative and at the superblock's edge, M
+from 1, psize 6, 8 and 16, and rows off a 16-byte boundary; conv4d_small
 float32 atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
 cancels to near zero keeps the float32 rounding of its terms), its backward
 through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
@@ -123,6 +125,98 @@ def test_expand_scale_pair_matches_plain(cuda, dtype, levels):
     else:
         flipped, pixels, _ = expand_bf16_mismatch(got, want, levels, PSIZE)
         assert flipped * 1e4 <= pixels
+
+
+MAIN_LEVELS = ((16, 3), (8, 64), (4, 64), (2, 128))
+WIDE_LEVELS = ((8, 64), (4, 64), (2, 128), (1, 256))
+
+
+def _expand_corners(kind, m, psize, rs):
+    """(y1, x1, y2, x2) padded corners: "aligned" multiples of psize (every
+    window starts on a cell edge: t cells a side); "unaligned" odd (t + 1
+    cells a side wherever ds > 1); "edges" 0, negatives (they count as 0),
+    psize - 1 (the window ends on the superblock's last cell) and far
+    corners, rolled so the four corners of a proposal differ."""
+    if kind == "aligned":
+        v = rs.randint(0, 6, (4, m)) * psize
+    elif kind == "unaligned":
+        v = rs.randint(0, 3 * psize, (4, m)) | 1
+    else:
+        edge = np.array([0, -3, psize - 1, -1000, 7 * psize - 1, 1, psize])
+        v = np.stack([np.roll(edge, i)[np.arange(m) % len(edge)] for i in range(4)])
+    return [torch.from_numpy(c.astype(np.int32)) for c in v]
+
+
+def _check_expand(got, want, levels, psize, dtype):
+    assert [g.shape for g in got] == [w.shape for w in want]
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    else:
+        flipped, pixels, _ = expand_bf16_mismatch(got, want, levels, psize)
+        assert flipped * 1e4 <= pixels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,psize,levels,kind", [
+    (1, 16, MAIN_LEVELS, "edges"),
+    (7, 16, MAIN_LEVELS, "edges"),
+    (33, 16, MAIN_LEVELS, "aligned"),
+    (33, 16, MAIN_LEVELS, "unaligned"),
+    (9, 8, WIDE_LEVELS, "edges"),
+    (21, 8, WIDE_LEVELS, "unaligned"),
+    # cells of 20 and 24 channels: whole 16-byte units or not, by dtype
+    (5, 8, ((8, 3), (4, 20), (2, 24)), "edges"),
+    # psize 6: a proposal's per-side run of a 3- or 20-channel level is
+    # not a whole number of 16-byte units (unaligned heads and tails)
+    (5, 6, ((6, 3), (3, 20)), "edges"),
+])
+def test_expand_scale_pair_windows(cuda, dtype, m, psize, levels, kind):
+    rs = _rs(9)
+    rows = [[torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
+             .to(cuda, dtype) for t, c in levels] for _ in range(2)]
+    corners = [c.to(cuda) for c in _expand_corners(kind, m, psize, rs)]
+    n0 = expand_scale_pair.launches
+    got = expand_scale_pair(rows[0], rows[1], *corners, psize, dtype)
+    assert expand_scale_pair.launches == n0 + 1
+    _check_expand(got, expand_scale_pair_plain(rows[0], rows[1], *corners, psize, dtype),
+                  levels, psize, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expand_scale_pair_unaligned_rows(cuda, dtype):
+    """Rows that start off a 16-byte boundary are staged value by value."""
+    rs, m = _rs(10), 6
+    rows = [[torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
+             .to(cuda, dtype) for t, c in MAIN_LEVELS] for _ in range(2)]
+    for side in rows:
+        r = side[1]
+        buf = torch.empty(r.numel() + 1, device=cuda, dtype=dtype)
+        side[1] = buf[1:].view(r.shape)
+        side[1].copy_(r)
+        assert side[1].data_ptr() % 16
+    corners = [c.to(cuda) for c in _expand_corners("edges", m, PSIZE, rs)]
+    got = expand_scale_pair(rows[0], rows[1], *corners, PSIZE, dtype)
+    _check_expand(got, expand_scale_pair_plain(rows[0], rows[1], *corners, PSIZE, dtype),
+                  MAIN_LEVELS, PSIZE, dtype)
+
+
+def test_expand_scale_pair_rejects_bad_inputs(cuda):
+    r = torch.zeros((2, 4, 8, 8 * 64), device=cuda, dtype=torch.bfloat16)
+    c = [torch.zeros(2, device=cuda, dtype=torch.int32)] * 4
+    n0 = expand_scale_pair.launches
+    with pytest.raises(ValueError):  # the two sides' rows differ in shape
+        expand_scale_pair([r], [torch.zeros_like(r[:, :, :4, :4 * 64])], *c, PSIZE, r.dtype)
+    with pytest.raises(ValueError):  # the two sides have different level counts
+        expand_scale_pair([r, r], [r], *c, PSIZE, r.dtype)
+    with pytest.raises(ValueError):  # no level
+        expand_scale_pair([], [], *c, PSIZE, r.dtype)
+    with pytest.raises(ValueError):  # more than 8 levels
+        expand_scale_pair([r] * 9, [r] * 9, *c, PSIZE, r.dtype)
+    wide = torch.zeros((2, 4, 32, 32 * 64), device=cuda)
+    with pytest.raises(ValueError):  # the windows exceed a block's shared memory
+        expand_scale_pair([wide] * 4, [wide] * 4, *c, 64, wide.dtype)
+    assert expand_scale_pair.launches == n0
 
 
 @pytest.mark.parametrize("odtype", [None, torch.bfloat16])

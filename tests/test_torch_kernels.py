@@ -11,7 +11,9 @@ them (Pallas in interpret mode, or their jnp formulation). Tolerances:
     over aligned groups of four rows, the same;
   * decode_delta_from_feats: exact, first max on ties;
   * B3 expand_scale_pair: f32 rtol 1e-6, bf16 one bf16 ulp (channel
-    square-sums in another order), identical ``output_slice_map``.
+    square-sums in another order), identical ``output_slice_map``; its
+    kernel's plan (window geometry, shared-memory layout, divisions by
+    multiply-shift) exact.
 
 The kernels themselves run only on a CUDA card: tests/test_torch_card.py.
 """
@@ -40,9 +42,15 @@ from patch2pix_tpu_torch.ops.corr_pool import (
     decode_delta_from_feats,
 )
 from patch2pix_tpu_torch.ops.patch_expand import (
+    SMEM_LIMIT,
+    _window_indices,
     expand_scale_pair,
     expand_scale_pair_plain,
+    fast_div,
     output_slice_map,
+    plan,
+    window_extent,
+    window_side,
 )
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_plain
 
@@ -169,35 +177,44 @@ def test_decode_delta_from_feats_matches_jax_with_ties():
 # ------------------------------------------------------------------ B3
 
 
-def _expand_inputs(rng, m):
-    rows = [[rng.standard_normal((m, 4, t, t * c)).astype(np.float32) for t, c in LEVELS]
+def _expand_inputs(rng, m, levels=LEVELS):
+    rows = [[rng.standard_normal((m, 4, t, t * c)).astype(np.float32) for t, c in levels]
             for _ in range(2)]
     corners = [rng.integers(0, 64 + PSIZE, (m,)).astype(np.int32) for _ in range(4)]
     return rows, corners
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_expand_plain_matches_xla(rng, dtype):
-    rows, corners = _expand_inputs(rng, 6)
+# the card tests' level sets: the main path's, and a wider one down to a
+# t=1 level, at psize 16 and 8
+WIDE_LEVELS = ((8, 64), (4, 64), (2, 128), (1, 256))
+_EXPAND_CASES = [pytest.param(dtype, levels, psize, id=dtype + tag)
+                 for levels, psize, tag in ((LEVELS, 16, ""), (WIDE_LEVELS, 16, "-wide-p16"),
+                                            (WIDE_LEVELS, 8, "-wide-p8"))
+                 for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("dtype,levels,psize", _EXPAND_CASES)
+def test_expand_plain_matches_xla(rng, dtype, levels, psize):
+    rows, corners = _expand_inputs(rng, 6, levels)
     tdt = getattr(torch, dtype)
     jdt = getattr(jnp, dtype)
     got = expand_scale_pair_plain(
         [torch.from_numpy(r).to(tdt) for r in rows[0]],
         [torch.from_numpy(r).to(tdt) for r in rows[1]],
-        *(torch.from_numpy(c) for c in corners), PSIZE, tdt)
-    ds_list = [PSIZE // t for t, _ in LEVELS]
+        *(torch.from_numpy(c) for c in corners), psize, tdt)
+    ds_list = [psize // t for t, _ in levels]
     want = expand_scale_pair_xla(
         [jnp.asarray(r, jdt) for r in rows[0]], [jnp.asarray(r, jdt) for r in rows[1]],
-        *(jnp.asarray(c) for c in corners), PSIZE, ds_list, jdt)
-    assert len(got) == len(want) == 6
+        *(jnp.asarray(c) for c in corners), psize, ds_list, jdt)
+    cs = [c for _, c in levels]
+    assert len(got) == len(want) == len(output_slice_map(ds_list, cs, psize))
     for g, wnt in zip(got, want):
         assert g.dtype == tdt and tuple(g.shape) == wnt.shape
         if dtype == "float32":
             np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=1e-6, atol=0)
         else:
             assert_within_bf16_ulp(g.float().numpy(), np.asarray(wnt, np.float32))
-    cs = [c for _, c in LEVELS]
-    assert output_slice_map(ds_list, cs, PSIZE) == jax_slice_map(ds_list, cs, PSIZE)
+    assert output_slice_map(ds_list, cs, psize) == jax_slice_map(ds_list, cs, psize)
 
 
 def test_expand_plain_matches_pallas_interpret(rng):
@@ -226,6 +243,71 @@ def test_expand_negative_corners_count_as_zero(rng):
     for g, w in zip(expand_scale_pair_plain(r1, r2, *neg, PSIZE, torch.float32),
                     expand_scale_pair_plain(r1, r2, *c, PSIZE, torch.float32)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("psize", [8, 16])
+def test_expand_window_extent_matches_window_indices(psize):
+    """The kernel's window geometry: the span of the indices the plain
+    version reads, inside the staged window, which stays inside the
+    superblock."""
+    base = torch.arange(-5, 5 * psize, dtype=torch.int32)
+    for t in (t for t in (1, 2, 4, 8, 16) if psize % t == 0):
+        idx = _window_indices(base, psize, psize // t)
+        first, cells = window_extent(base, psize, t)
+        assert torch.equal(first, idx.min(dim=1).values)
+        assert torch.equal(cells, idx.max(dim=1).values - first + 1)
+        w = window_side(t, psize)
+        assert int(cells.max()) == w and int((first + w).max()) <= 2 * t
+
+
+@pytest.mark.parametrize("elsize,smem", [(2, 44600), (4, 79416)])
+def test_expand_plan_shared_memory(elsize, smem):
+    """The main path's plan: bf16 fits below 48 KB (no opt-in needed),
+    float32 takes dynamic shared memory. Regions in order, windows
+    16-byte aligned with cell strides of an odd count of 16-byte units
+    where cells are whole units."""
+    a = plan(LEVELS, PSIZE, elsize)
+    assert a.smem == smem
+    end = 0
+    for side in (0, 1):
+        for lv, (t, c) in zip(a.lv, LEVELS):
+            assert lv.win[side] == end and lv.win[side] % 16 == 0
+            if c * elsize % 16 == 0:
+                assert lv.vec and (lv.cstride * elsize // 16) % 2 == 1 and lv.cstride >= c
+            else:
+                assert not lv.vec and lv.cstride == c
+            end += -(-lv.w ** 2 * lv.cstride * elsize // 16) * 16
+    sq = end // 4
+    for side in (0, 1):
+        for lv in a.lv[:len(LEVELS)]:
+            assert lv.sq[side] == sq
+            sq += lv.w ** 2
+    assert a.inv_off == 4 * sq and a.tab_off == a.inv_off + 8 * PSIZE ** 2
+    assert a.geo_off == a.tab_off + 16 * len(LEVELS) * PSIZE
+    assert a.smem == a.geo_off + 16 * len(LEVELS) <= SMEM_LIMIT
+    assert [lv.ostride for lv in a.lv[:4]] == [3, 128, 128, 128]
+
+
+def test_expand_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):  # more than 8 levels
+        plan(((2, 64),) * 9, PSIZE, 2)
+    with pytest.raises(ValueError):  # psize not a multiple of t
+        plan(((16, 3),), 8, 2)
+    with pytest.raises(ValueError):  # psize^2 > 4096
+        plan(((1, 3),), 65, 2)
+    with pytest.raises(ValueError):  # windows beyond the shared memory
+        plan(((32, 64),) * 4, 64, 4)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 9, 16, 17, 24, 81, 128, 255, 256, 4095])
+def test_fast_div_exact(d):
+    m, s = fast_div(d)
+    assert 0 < m < 2 ** 32
+    x = np.concatenate([np.arange(1 << 16, dtype=np.uint64),
+                        np.random.default_rng(d).integers(0, 2 ** 31, 4096).astype(np.uint64),
+                        np.array([2 ** 31 - 1], np.uint64)])
+    got = (((x * np.uint64(m)) >> np.uint64(32)) + x) >> np.uint64(s)
+    np.testing.assert_array_equal(got, x // np.uint64(d))
 
 
 # ------------------------------------------------------------ wrappers
