@@ -65,10 +65,12 @@ from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plai
 from patch2pix_tpu_torch.ops.corr_pool import LAYOUTS as CORR_POOL_LAYOUTS
 from patch2pix_tpu_torch.ops.corr_pool import cell_parity_rows, corr_pool, corr_pool_plain
 from patch2pix_tpu_torch.ops.correlation import l2_normalize
+from patch2pix_tpu_torch.ops.fine_stage import _SIGNATURES as FINE_HEAD_SIGNATURES
 from patch2pix_tpu_torch.ops.fine_stage import (
     fused_fine_head,
     fused_fine_head_plain,
     fused_fine_stage,
+    head_args,
     head_prolog,
     segment_weights,
 )
@@ -142,6 +144,19 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn):
+    """{device kernel name: ms} of one call of fn, from torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
 
 
 def bound(nbytes, flops, dtype):
@@ -421,7 +436,8 @@ def check_expand_level(dtype, gen, dev):
 
 
 def fine_head_inputs(dtype, gen, dev, m):
-    """Seeded rows, in-range corners and a full-width head's weights."""
+    """Seeded rows, in-range corners and a full-width head's weights.
+    Returns (B5's arguments, a call of the cuDNN-chain yardstick)."""
     rows = [[torch.randn((m, 4, t, t * c), generator=gen, device=dev).to(dtype)
              for t, c in LEVELS] for _ in range(2)]
     corners = [torch.randint(0, 2 * PSIZE, (m,), generator=gen, device=dev, dtype=torch.int32)
@@ -433,15 +449,36 @@ def fine_head_inputs(dtype, gen, dev, m):
     bns = [(torch.rand(F_REG, generator=gen, device=dev) + 0.5,
             torch.randn(F_REG, generator=gen, device=dev) * 0.1) for _ in range(2)]
     inv1, inv2, partial0 = head_prolog(rows[0], rows[1], *corners, k0.to(dtype), PSIZE, dtype)
-    return (rows[0][1:], rows[1][1:], *corners, inv1, inv2, partial0,
+    args = (rows[0][1:], rows[1][1:], *corners, inv1, inv2, partial0,
             segment_weights(k0, cs, dtype), k1.reshape(9, F_REG, F_REG).to(dtype),
             bns[0], bns[1], PSIZE, dtype)
+    return args, cudnn_chain(dtype, rows, corners, k0, k1, bns, dev)
+
+
+def cudnn_chain(dtype, rows, corners, k0, k1, bns, dev):
+    """The yardstick the port never calls: cuDNN conv0 -> BN0 -> conv1
+    -> BN1 -> ReLU -> max (``FeatRegressNet.pooled``) on B3's expanded
+    patches of the same rows, with the same weights (the patches made
+    beforehand, not timed)."""
+    net = FeatRegressNet(feat_dim=sum(c for _, c in LEVELS), dtype=dtype, device=dev)
+    with torch.no_grad():
+        net.conv[0].weight.copy_(k0.permute(3, 2, 0, 1))
+        net.conv[2].weight.copy_(k1.permute(3, 2, 0, 1))
+        for bn, (scale, shift) in ((net.conv[1], bns[0]), (net.conv[3], bns[1])):
+            bn.weight.copy_(scale)
+            bn.bias.copy_(shift)
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1 - bn.eps)
+    net.eval()
+    patches = expand_scale_pair(rows[0], rows[1], *corners, PSIZE, dtype)
+    smap = output_slice_map([PSIZE // t for t, _ in LEVELS], [c for _, c in LEVELS], PSIZE)
+    return lambda: net.pooled(patches, None, slice_map=smap)
 
 
 def check_fine_head(dtype, gen, dev):
     """B5 at the change_stride fine stage: M = 2400, F = 512."""
     m = BATCH * FINE_CAP
-    args = fine_head_inputs(dtype, gen, dev, m)
+    args, chain = fine_head_inputs(dtype, gen, dev, m)
     got = fused_fine_head(*args)
     want = fused_fine_head_plain(*args)
     torch.cuda.synchronize()
@@ -463,16 +500,31 @@ def check_fine_head(dtype, gen, dev):
                 f"ulps beyond it)")
     ms = time_ms(lambda: fused_fine_head(*args), iters=10)
     plain_ms = time_ms(lambda: fused_fine_head_plain(*args), iters=2, warmup=1)
+    with torch.no_grad():
+        chain_err = (chain().float() - want.float()).abs().max().item()
+        chain_ms = time_ms(chain, iters=10)
     rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0, w0, wc1, bn0, bn1 = args[:13]
     segs = sum(w.shape[1] for w in w0)
     flops = 2 * m * (PSIZE // 2) ** 2 * F_REG * 9 * (segs + F_REG)
     rows_bytes = window_bytes(LEVELS[1:], (y1, x1, y2, x2), PSIZE, rows1[0].element_size())
     b_ms, b_by = bound(rows_bytes + nbytes(y1, x1, y2, x2, inv1, inv2, partial0, *w0, wc1,
                                            *bn0, *bn1, got), flops, dtype)
+    # the wrapper's device time by kernel: conv0 and conv1 launches, the
+    # weights' layout copies
+    split = device_ms(lambda: fused_fine_head(*args))
+    note += ", device ms " + ", ".join(
+        f"{'conv1' if '<true>' in k else 'conv0' if '<false>' in k else k[:40]} {v:.4f}"
+        for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+    if dtype == torch.bfloat16:
+        lib = _build.library("fine_head", FINE_HEAD_SIGNATURES)
+        note += f", {lib.p2p_fine_head_bf16_smem()} B shared memory a block"
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None,
                 shape=f"M={m} levels {LEVELS[1:]} F={F_REG} {dtype}{note}, "
-                      f"{flops / 1e12:.3f} TFLOP")
+                      f"{flops / 1e12:.3f} TFLOP, {100 * b_ms / ms:.1f}% of its bound; "
+                      f"library: none (no one PyTorch call computes it); yardstick cuDNN "
+                      f"chain (FeatRegressNet.pooled on B3's patches) {chain_ms:.4f} ms, "
+                      f"max abs diff to the plain version {chain_err:.3g}")
 
 
 # ------------------------------------------------------------ phase 3/4
@@ -734,16 +786,24 @@ def fine_head_path(dev):
     for name, (a, b) in stats.items():
         if not a <= limits[name] * b:
             fail(f"fine-head path bf16: fused {name} error {a} > {limits[name]} x unfused {b}")
-    ms_f = time_ms(lambda: fused(torch.bfloat16), iters=5)
-    ms_u = time_ms(lambda: unfused(torch.bfloat16), iters=5)
+    # the fused stage's split: prolog (B7 + cuDNN image-level conv0 + the
+    # weights' layouts), B5, fc_head
+    with torch.no_grad():
+        ms_f = time_ms(lambda: fused(torch.bfloat16), iters=5)
+        ms_u = time_ms(lambda: unfused(torch.bfloat16), iters=5)
+        hargs = head_args(nets[torch.bfloat16], *rows, *corners, PSIZE)
+        split = (time_ms(lambda: head_args(nets[torch.bfloat16], *rows, *corners, PSIZE),
+                         iters=5),
+                 time_ms(lambda: fused_fine_head(*hargs), iters=5),
+                 time_ms(lambda: nets[torch.bfloat16].fc_head(fp), iters=5))
     log(f"fine-head path [M={m}, F={F_REG}, bf16]: launches fused {launches}, unfused "
         f"{unfused_launches}; f32 pooled fused vs unfused max abs err "
         f"{(fp32 - up32).abs().max().item():.3g}, (M, 5) {(fo32 - uo32).abs().max().item():.3g}; "
         f"bf16 (M, 5) error to the f32 unfused outputs, fused / unfused: "
         + ", ".join(f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in stats.items())
         + f"; fused - unfused bf16 max {(fo.float() - uo.float()).abs().max().item():.4g}; "
-        f"{ms_f:.3f} ms per call fused (prolog + B5 + fc_head), {ms_u:.3f} ms unfused "
-        f"(B3 + forward)")
+        f"{ms_f:.3f} ms per call fused (prolog {split[0]:.3f} + B5 {split[1]:.3f} + fc_head "
+        f"{split[2]:.3f}), {ms_u:.3f} ms unfused (B3 + forward)")
     return launches
 
 
@@ -766,9 +826,9 @@ def main():
     log(f"kernel build: {secs:.1f} s ({len(reports)} sources compiled)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            # every kernel's registers and spills; corr_pool's entry names too
+            # every kernel's registers and spills; the wgmma kernels' entry names too
             if ("registers" in line or "spill" in line
-                    or (name == "corr_pool" and "Compiling entry" in line)):
+                    or (name in ("corr_pool", "fine_head") and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions

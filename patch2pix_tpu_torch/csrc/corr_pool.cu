@@ -52,15 +52,11 @@
 // are exact in f32; sums are in another order than a matmul library's,
 // so results agree with the plain version to rounding.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+using namespace sm90;
 
 // ------------------------------------------------------------ float32
 
@@ -166,58 +162,6 @@ constexpr uint32_t H_BTILE_BYTES = H_BN * H_KB * 2;   // 8 KB per stage
 size_t h_smem_bytes(int cp) {
   // 1 KB of slack to align the base to the swizzle's 1024 bytes
   return 1024 + (size_t)(cp / H_KB) * H_ABLOCK_BYTES + (size_t)H_STAGES * H_BTILE_BYTES;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Box (H_KB channels, rows) at (channel x, row y) of a 2D map.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(x), "r"(y)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row
-// groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A (64 x 16, K-major) * B (64 x 16, K-major)^T; scale_d 0
@@ -392,44 +336,6 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
       }
     }
   }
-}
-
-// ------------------------------------------------------------ host side
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so
-// the library needs no link against libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                      cudaEnableDefault, &q);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// A 2D bf16 map over (rows, cp) row-major with (H_KB, box_rows) boxes.
-bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cp, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cp * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)H_KB, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

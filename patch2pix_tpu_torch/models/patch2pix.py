@@ -43,8 +43,10 @@ from patch2pix_tpu_torch.ops.match_extract import (
 )
 from patch2pix_tpu_torch.ops.patch_gather import (
     gather_local_patches_grid_levels,
+    gather_local_patches_levels,
     gather_scaled_patch_pairs_fused,
     make_padded_tiles_levels,
+    tileable,
 )
 
 
@@ -145,22 +147,25 @@ class Patch2Pix(nn.Module):
     # ---------------- fine stage ----------------
 
     def _shared_tiles(self, feats1, feats2):
-        """Padded tile rows shared by the mid and fine stages."""
+        """Padded tile rows shared by the mid and fine stages (None when
+        the stages' patch sizes differ or the superblock gather does not
+        apply)."""
         cfg = self.config
         r = cfg.regressor
-        if r.psize[0] != r.psize[1]:
+        psize = r.psize[1]
+        if r.psize[0] != psize or not (tileable(feats1, psize) and tileable(feats2, psize)):
             return None, None
-        return (make_padded_tiles_levels(feats1, cfg.feat_idx, cfg.feats_downsample,
-                                         r.psize[1]),
-                make_padded_tiles_levels(feats2, cfg.feat_idx, cfg.feats_downsample,
-                                         r.psize[1]))
+        return (make_padded_tiles_levels(feats1, cfg.feat_idx, cfg.feats_downsample, psize),
+                make_padded_tiles_levels(feats2, cfg.feat_idx, cfg.feats_downsample, psize))
 
     def fine_match(self, feats1, feats2, coords, stage: str,
                    grid_aligned: bool = False, tiles1=None, tiles2=None):
         """One regression stage over every proposal: coords ``(B, N, 4)``
         -> (refined ``(B, N, 4)``, probs ``(B, N)``). ``grid_aligned``
         asserts every coord is a coarse-cell centre and takes the
-        space-to-depth gather; otherwise the superblock gather + B3."""
+        space-to-depth gather; otherwise the superblock gather + B3 where
+        both pyramids are psize-tileable, else the per-pixel block
+        gather."""
         cfg = self.config
         r = cfg.regressor
         psize = r.psize[0] if stage == "mid" else r.psize[1]
@@ -171,7 +176,7 @@ class Patch2Pix(nn.Module):
         bounds = (w1, h1, w2, h2)
         dtype = cfg.compute_dtype
 
-        if not grid_aligned:
+        if not grid_aligned and tileable(feats1, psize) and tileable(feats2, psize):
             patches, smap = gather_scaled_patch_pairs_fused(
                 feats1, feats2, coords, cfg.feat_idx, cfg.feats_downsample,
                 psize, dtype, tiles1=tiles1, tiles2=tiles2)
@@ -183,10 +188,9 @@ class Patch2Pix(nn.Module):
             return tuple((lv.to(dtype) * invc).reshape(b * n, psize, psize, lv.shape[-1])
                          for lv in levels)
 
-        lv1, inv1 = gather_local_patches_grid_levels(
-            feats1, coords[..., 0:2], cfg.feat_idx, cfg.feats_downsample, psize)
-        lv2, inv2 = gather_local_patches_grid_levels(
-            feats2, coords[..., 2:4], cfg.feat_idx, cfg.feats_downsample, psize)
+        gather = gather_local_patches_grid_levels if grid_aligned else gather_local_patches_levels
+        lv1, inv1 = gather(feats1, coords[..., 0:2], cfg.feat_idx, cfg.feats_downsample, psize)
+        lv2, inv2 = gather(feats2, coords[..., 2:4], cfg.feat_idx, cfg.feats_downsample, psize)
         out = regressor(scaled(lv1, inv1), scaled(lv2, inv2)).reshape(b, n, 5)
         return parse_regressor_out(out, coords, psize, "center", bounds)
 

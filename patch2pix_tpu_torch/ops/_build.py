@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded
 with ``ctypes``. Libraries are built at first use into ``build/kernels``
 beside the package (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. Nothing here runs at import time.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
@@ -100,6 +101,17 @@ def library(name: str, signatures: Dict[str, str]) -> ctypes.CDLL:
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need a kernel's gradient: the kernel
+    writes into fresh storage through ctypes, so its output carries no
+    ``grad_fn`` (on the CPU the plain version is differentiable)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward pass yet; call it "
+                           f"under torch.no_grad() or on inputs that do not require grad")
 
 
 def current_stream(device) -> int:

@@ -19,7 +19,8 @@ The fused head keeps the heavy levels on the chip:
     affine -> conv1 3x3/1 -> BN1 affine -> ReLU -> global max,
 writing only the (M, F) pooled features. On CPU tensors it runs
 :func:`fused_fine_head_plain`. :func:`fused_fine_stage` chains the two
-with :meth:`FeatRegressNet.fc_head` into the (M, 5) outputs, the port's
+(:func:`head_args` prepares a regressor's weights) with
+:meth:`FeatRegressNet.fc_head` into the (M, 5) outputs, the port's
 counterpart of ``tools/try_fine_stage.py``.
 
 Rounding points, as in ``_head_kernel``: the expansion in the rows'
@@ -42,7 +43,9 @@ from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops.patch_expand import EPS, expand_level, expand_level_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"p2p_fine_head": "pppppp" "i" "pppp" "ppp" "p" "pppp" "p" "iiii" "p"}
+_SIGNATURES = {"p2p_fine_head": "pppppp" "i" "pppp" "ppp" "p" "pppp" "p" "iii" "p",
+               "p2p_fine_head_bf16": "ppppp" "i" "pppp" "ppp" "pp" "pppp" "pp" "iii" "p",
+               "p2p_fine_head_bf16_smem": ""}
 PAIRED_C = 64  # levels whose two sides share one 2C-channel conv0 segment
 
 
@@ -138,8 +141,9 @@ def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
     partial0: from :func:`head_prolog`; w0_segs: :func:`segment_weights`;
     wc1: ``(9, F, F)`` im2col'd conv1 kernel; bn0/bn1: (scale, shift)
     float32 pairs. Returns the pooled ``(M, F)`` features in
-    ``out_dtype``. The card's kernel takes psize 16, F a multiple of 32
-    up to 512 and segments of a multiple of 32 channels."""
+    ``out_dtype``. The card's kernels take psize 16 and F up to 512; in
+    bf16 F a multiple of 8 and every level wider than 64 channels a
+    multiple of 64, in float32 F and every segment a multiple of 32."""
     rows1, rows2 = tuple(rows1), tuple(rows2)
     args = (rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bn0, bn1)
     tensors = (rows1 + rows2 + (y1, x1, y2, x2, inv1, inv2, partial0) + tuple(w0_segs)
@@ -153,24 +157,17 @@ def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
         raise TypeError(f"fused_fine_head: rows must be {out_dtype} in {list(_DTYPES)}")
     m = y1.shape[0]
     f = wc1.shape[-1]
-    if psize != 16 or f % 32 or f > 512 or wc1.shape != (9, f, f):
+    fmult = 8 if out_dtype == torch.bfloat16 else 32
+    if psize != 16 or f % fmult or f > 512 or wc1.shape != (9, f, f):
         raise ValueError(f"fused_fine_head: psize {psize}, wc1 {tuple(wc1.shape)}")
     for v in (y1, x1, y2, x2):
         if v.dtype != torch.int32 or v.shape != (m,) or not v.is_contiguous():
             raise ValueError("fused_fine_head: corners must be contiguous (M,) int32")
-
-    def dense(t, dtype, shape):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_fine_head: {tuple(t.shape)}, expected {shape}")
-        t = t.to(dtype).contiguous()
-        # fresh storage: the kernel's fragment and vector loads need it aligned
-        return t if t.data_ptr() % 256 == 0 else t.clone()
-
-    inv1, inv2 = (dense(t, torch.float32, (m, psize, psize)) for t in (inv1, inv2))
-    partial0 = dense(partial0, torch.float32, (m, psize // 2, psize // 2, f))
-    wc1 = dense(wc1, out_dtype, (9, f, f))
-    bns = [dense(t, torch.float32, (f,)) for t in (*bn0, *bn1)]
-    segs = []  # (rows1, rows2, weights, t, c, kind)
+    _build.refuse_grad("fused_fine_head", *tensors)
+    inv1, inv2 = (_dense(t, torch.float32, (m, psize, psize)) for t in (inv1, inv2))
+    partial0 = _dense(partial0, torch.float32, (m, psize // 2, psize // 2, f))
+    bns = [_dense(t, torch.float32, (f,)) for t in (*bn0, *bn1)]
+    levels = []  # (rows1, rows2, t, c), each level's weight segments checked
     w_iter = iter(w0_segs)
     for r1, r2 in zip(rows1, rows2):
         _, four, t, tc = r1.shape
@@ -178,15 +175,100 @@ def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
         if (r2.shape != r1.shape or r1.shape[0] != m or four != 4 or tc != t * c
                 or psize % t or not (r1.is_contiguous() and r2.is_contiguous())):
             raise ValueError(f"fused_fine_head: rows {tuple(r1.shape)}, {tuple(r2.shape)}")
-        kinds = (0,) if c == PAIRED_C else (1, 2)
-        for kind in kinds:
-            cseg = 2 * c if kind == 0 else c
-            w = dense(next(w_iter), out_dtype, (9, cseg, f))
+        for cseg in ((2 * c,) if c == PAIRED_C else (c, c)):
+            w = next(w_iter, None)
+            if w is None or tuple(w.shape) != (9, cseg, f):
+                raise ValueError(f"fused_fine_head: weight segment for rows "
+                                 f"{tuple(r1.shape)} is not (9, {cseg}, {f})")
+        levels.append((r1, r2, t, c))
+    if next(w_iter, None) is not None:
+        raise ValueError("fused_fine_head: more weight segments than row segments")
+    launch = _launch_bf16 if out_dtype == torch.bfloat16 else _launch_f32
+    out = launch(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f)
+    fused_fine_head.launches += 1
+    return out
+
+
+def _dense(t, dtype, shape):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"fused_fine_head: {tuple(t.shape)}, expected {shape}")
+    t = t.to(dtype).contiguous()
+    # fresh storage: the kernels' vector loads need it aligned
+    return t if t.data_ptr() % 256 == 0 else t.clone()
+
+
+def head_chunks(levels):
+    """The bf16 kernels' conv0 K chunks, in :func:`segment_weights`'
+    channel order: ``[(level, side, first channel)]``, 64 channels each —
+    a paired C=64 level gives its two sides, a wider level each side's
+    64-channel runs."""
+    out = []
+    for li, (_, _, _, c) in enumerate(levels):
+        if c != PAIRED_C and c % 64:
+            raise ValueError(f"fused_fine_head: bf16 takes levels of 64 or a multiple of "
+                             f"64 channels, not {c}")
+        offs = (0,) if c == PAIRED_C else range(0, c, 64)
+        out += [(li, side, off) for side in (0, 1) for off in offs]
+    return out
+
+
+def kmajor_weights(w9: torch.Tensor, cin_pad: int) -> torch.Tensor:
+    """``(9, C, F)`` im2col'd conv weights -> the bf16 kernels' ``(F, 9 *
+    Cp)``: K ordered (64-channel chunk, tap, channel), the channels zero-
+    padded to ``cin_pad`` (a multiple of 64)."""
+    _, c, f = w9.shape
+    if cin_pad != c:
+        w9 = torch.cat([w9, w9.new_zeros((9, cin_pad - c, f))], dim=1)
+    return (w9.reshape(9, cin_pad // 64, 64, f).permute(3, 1, 0, 2).reshape(f, 9 * cin_pad)
+            .contiguous())
+
+
+def _launch_bf16(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f):
+    chunks = head_chunks(levels)
+    window_bytes = sum((levels[li][2] + 1) ** 2 * 128 for li, _, _ in chunks)
+    if len(chunks) > 16 or window_bytes > 62 * 1024:
+        raise ValueError(f"fused_fine_head: {64 * len(chunks)} conv0 channels (at most 1024) "
+                         f"in {window_bytes} B of windows (at most 62 KB)")
+    rows = []
+    for li, side, off in chunks:
+        r = levels[li][side]
+        rows.append(r if r.data_ptr() % 16 == 0 else r.clone())
+    fp = -(-f // 64) * 64
+    wt0 = kmajor_weights(torch.cat([w.to(torch.bfloat16) for w in w0_segs], dim=1),
+                         64 * len(chunks))
+    wt1 = kmajor_weights(wc1.to(torch.bfloat16), fp)
+    x1buf = torch.empty((m, 64, fp), dtype=torch.bfloat16, device=y1.device)
+    out = torch.empty((m, f), dtype=torch.bfloat16, device=y1.device)
+    n = len(chunks)
+    cols = ([r.data_ptr() for r in rows],
+            [levels[li][2].bit_length() - 1 for li, _, _ in chunks],
+            [levels[li][3] for li, _, _ in chunks], [off for _, _, off in chunks],
+            [side for _, side, _ in chunks])
+    arrays = [(ctypes.c_void_p * n)(*cols[0])] + [(ctypes.c_int * n)(*c) for c in cols[1:]]
+    lib = _build.library("fine_head", _SIGNATURES)
+    rc = lib.p2p_fine_head_bf16(
+        *(ctypes.addressof(a) for a in arrays), n,
+        y1.data_ptr(), x1.data_ptr(), y2.data_ptr(), x2.data_ptr(),
+        inv1.data_ptr(), inv2.data_ptr(), partial0.data_ptr(), wt0.data_ptr(), wt1.data_ptr(),
+        *(b.data_ptr() for b in bns), x1buf.data_ptr(), out.data_ptr(), m, f, fp,
+        _build.current_stream(y1.device),
+    )
+    _build.check_launch(rc, "fused_fine_head")
+    return out
+
+
+def _launch_f32(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f):
+    segs = []  # (rows1, rows2, weights, t, c, kind)
+    w_iter = iter(w0_segs)
+    for r1, r2, t, c in levels:
+        for kind in ((0,) if c == PAIRED_C else (1, 2)):
+            w = _dense(next(w_iter), torch.float32, (9, 2 * c if kind == 0 else c, f))
             segs.append((r1.data_ptr(), r2.data_ptr(), w, t, c, kind))
-    if len(segs) != len(w0_segs) or any(s[2].shape[1] % 32 for s in segs) or len(segs) > 8:
-        raise ValueError(f"fused_fine_head: {len(w0_segs)} weight segments for "
-                         f"{len(segs)} row segments (at most 8, multiples of 32 channels)")
-    out = torch.empty((m, f), dtype=out_dtype, device=dev)
+    if any(s[2].shape[1] % 32 for s in segs) or len(segs) > 8:
+        raise ValueError(f"fused_fine_head: {len(segs)} segments (at most 8, multiples of "
+                         f"32 channels)")
+    wc1 = _dense(wc1, torch.float32, (9, f, f))
+    out = torch.empty((m, f), dtype=torch.float32, device=y1.device)
     n = len(segs)
     cols = list(zip(*segs))
     arrays = ([(ctypes.c_void_p * n)(*cols[0]), (ctypes.c_void_p * n)(*cols[1]),
@@ -197,34 +279,39 @@ def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
         *(ctypes.addressof(a) for a in arrays), n,
         y1.data_ptr(), x1.data_ptr(), y2.data_ptr(), x2.data_ptr(),
         inv1.data_ptr(), inv2.data_ptr(), partial0.data_ptr(), wc1.data_ptr(),
-        *(b.data_ptr() for b in bns), out.data_ptr(),
-        m, psize, f, _DTYPES[out_dtype], _build.current_stream(dev),
+        *(b.data_ptr() for b in bns), out.data_ptr(), m, 16, f,
+        _build.current_stream(y1.device),
     )
     _build.check_launch(rc, "fused_fine_head")
-    fused_fine_head.launches += 1
     return out
 
 
 fused_fine_head.launches = 0
 
 
-def fused_fine_stage(net, rows1, rows2, y1, x1, y2, x2, psize: int):
-    """The fine stage of a ``FeatRegressNet`` (feat_comb ``pre``, two
-    convs) through the fused head: :func:`head_prolog`, then
-    :func:`fused_fine_head`, then ``net.fc_head``. rows*: all pyramid
-    levels' superblock rows in ``net.dtype``. Returns (pooled (M, F),
-    outputs (M, 5))."""
+def head_args(net, rows1, rows2, y1, x1, y2, x2, psize: int):
+    """The prolog of a ``FeatRegressNet``'s (feat_comb ``pre``, two
+    convs) fused fine stage: :func:`head_prolog` and the weights in
+    :func:`fused_fine_head`'s layout. rows*: all pyramid levels'
+    superblock rows in ``net.dtype``. Returns fused_fine_head's
+    arguments."""
     dtype = net.dtype
     conv0, bn0, conv1, bn1 = list(net.conv)
     kernel0 = conv0.weight.permute(2, 3, 1, 0)  # (3, 3, 2D, F)
     f = conv1.weight.shape[0]
     inv1, inv2, partial0 = head_prolog(rows1, rows2, y1, x1, y2, x2, kernel0.to(dtype),
                                        psize, dtype)
-    pooled = fused_fine_head(
-        rows1[1:], rows2[1:], y1, x1, y2, x2, inv1, inv2, partial0,
-        segment_weights(kernel0, [r.shape[3] // r.shape[2] for r in rows1], dtype),
-        conv1.weight.permute(2, 3, 1, 0).reshape(9, f, f).to(dtype),
-        bn_affine(bn0.weight, bn0.bias, bn0.running_mean, bn0.running_var, bn0.eps),
-        bn_affine(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, bn1.eps),
-        psize, dtype)
+    return (rows1[1:], rows2[1:], y1, x1, y2, x2, inv1, inv2, partial0,
+            segment_weights(kernel0, [r.shape[3] // r.shape[2] for r in rows1], dtype),
+            conv1.weight.permute(2, 3, 1, 0).reshape(9, f, f).to(dtype),
+            bn_affine(bn0.weight, bn0.bias, bn0.running_mean, bn0.running_var, bn0.eps),
+            bn_affine(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, bn1.eps),
+            psize, dtype)
+
+
+def fused_fine_stage(net, rows1, rows2, y1, x1, y2, x2, psize: int):
+    """The fine stage of a ``FeatRegressNet`` through the fused head:
+    :func:`head_args`, then :func:`fused_fine_head`, then
+    ``net.fc_head``. Returns (pooled (M, F), outputs (M, 5))."""
+    pooled = fused_fine_head(*head_args(net, rows1, rows2, y1, x1, y2, x2, psize))
     return pooled, net.fc_head(pooled)

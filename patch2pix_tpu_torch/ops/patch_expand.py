@@ -238,6 +238,7 @@ def expand_level(rows: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     for v in (y0, x0):
         if v.dtype != torch.int32 or v.shape != (m,) or not v.is_contiguous():
             raise ValueError("expand_level: corners must be contiguous (M,) int32")
+    _build.refuse_grad("expand_level", rows)
     out = torch.empty((m, psize, psize, c), dtype=rows.dtype, device=dev)
     lib = _build.library("patch_expand", _SIGNATURES)
     rc = lib.p2p_expand_level(
@@ -285,6 +286,7 @@ def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
             raise ValueError(f"expand_scale_pair: rows {tuple(r1.shape)}, "
                              f"{tuple(r2.shape)}")
         shapes.append((t, tc // t))
+    _build.refuse_grad("expand_scale_pair", *rows1, *rows2)
     elsize = out_dtype.itemsize
     a = _Args.from_buffer_copy(plan(tuple(shapes), psize, elsize))
     outs = []

@@ -1,12 +1,14 @@
 """Hypercolumn local-patch gathering around match endpoints.
 
-Port of the tileable paths of ``patch2pix_tpu.ops.patch_gather``: the
+Port of ``patch2pix_tpu.ops.patch_gather``'s inference paths: the
 grid-aligned gather (eval mid stage when the coarse stride equals the
-patch size) and the two-sided superblock gather feeding kernel B3.
-Sampling reproduces the reference's per-pixel
-``clip((base + d) // ds, 0, dim - 1)`` exactly. Both need every map
-dimension to be a multiple of psize and at least 2*psize (true at the
-Matcher's snapped sizes); other shapes raise ``NotImplementedError``.
+patch size), the two-sided superblock gather feeding kernel B3, and the
+per-pixel block gather that takes any map size. Sampling reproduces the
+reference's per-pixel ``clip((base + d) // ds, 0, dim - 1)`` exactly.
+The superblock gather needs every map dimension to be a multiple of
+psize and at least 2*psize (:func:`tileable`; true at the Matcher's
+snapped sizes) and raises ``NotImplementedError`` on other shapes;
+:func:`gather_local_patches_levels` is the route there.
 """
 
 from __future__ import annotations
@@ -30,10 +32,15 @@ def level_downsamples(feats_downsample: Sequence[int]):
     return out
 
 
-def _require_tileable(feats, psize: int):
-    """Every pyramid level must support the 2x2-superblock row-gather."""
+def tileable(feats, psize: int) -> bool:
+    """Every pyramid level supports the 2x2-superblock row-gather: input
+    dims multiples of psize and at least 2*psize."""
     h, w = feats[0].shape[1], feats[0].shape[2]
-    if not (h % psize == 0 and w % psize == 0 and h >= 2 * psize and w >= 2 * psize):
+    return h % psize == 0 and w % psize == 0 and h >= 2 * psize and w >= 2 * psize
+
+
+def _require_tileable(feats, psize: int):
+    if not tileable(feats, psize):
         raise NotImplementedError(
             f"patch gather for map {tuple(feats[0].shape[1:3])} with psize "
             f"{psize}: only psize-tileable sizes are ported")
@@ -162,3 +169,32 @@ def gather_local_patches_grid_levels(feats, points, feat_idx, feats_downsample,
         patch = rows.reshape(b, n, t, 1, t, 1, c).expand(b, n, t, ds, t, ds, c)
         gathered.append(patch.reshape(b, n, psize, psize, c))
     return tuple(gathered), levels_inv_norm(gathered)
+
+
+def _gather_level_blocks(fmap: torch.Tensor, y_base: torch.Tensor, x_base: torch.Tensor,
+                         psize: int, ds: int) -> torch.Tensor:
+    """One level's patches at any map size: fmap ``(B, H, W, C)`` (stride
+    ``ds``), y_base/x_base ``(B, N)`` int patch corners in input pixels
+    -> ``(B, N, psize, psize, C)`` sampled at
+    ``clip((base + d) // ds, 0, dim - 1)``. The JAX version slices a block
+    per proposal and indexes inside it; the indices land on the same
+    pixels, so one indexed read gives the same values."""
+    b, h, w, _ = fmap.shape
+    d = torch.arange(psize, device=fmap.device)
+    iy = torch.clamp(torch.div(y_base[..., None] + d, ds, rounding_mode="floor"), 0, h - 1)
+    ix = torch.clamp(torch.div(x_base[..., None] + d, ds, rounding_mode="floor"), 0, w - 1)
+    bi = torch.arange(b, device=fmap.device)[:, None, None, None]
+    return fmap[bi, iy[:, :, :, None].long(), ix[:, :, None, :].long()]
+
+
+def gather_local_patches_levels(feats, points, feat_idx, feats_downsample, psize: int):
+    """Patch gather for 'center' patches at any map size (the route where
+    the superblock gather does not apply). Returns ``(levels,
+    inv_norm)``: per-level ``(B, N, p, p, C_l)`` and the ``(B, N, p, p,
+    1)`` f32 hypercolumn normaliser."""
+    x0 = points[..., 0].to(torch.int32) - psize // 2
+    y0 = points[..., 1].to(torch.int32) - psize // 2
+    level_ds = level_downsamples(feats_downsample)
+    gathered = tuple(_gather_level_blocks(f, y0, x0, psize, level_ds[j])
+                     for j, f in enumerate(feats) if j in feat_idx)
+    return gathered, levels_inv_norm(gathered)

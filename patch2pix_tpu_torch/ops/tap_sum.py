@@ -69,6 +69,7 @@ def tap_sum(z: torch.Tensor, bias: torch.Tensor, bs: int, h1: int,
         raise ValueError(f"tap_sum: z {tuple(z.shape)} for bs={bs} h1={h1} w1={w1}")
     if not (z.is_contiguous() and bias.is_contiguous()):
         raise ValueError("tap_sum: inputs must be contiguous")
+    _build.refuse_grad("tap_sum", z, bias)
     out = torch.empty((n, m), dtype=torch.float32, device=z.device)
     lib = _build.library("tap_sum", _SIGNATURES)
     rc = lib.p2p_tap_sum(

@@ -21,8 +21,9 @@ cancels to near zero keeps the float32 rounding of its terms), its backward
 through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
 expand_level bit-identical; fused_fine_head float32 rtol/atol 2e-4,
 bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
-midpoint moves a BN0 output by one ulp; chip_smoke's
-``bf16_ulps``). The whole
+midpoint moves a BN0 output by one ulp; chip_smoke's ``bf16_ulps``),
+at M from 1 to 2399, F 64 to 512 and corners at the superblock's edges.
+B1-B3 refuse inputs that require grad while grad mode is on. The whole
 pipeline on the card (f32, TF32 off) is held against the same model on
 the CPU, which runs the plain versions.
 """
@@ -272,16 +273,14 @@ def test_expand_level_bit_identical(cuda, dtype):
         assert torch.equal(got, expand_level_plain(rows, y0, x0, PSIZE))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [64, 96])
-def test_fused_fine_head_matches_plain(cuda, dtype, f):
-    rs, m = _rs(8), 37
+def _fine_head_args(rs, m, f, dtype, corners, cuda):
+    """Seeded rows of the main levels, corners, a head of width f and its
+    prolog: the arguments of fused_fine_head."""
     levels = ((16, 3), (8, 64), (4, 64), (2, 128))
     cs = [c for _, c in levels]
     rows = [[torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
              .to(cuda, dtype) for t, c in levels] for _ in range(2)]
-    corners = [torch.from_numpy(rs.randint(0, 2 * PSIZE, (m,)).astype(np.int32)).to(cuda)
-               for _ in range(4)]
+    corners = [c.to(cuda) for c in corners]
     k0 = torch.from_numpy((rs.standard_normal((3, 3, 2 * sum(cs), f)) * 0.05)
                           .astype(np.float32)).to(cuda)
     k1 = torch.from_numpy((rs.standard_normal((3, 3, f, f)) * 0.05).astype(np.float32)).to(cuda)
@@ -289,9 +288,12 @@ def test_fused_fine_head_matches_plain(cuda, dtype, f):
                 for a in (rs.uniform(0.5, 1.5, f), rs.uniform(-0.2, 0.2, f)))
           for _ in range(2)]
     inv1, inv2, partial0 = head_prolog(rows[0], rows[1], *corners, k0.to(dtype), PSIZE, dtype)
-    args = (rows[0][1:], rows[1][1:], *corners, inv1, inv2, partial0,
+    return (rows[0][1:], rows[1][1:], *corners, inv1, inv2, partial0,
             segment_weights(k0, cs, dtype), k1.reshape(9, f, f).to(dtype), bn[0], bn[1],
             PSIZE, dtype)
+
+
+def _check_fine_head(args, m, f, dtype):
     n0 = fused_fine_head.launches
     got = fused_fine_head(*args)
     assert fused_fine_head.launches == n0 + 1
@@ -301,6 +303,74 @@ def test_fused_fine_head_matches_plain(cuda, dtype, f):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:
         assert bf16_ulps(got.float(), want.float(), atol=1e-3).max() <= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [64, 96])
+def test_fused_fine_head_matches_plain(cuda, dtype, f):
+    rs, m = _rs(8), 37
+    corners = [torch.from_numpy(rs.randint(0, 2 * PSIZE, (m,)).astype(np.int32))
+               for _ in range(4)]
+    _check_fine_head(_fine_head_args(rs, m, f, dtype, corners, cuda), m, f, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,f,kind", [
+    (1, 512, "edges"),        # one proposal: the block's second warpgroup has none
+    (2399, 512, "unaligned"),  # an odd M at the fine stage's size
+    (7, 64, "edges"),
+    (9, 256, "aligned"),
+    (33, 512, "edges"),
+])
+def test_fused_fine_head_shapes_and_edges(cuda, dtype, m, f, kind):
+    """M = 1 and odd M (the last block's second proposal is missing), F
+    below, at and above one 256-channel tile, and corners at the
+    superblock's edges (0, negative, psize - 1, far)."""
+    rs = _rs(11)
+    args = _fine_head_args(rs, m, f, dtype, _expand_corners(kind, m, PSIZE, rs), cuda)
+    _check_fine_head(args, m, f, dtype)
+
+
+def test_fused_fine_head_rejects_bad_inputs(cuda):
+    rs, m = _rs(12), 3
+    corners = _expand_corners("edges", m, PSIZE, rs)
+    args = list(_fine_head_args(rs, m, 64, torch.bfloat16, corners, cuda))
+    n0 = fused_fine_head.launches
+    bad_rows = [r[..., :-8].contiguous() for r in args[0]]  # channels that fit no weights
+    with pytest.raises(ValueError):
+        fused_fine_head(bad_rows, args[1], *args[2:])
+    with pytest.raises(ValueError):  # one weight segment missing
+        fused_fine_head(*args[:9], args[9][:-1], *args[10:])
+    # a 16 x 16 x 64 level: its two windows (2 x 17^2 cells) exceed the
+    # kernel's 62 KB of shared memory for them
+    big = [torch.zeros((m, 4, 16, 16 * 64), device=cuda, dtype=torch.bfloat16)]
+    with pytest.raises(ValueError):
+        fused_fine_head(big, big, *args[2:9], [torch.zeros((9, 128, 64), device=cuda)],
+                        *args[10:])
+    assert fused_fine_head.launches == n0
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """B1-B3 write through ctypes, so their outputs carry no grad_fn:
+    with grad mode on, an input that requires grad raises; under no_grad
+    the same call runs the kernel."""
+    z = torch.zeros((8, 9, 4), device=cuda, requires_grad=True)
+    bias = torch.zeros(1, device=cuda)
+    f = _unit_feats(1, 1, 4, 4, 8).to(cuda).requires_grad_()
+    rows = [torch.zeros((2, 4, 8, 8 * 64), device=cuda, requires_grad=True)]
+    c = [torch.zeros(2, device=cuda, dtype=torch.int32)] * 4
+    calls = [(tap_sum, lambda: tap_sum(z, bias, 1, 2, 4)),
+             (corr_pool, lambda: corr_pool(f, f)),
+             (expand_scale_pair,
+              lambda: expand_scale_pair(rows, rows, *c, PSIZE, torch.float32))]
+    for fn, call in calls:
+        n0 = fn.launches
+        with pytest.raises(RuntimeError, match="backward"):
+            call()
+        assert fn.launches == n0
+        with torch.no_grad():
+            call()
+        assert fn.launches == n0 + 1
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -7,8 +7,10 @@ On the CPU ``fused_fine_head`` runs its plain version, held against
 tolerance (rtol/atol 2e-4: conv taps and segments are summed in another
 order). ``head_prolog`` against ``head_prolog_xla``: ``inv`` to rtol 1e-6
 (square-sums added in another order), ``partial0`` to atol 1e-5.
-``segment_weights`` and ``bn_affine`` are exact. The kernel itself runs
-only on a CUDA card: tests/test_torch_card.py.
+``segment_weights`` and ``bn_affine`` are exact, and so is the bf16
+kernels' K layout (``head_chunks`` + ``kmajor_weights``) against the
+per-segment convs, up to float32 summation order. The kernels themselves
+run only on a CUDA card: tests/test_torch_card.py.
 """
 
 import numpy as np
@@ -25,10 +27,13 @@ from patch2pix_tpu.ops.fine_stage_pallas import (
 from patch2pix_tpu.ops.fine_stage_pallas import bn_affine as jax_bn_affine
 from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops.fine_stage import (
+    _conv_taps,
     bn_affine,
     fused_fine_head,
     fused_fine_stage,
+    head_chunks,
     head_prolog,
+    kmajor_weights,
     segment_weights,
 )
 from patch2pix_tpu_torch.ops.patch_expand import expand_scale_pair_plain, output_slice_map
@@ -153,3 +158,44 @@ def test_regressor_forward_is_fc_head_of_pooled(dtype):
         whole = net(patches, None, slice_map=smap)
         split = net.fc_head(net.pooled(patches, None, slice_map=smap))
     assert torch.equal(whole, split)
+
+
+@pytest.mark.parametrize("f", [96, 512])
+def test_bf16_kernel_k_layout_is_the_segment_convs(f):
+    """The bf16 kernels' implicit GEMMs, written out: im2col columns in
+    (64-channel chunk, tap, channel) order from ``head_chunks``, times
+    ``kmajor_weights``, equal conv0 over the segments and conv1 (F not a
+    multiple of 64 pads its channels with zeros)."""
+    rng = np.random.default_rng(3)
+    m, cs = 3, CS[1:]
+    levels = [(None, None, t, c) for t, c in LEVELS[1:]]
+    expanded = [[T(rng.standard_normal((m, PSIZE, PSIZE, c)).astype(np.float32))
+                 for _ in range(2)] for c in cs]
+    k0 = T((rng.standard_normal((3, 3, 2 * sum(CS), f)) * 0.05).astype(np.float32))
+    segs = segment_weights(k0, CS, torch.float32)
+
+    def implicit_gemm(chunks, wt, stride):
+        cols = []
+        for x in chunks:
+            xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+            span = stride * 7 + 1
+            cols += [xp[:, dy:dy + span:stride, dx:dx + span:stride, :]
+                     for dy in range(3) for dx in range(3)]
+        return torch.cat(cols, dim=-1) @ wt.T
+
+    chunks = [expanded[li][side][..., off:off + 64] for li, side, off in head_chunks(levels)]
+    got = implicit_gemm(chunks, kmajor_weights(torch.cat(segs, dim=1), 64 * len(chunks)), 2)
+    want, it = None, iter(segs)
+    for (e1, e2), c in zip(expanded, cs):
+        for x in ([torch.cat([e1, e2], dim=-1)] if c == 64 else [e1, e2]):
+            want = _conv_taps(want, x, next(it), 2, 8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    x1 = T(rng.standard_normal((m, 8, 8, f)).astype(np.float32))
+    w1 = T((rng.standard_normal((9, f, f)) * 0.05).astype(np.float32))
+    fp = -(-f // 64) * 64
+    x1p = torch.nn.functional.pad(x1, (0, fp - f))
+    got = implicit_gemm(list(x1p.split(64, dim=-1)), kmajor_weights(w1, fp), 1)
+    torch.testing.assert_close(got, _conv_taps(None, x1, w1, 1, 8), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):  # a level of 96 channels is not whole chunks
+        head_chunks([(None, None, 4, 96)])

@@ -182,3 +182,45 @@ def test_untileable_gather_raises(rng):
     with pytest.raises(NotImplementedError):
         tpg.gather_scaled_patch_pairs_fused(feats, feats, pts, FEAT_IDX, DS, PSIZE,
                                             torch.float32)
+
+
+def test_block_gather_matches_jax(rng):
+    """The per-pixel block gather at map sizes that are not multiples of
+    16 (a 120x200 input), corners inside, across and beyond the edges."""
+    h, w = 120, 200
+    feats = _make_feats(rng, h, w)
+    pts = np.stack([rng.integers(-12, w + 12, (2, 9)), rng.integers(-12, h + 12, (2, 9))],
+                   -1).astype(np.float32)
+    assert not tpg.tileable([T(f) for f in feats], PSIZE)
+    lv, inv = tpg.gather_local_patches_levels([T(f) for f in feats], T(pts), FEAT_IDX, DS,
+                                              PSIZE)
+    jlv, jinv = jpg.gather_local_patches_levels([jnp.asarray(f) for f in feats],
+                                                jnp.asarray(pts), FEAT_IDX, DS, PSIZE)
+    assert len(lv) == len(jlv)
+    for a, b in zip(lv, jlv):
+        assert tuple(a.shape) == b.shape
+        close(a, b)
+    close(inv, jinv)
+
+
+def test_corr_pool_guard_sends_wide_bf16_to_plain_route(rng):
+    """bf16 features wider than the B2 kernel's panel take the correlation
+    and the pool apart; f32 keeps B2 at any width."""
+    from patch2pix_tpu_torch.config import ModelConfig
+    from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
+    from patch2pix_tpu_torch.ops.corr_pool import BF16_MAX_C, corr_pool_supported
+
+    f = [T(rng.standard_normal((1, 6, 8, 512)).astype(np.float32)) for _ in range(2)]
+    bf = [x.bfloat16() for x in f]
+    assert 512 > BF16_MAX_C
+    assert not corr_pool_supported(*bf, 2)
+    assert corr_pool_supported(*f, 2)
+    assert corr_pool_supported(*(x[..., :256] for x in bf), 2)
+    torch.manual_seed(0)
+    model = Patch2Pix(ModelConfig(dtype="bfloat16").resolved(), device="cpu")
+    corr, delta4d = model.coarse_corr(*bf, ksize=2)
+    assert isinstance(delta4d, torch.Tensor)  # the plain route's pre-pool volume
+    n1, n2 = (tcorr.l2_normalize(x) for x in bf)
+    want = tcorr.maxpool4d_values(tcorr.feat_correlation(n1, n2), 2)
+    want = tcorr.mutual_matching(model.ncn(tcorr.mutual_matching(want)))
+    torch.testing.assert_close(corr, want, rtol=0, atol=0)

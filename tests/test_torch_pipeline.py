@@ -6,7 +6,8 @@
     backbone, NCN and both regressors, summed in another order);
   * the committed ``s16`` and ``cs`` reference goldens, with the rule of
     ``tests/test_pipeline_e2e_parity.py`` (coords 0.05 px, scores 5e-3);
-  * ``predict_coarse`` and ``refine_matches`` against the JAX package's;
+  * ``predict_coarse`` and ``refine_matches`` against the JAX package's,
+    the latter also on images that are not psize-tileable;
   * fine_cap compaction, the Matcher façade and ``.pth`` loading.
 """
 
@@ -111,6 +112,29 @@ def test_predict_coarse_and_refine_match_jax(seeded_sd):
     ref = model.refine_matches(a, b, torch.from_numpy(coords))
     for got, want, tol in zip(ref, jref, (1e-3, 1e-4, 1e-3, 1e-4)):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+def test_refine_matches_untileable_matches_jax(seeded_sd):
+    """Plug-in refinement on images whose sides are not multiples of 16
+    (120x200): both stages take the per-pixel block gather, as the JAX
+    package does."""
+    im1, im2 = seeded_images(1, 120, 200, 24), seeded_images(1, 120, 200, 25)
+    params, stats = convert_patch2pix_state_dict(seeded_sd)
+    variables = {"params": jax.tree.map(jnp.asarray, params),
+                 "batch_stats": jax.tree.map(jnp.asarray, stats)}
+    coords = np.asarray([[[5.5, 7.0, 20.0, 9.5], [100.2, 60.7, 90.0, 64.0],
+                          [199.0, 119.0, 0.0, 3.0], [150.0, 30.5, 160.25, 110.0]]], np.float32)
+    for change_stride in (False, True):
+        cfg = JaxModelConfig(change_stride=change_stride).resolved()
+        cfg.regressor.panc = 1
+        jm = JaxPatch2Pix(config=cfg)
+        want = jax.tree.map(np.asarray, jax.jit(
+            lambda v, a, b, c: jm.apply(v, a, b, c, method=jm.refine_matches))(
+            variables, jnp.asarray(im1), jnp.asarray(im2), jnp.asarray(coords)))
+        got = build_port(change_stride, seeded_sd).refine_matches(
+            torch.from_numpy(im1), torch.from_numpy(im2), torch.from_numpy(coords))
+        for g, w_, tol in zip(got, want, (0.05, 5e-3, 0.05, 5e-3)):
+            np.testing.assert_allclose(g.numpy(), w_, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("tag", ["s16", "cs"])
