@@ -14,7 +14,9 @@ Phases, each fatal on failure:
      hold the kernel against its plain PyTorch version on the card, time
      kernel, plain version and library yardstick, and compute the bound
      from the bytes and operations this run's inputs need (B3 also
-     prints its share of the bound);
+     prints its share of the bound); for B1-B3, the gradients through the
+     kernel route must be ``torch.equal`` to autograd's through the plain
+     version, and their named backward is timed;
   3. golden parity in float32 with TF32 off: rebuild the seeded weights
      and reproduce ``tests/fixtures/pipeline_golden_{s16,cs}_1024.npz``
      (identical coarse set, coords 0.05 px, scores 5e-3) — every kernel's
@@ -35,7 +37,28 @@ Phases, each fatal on failure:
      full-width fine FeatRegressNet, M = 2400 seeded bf16 rows, (M, 5)
      outputs fused (prolog with B7, B5, fc_head) and unfused (B3,
      ``forward``), held to the rules below, both timed;
-  7. one JSON line of per-kernel numbers, then the result line.
+  7. training: the Patch2Pix train step at the reference setting
+     (ResNet34 change_stride, 480x320, batch 4, ptmax 400, panc 8, ksize
+     2, Adam 5e-4, backbone and NCN frozen, remat auto), seeded weights
+     and synthetic pairs, 3 warm-up and 10 timed steps in bf16, then in
+     float32: ms per step, training pairs/s, peak memory, launches and
+     backward calls per step (B1 and B3 must launch), the profiler's
+     kernel table and busy share; frozen weights bit-identical, trained
+     ones and the regressors' running averages moved, finite losses;
+     then one step with nothing frozen, which runs B3's backward. In
+     each run, every B1 and B3 call of the step whose launches are
+     counted is held against its plain version by phase 2's rules at the
+     step's own shapes (B3 at M = 12800, bf16 and float32), and the
+     first of each through both backward routes (``torch.equal``);
+  8. the training forward's golden in float32:
+     ``pipeline_golden_train_panc8.npz`` (480x320, panc 8, M = 2400),
+     anchors 1e-3, coords 0.05 px, scores 5e-3;
+  9. NCN pretraining at 1024x768, change_stride, ksize 2, bf16, one
+     triplet: 2 warm-up and 5 timed steps (B1 and B2 forward, B1's
+     backward; only the NCN moves, as in JAX, so no training path
+     reaches B2's backward), then one more step whose B1 and B2 calls
+     are held as in phase 7;
+  10. one JSON line of per-kernel numbers, then the result line.
 
 Each path's launches are counted from zero just before it runs: phase 4
 for B1-B3, phase 5 for B4, phase 6 for B5 and B7.
@@ -54,16 +77,24 @@ import time
 import numpy as np
 import torch
 
-from patch2pix_tpu_torch.config import ModelConfig
+from patch2pix_tpu_torch.config import ModelConfig, OptimConfig
+from patch2pix_tpu_torch.data.synthetic import synthetic_batch
 from patch2pix_tpu_torch.evaluation.matcher import Matcher
+from patch2pix_tpu_torch.models import patch2pix as patch2pix_module
 from patch2pix_tpu_torch.models.ncn import NeighConsensus
-from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
+from patch2pix_tpu_torch.models.patch2pix import Patch2Pix, shift_to_anchors
 from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops import conv4d as conv4d_module
+from patch2pix_tpu_torch.ops import patch_gather as patch_gather_module
 from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
 from patch2pix_tpu_torch.ops.corr_pool import LAYOUTS as CORR_POOL_LAYOUTS
-from patch2pix_tpu_torch.ops.corr_pool import cell_parity_rows, corr_pool, corr_pool_plain
+from patch2pix_tpu_torch.ops.corr_pool import (
+    cell_parity_rows,
+    corr_pool,
+    corr_pool_backward,
+    corr_pool_plain,
+)
 from patch2pix_tpu_torch.ops.correlation import l2_normalize
 from patch2pix_tpu_torch.ops.fine_stage import _SIGNATURES as FINE_HEAD_SIGNATURES
 from patch2pix_tpu_torch.ops.fine_stage import (
@@ -79,12 +110,20 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_level,
     expand_level_plain,
     expand_scale_pair,
+    expand_scale_pair_backward,
     expand_scale_pair_plain,
     output_slice_map,
     window_extent,
 )
 from patch2pix_tpu_torch.ops.patch_expand import plan as expand_plan
-from patch2pix_tpu_torch.ops.tap_sum import flat_shift_masks, tap_sum, tap_sum_plain
+from patch2pix_tpu_torch.ops.tap_sum import (
+    flat_shift_masks,
+    tap_sum,
+    tap_sum_backward,
+    tap_sum_plain,
+)
+from patch2pix_tpu_torch.train import create_train_state, make_ncn_pretrain_step, make_train_step
+from patch2pix_tpu_torch.train.step import resolve_remat
 from tests.ref_loader import seeded_state_dict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -190,19 +229,32 @@ def counts():
 # ------------------------------------------------------------ phase 2
 
 
-def check_tap_sum(dtype, gen, dev):
-    """B1 at the cs main-path shape: N = B*48*64 cells, HW = 48*64."""
+def tap_sum_inputs(dtype, gen, dev):
+    """B1's arguments at the cs main-path shape."""
     bs, h1, w1, hw = BATCH, H // 16, W // 16, (H // 16) * (W // 16)
-    n = bs * h1 * w1
-    z = torch.randn((n, 9, hw), generator=gen, device=dev).to(dtype)
+    z = torch.randn((bs * h1 * w1, 9, hw), generator=gen, device=dev).to(dtype)
     bias = torch.randn((1,), generator=gen, device=dev)
+    return z, bias, bs, h1, w1
+
+
+def hold_tap_sum(tag, z, bias, bs, h1, w1):
+    """B1's rule: bit-identical to the plain version. Returns (out, max
+    abs err)."""
     got = tap_sum(z, bias, bs, h1, w1)
     want = tap_sum_plain(z, bias, bs, h1, w1)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        fail(f"tap_sum {dtype}: not bit-identical to the plain version "
+        fail(f"{tag}: not bit-identical to the plain version "
              f"(max err {(got - want).abs().max().item()})")
-    err = (got - want).abs().max().item()
+    return got, (got - want).abs().max().item()
+
+
+def check_tap_sum(dtype, gen, dev):
+    """B1 at the cs main-path shape: N = B*48*64 cells, HW = 48*64."""
+    bs, h1, w1, hw = BATCH, H // 16, W // 16, (H // 16) * (W // 16)
+    n = bs * h1 * w1
+    z, bias = tap_sum_inputs(dtype, gen, dev)[:2]
+    got, err = hold_tap_sum(f"tap_sum {dtype}", z, bias, bs, h1, w1)
     ms = time_ms(lambda: tap_sum(z, bias, bs, h1, w1))
     plain_ms = time_ms(lambda: tap_sum_plain(z, bias, bs, h1, w1), iters=5)
     # the function reads z only at the taps its masks keep
@@ -236,19 +288,31 @@ def corr_pool_library(f1, f2):
     return (lambda: bmm_amax(f1, f2, torch.float32)), "bmm (f32 out) + amax"
 
 
-def corr_pool_case(dtype, gen, dev, h, w):
-    """B2 on 2x (BATCH, h, w, 256) unit-norm features (layer3): held
-    against the plain version (max abs err <= 1e-4), timed beside it and
-    the library yardstick."""
-    c = 256
-    f1 = l2_normalize(torch.randn((BATCH, h, w, c), generator=gen, device=dev)).to(dtype)
-    f2 = l2_normalize(torch.randn((BATCH, h, w, c), generator=gen, device=dev)).to(dtype)
+def corr_pool_inputs(dtype, gen, dev, h, w):
+    """B2's arguments: 2x (BATCH, h, w, 256) unit-norm features."""
+    return tuple(l2_normalize(torch.randn((BATCH, h, w, 256), generator=gen,
+                                          device=dev)).to(dtype) for _ in range(2))
+
+
+def hold_corr_pool(tag, f1, f2):
+    """B2's rule: max abs err <= 1e-4 of the plain version. Returns (out,
+    max abs err)."""
     got = corr_pool(f1, f2)
     want = corr_pool_plain(f1, f2)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not err <= 1e-4:
-        fail(f"corr_pool {dtype} {tuple(f1.shape)}: max abs err {err} > 1e-4")
+        fail(f"{tag}: max abs err {err} > 1e-4")
+    return got, err
+
+
+def corr_pool_case(dtype, gen, dev, h, w):
+    """B2 on 2x (BATCH, h, w, 256) unit-norm features (layer3): held
+    against the plain version (max abs err <= 1e-4), timed beside it and
+    the library yardstick."""
+    c = 256
+    f1, f2 = corr_pool_inputs(dtype, gen, dev, h, w)
+    got, err = hold_corr_pool(f"corr_pool {dtype} {tuple(f1.shape)}", f1, f2)
     ms = time_ms(lambda: corr_pool(f1, f2))
     plain_ms = time_ms(lambda: corr_pool_plain(f1, f2), iters=5)
     library, label = corr_pool_library(f1, f2)
@@ -276,46 +340,63 @@ def check_corr_pool(dtype, gen, dev):
     return corr_pool_case(dtype, gen, dev, H // 8, W // 8)
 
 
-def check_expand(dtype, gen, dev):
-    """B3 at the cs main-path shape: M = B*fine_cap proposals, levels
-    (t, C) = (16, 3), (8, 64), (4, 64), (2, 128)."""
-    m, psize = BATCH * FINE_CAP, 16
-    levels = ((16, 3), (8, 64), (4, 64), (2, 128))
+def expand_inputs(dtype, gen, dev):
+    """B3's arguments at the cs main-path shape: M = B*fine_cap, both
+    sides' rows, padded corners (y1, x1, y2, x2) in [0, H + psize) and
+    [0, W + psize), psize, out dtype."""
+    m = BATCH * FINE_CAP
     rows = [[torch.randn((m, 4, t, t * c), generator=gen, device=dev).to(dtype)
-             for t, c in levels] for _ in range(2)]
-    # (y1, x1, y2, x2): padded corners in [0, H + psize) and [0, W + psize)
-    corners = [torch.randint(0, lim + psize, (m,), generator=gen, device=dev,
+             for t, c in LEVELS] for _ in range(2)]
+    corners = [torch.randint(0, lim + PSIZE, (m,), generator=gen, device=dev,
                              dtype=torch.int32) for lim in (H, W, H, W)]
-    args = (rows[0], rows[1], *corners, psize, dtype)
+    return (rows[0], rows[1], *corners, PSIZE, dtype)
+
+
+def hold_expand(tag, rows1, rows2, y1, x1, y2, x2, psize, out_dtype):
+    """B3's rules: float32 outputs within rtol 1e-6 of the plain
+    version's, bf16 ones as :func:`expand_bf16_mismatch` bounds them.
+    Returns (outs, max abs err, note)."""
+    levels = tuple((r.shape[2], r.shape[3] // r.shape[2]) for r in rows1)
+    args = (rows1, rows2, y1, x1, y2, x2, psize, out_dtype)
     got = expand_scale_pair(*args)
     want = expand_scale_pair_plain(*args)
     torch.cuda.synchronize()
     err = 0.0
     for g, w_ in zip(got, want):
         if g.shape != w_.shape or g.dtype != w_.dtype:
-            fail(f"expand_scale_pair {dtype}: output {g.shape} vs {w_.shape}")
+            fail(f"{tag}: output {g.shape} vs {w_.shape}")
         diff = (g.float() - w_.float()).abs()
         err = max(err, diff.max().item())
-        if dtype == torch.float32 and (diff > 1e-6 * w_.abs()).any():
-            fail(f"expand_scale_pair f32: {int((diff > 1e-6 * w_.abs()).sum())} "
+        if out_dtype == torch.float32 and (diff > 1e-6 * w_.abs()).any():
+            fail(f"{tag}: {int((diff > 1e-6 * w_.abs()).sum())} "
                  f"values beyond rtol 1e-6 (max rel err "
                  f"{(diff / w_.abs().clamp_min(1e-30)).max().item():.3g})")
     note = ""
-    if dtype == torch.bfloat16:
+    if out_dtype == torch.bfloat16:
         # a flip needs the two f32 inverse norms, a few f32 ulps apart, to
         # straddle a bf16 rounding midpoint; a bf16 ulp is 2^16 f32 ulps,
         # so flips are rare: one pixel in 10^4 at most
         flipped, pixels, max_ulps = expand_bf16_mismatch(got, want, levels, psize)
         if flipped * 1e4 > pixels:
-            fail(f"expand_scale_pair bf16: {flipped} of {pixels} patch pixels "
+            fail(f"{tag}: {flipped} of {pixels} patch pixels "
                  f"disagree with the plain version")
         note = f", {flipped} of {pixels} pixels flipped inv (max {max_ulps:.3g} ulps off)"
+    return got, err, note
+
+
+def check_expand(dtype, gen, dev):
+    """B3 at the cs main-path shape: M = B*fine_cap proposals, levels
+    (t, C) = (16, 3), (8, 64), (4, 64), (2, 128)."""
+    args = expand_inputs(dtype, gen, dev)
+    rows, corners, psize = args[:2], args[2:6], args[6]
+    m = rows[0][0].shape[0]
+    got, err, note = hold_expand(f"expand_scale_pair {dtype}", *args)
     ms = time_ms(lambda: expand_scale_pair(*args))
     plain_ms = time_ms(lambda: expand_scale_pair_plain(*args), iters=5)
-    flops = 3 * 2 * m * psize * psize * sum(c for _, c in levels)
-    rows_bytes = window_bytes(levels, corners, psize, rows[0][0].element_size())
+    flops = 3 * 2 * m * psize * psize * sum(c for _, c in LEVELS)
+    rows_bytes = window_bytes(LEVELS, corners, psize, rows[0][0].element_size())
     b_ms, b_by = bound(rows_bytes + nbytes(*corners, *got), flops, torch.float32)
-    smem = expand_plan(levels, psize, rows[0][0].element_size()).smem
+    smem = expand_plan(LEVELS, psize, rows[0][0].element_size()).smem
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 shape=f"M={m} rows {[tuple(r.shape) for r in rows[0]]} {dtype}{note}, "
@@ -433,6 +514,61 @@ def check_expand_level(dtype, gen, dev):
                 shape=f"M={m} one side, levels {LEVELS} {dtype}, per level ms "
                       + "/".join(f"{t:.4f}" for t in per_level)
                       + f", window reads {rows_bytes / 1e6:.1f} MB")
+
+
+def backward_routes(kernel, plain, inputs, grads):
+    """Gradients with respect to ``inputs`` for the upstream ``grads``,
+    through the kernel route and through autograd of the plain version;
+    fails unless they are ``torch.equal`` (the same plain code runs in
+    both backwards)."""
+    out = []
+    for fn in (kernel, plain):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        outs = fn(*xs)
+        out.append(torch.autograd.grad(outs if isinstance(outs, tuple) else (outs,), xs, grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*out):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            return False
+    return True
+
+
+def backward_tap_sum(gen, z, bias, bs, h1, w1):
+    """B1's backward at z's shape: both routes, and its ms per call."""
+    g = torch.randn((z.shape[0], z.shape[2]), generator=gen, device=z.device)
+    same = backward_routes(lambda a, b: tap_sum(a, b, bs, h1, w1),
+                           lambda a, b: tap_sum_plain(a, b, bs, h1, w1), (z, bias), (g,))
+    ms = time_ms(lambda: tap_sum_backward(g, bs, h1, w1, bias.numel(), z.dtype), iters=10)
+    return same, ms, f"g {tuple(g.shape)} f32 -> dz {tuple(z.shape)} {z.dtype}, dbias"
+
+
+def backward_corr_pool(gen, f1, f2):
+    """B2's backward at the features' shape."""
+    b, h, w, _ = f1.shape
+    g = torch.randn((b, h // 2, w // 2, h // 2, w // 2), generator=gen, device=f1.device)
+    same = backward_routes(corr_pool, corr_pool_plain, (f1, f2), (g,))
+    ms = time_ms(lambda: corr_pool_backward(f1, f2, g), iters=5, warmup=1)
+    return same, ms, f"g {tuple(g.shape)} f32 -> 2x {tuple(f1.shape)} {f1.dtype}"
+
+
+def backward_expand(gen, rows1, rows2, y1, x1, y2, x2, psize, out_dtype):
+    """B3's backward at the rows' shapes, with respect to both sides'
+    rows."""
+    n = len(rows1)
+    outs = expand_scale_pair_plain(rows1, rows2, y1, x1, y2, x2, psize, out_dtype)
+    grads = tuple(torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+                  for o in outs)
+    del outs
+
+    def route(fn):
+        return lambda *r: fn(r[:n], r[n:], y1, x1, y2, x2, psize, out_dtype)
+
+    same = backward_routes(route(expand_scale_pair), route(expand_scale_pair_plain),
+                           (*rows1, *rows2), grads)
+    ms = time_ms(lambda: expand_scale_pair_backward(rows1, rows2, y1, x1, y2, x2, psize,
+                                                    out_dtype, grads), iters=5, warmup=1)
+    return same, ms, (f"M={rows1[0].shape[0]} {len(grads)} patch gradients {out_dtype} -> "
+                      f"both sides' rows {rows1[0].dtype}")
 
 
 def fine_head_inputs(dtype, gen, dev, m):
@@ -807,6 +943,309 @@ def fine_head_path(dev):
     return launches
 
 
+# ------------------------------------------------------------ phase 7-9
+
+# the reference training setting: ResNet34 change_stride, 480x320, batch 4
+TRAIN_H, TRAIN_W, TRAIN_BATCH, PTMAX = 320, 480, 4, 400
+BACKWARDS = (tap_sum_backward, corr_pool_backward, expand_scale_pair_backward)
+
+
+def backward_calls():
+    return {fn.__name__: fn.calls for fn in BACKWARDS}
+
+
+def calls_since(before):
+    return {k: v - before[k] for k, v in backward_calls().items()}
+
+
+class capture_inputs:
+    """Within the block, the port's calls of B1, B2 and B3 go through
+    shims that keep each call's arguments (tensors detached) and then
+    call the wrapper, whose launch count rises as before. ``as`` gives
+    ``{kernel name: [args of each call]}``."""
+
+    SITES = ((conv4d_module, "tap_sum"), (patch2pix_module, "corr_pool"),
+             (patch_gather_module, "expand_scale_pair"))
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.SITES]
+        self.calls = {name: [] for _, name in self.SITES}
+        for (mod, name), fn in zip(self.SITES, self.saved):
+            setattr(mod, name, self.shim(fn, self.calls[name]))
+        return self.calls
+
+    @staticmethod
+    def shim(fn, calls):
+        def detach(a):
+            if isinstance(a, torch.Tensor):
+                return a.detach()
+            return type(a)(x.detach() for x in a) if isinstance(a, (list, tuple)) else a
+
+        def call(*args):
+            calls.append(tuple(detach(a) for a in args))
+            return fn(*args)
+        return call
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.SITES, self.saved):
+            setattr(mod, name, fn)
+
+
+# kernel name -> (wrapper, plain version, forward rule, backward check)
+PATH_HOLDS = {
+    "tap_sum": (tap_sum, tap_sum_plain, hold_tap_sum, backward_tap_sum),
+    "corr_pool": (corr_pool, corr_pool_plain, hold_corr_pool, backward_corr_pool),
+    "expand_scale_pair": (expand_scale_pair, expand_scale_pair_plain, hold_expand,
+                          backward_expand),
+}
+
+
+def hold_path_calls(tag, captured, gen):
+    """Phase 2's checks at a path's own shapes: every captured call of
+    B1-B3 held against its plain version by phase 2's rule; the first
+    call of each kernel also timed beside its plain version and put
+    through both backward routes (``torch.equal``), its backward timed.
+    Frees each call's inputs once held."""
+    for name, calls in captured.items():
+        kernel, plain, hold, backward = PATH_HOLDS[name]
+        for i, args in enumerate(calls):
+            err, *note = hold(f"{tag} {name} call {i}", *args)[1:]
+            shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else
+                      [tuple(x.shape) for x in a] for a in args[:2]]
+            dtype = args[-1] if name == "expand_scale_pair" else args[0].dtype
+            msg = (f"{tag} hold {name} call {i} {shapes} {dtype}{''.join(note)}: "
+                   f"max_abs_err {err:.3g}")
+            if i == 0:
+                ms = time_ms(lambda: kernel(*args), iters=5)
+                plain_ms = time_ms(lambda: plain(*args), iters=3, warmup=1)
+                same, bwd_ms, shape = backward(gen, *args)
+                if not same:
+                    fail(f"{tag} {name} backward: the kernel route's gradients are not "
+                         f"torch.equal to the plain route's")
+                msg += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f}; backward {shape}: kernel "
+                        f"route torch.equal to the plain route, {bwd_ms:.4f} ms per call")
+            log(msg)
+            calls[i] = args = None
+            torch.cuda.empty_cache()
+
+
+def seeded_model(sd, dtype, dev, change_stride=True, panc=8):
+    cfg = ModelConfig(change_stride=change_stride, dtype=dtype).resolved()
+    cfg.regressor.panc = panc
+    model = Patch2Pix(cfg, device=dev)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    return model
+
+
+def check_updates(tag, model, before, frozen_prefixes, stats_prefixes=("regress_",)):
+    """Frozen parameters, and trainable ones the loss does not reach (no
+    gradient: layer3 feeds only the arg-max matching, layer4 never runs),
+    bit-identical; every parameter with a gradient, and the running
+    averages under ``stats_prefixes``, moved. Returns the counts."""
+    now = model.state_dict()
+    n_same = n_moved = 0
+    for k, p in model.named_parameters():
+        same = torch.equal(now[k], before[k])
+        if k.startswith(frozen_prefixes) or p.grad is None:
+            if not same:
+                fail(f"{tag}: {k} changed without a gradient")
+            n_same += 1
+        else:
+            if same:
+                fail(f"{tag}: trainable parameter {k} did not move")
+            n_moved += 1
+    stats = [k for k in now if "running" in k and k.startswith(stats_prefixes)]
+    for k in stats:
+        if torch.equal(now[k], before[k]):
+            fail(f"{tag}: running average {k} did not move")
+    return n_same, n_moved, len(stats)
+
+
+def check_finite(tag, metrics):
+    for i, met in enumerate(metrics):
+        bad = [k for k, v in met.items() if not torch.isfinite(v).all()]
+        if bad:
+            fail(f"{tag}: step {i} has non-finite metrics {bad}")
+
+
+def train_batches(dev, n=2, seed=0):
+    rs = np.random.RandomState(seed)
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(rs, TRAIN_BATCH, TRAIN_H, TRAIN_W).items()}
+            for _ in range(n)]
+
+
+def train_run(tag, dev, sd, dtype, batches, freeze=("extract", "ncn"), warmup=3, timed=10,
+              profile=False):
+    """Patch2Pix train steps at the reference training setting: warm-up
+    steps, one step whose launches and backward calls are counted and
+    whose B1 and B3 calls are then held against the plain versions
+    (:func:`hold_path_calls`), then ``timed`` steps each waited for (and,
+    with ``profile``, 3 more under torch.profiler). Returns a dict:
+    ``times`` (ms), ``peak_gb``,
+    ``launches``, ``calls``, ``loss`` (the last step's) and
+    ``updates`` (:func:`check_updates`, with ``freeze`` frozen)."""
+    model = seeded_model(sd, dtype, dev)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, OptimConfig(lr_init=5e-4), freeze=freeze)
+    step = make_train_step(model, state.optimizer, ksize=2, ptmax=PTMAX, remat="auto")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    metrics = []
+
+    def one():
+        nonlocal state
+        state, met = step(state, batches[len(metrics) % len(batches)], gen)
+        metrics.append(met)
+
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    reset_counts()
+    calls0 = backward_calls()
+    with capture_inputs() as captured:
+        one()
+    torch.cuda.synchronize()
+    out = dict(launches={k: v for k, v in counts().items() if v}, calls=calls_since(calls0))
+    hold_path_calls(tag, captured, torch.Generator(device=dev).manual_seed(1))
+    del captured
+    torch.cuda.reset_peak_memory_stats()
+    out["times"] = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        out["times"].append((time.perf_counter() - t0) * 1e3)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        profile_main_path(tag, one)
+    check_finite(tag, metrics)
+    out["loss"] = float(metrics[-1]["loss/pair"])
+    out["updates"] = check_updates(tag, model, before, tuple(f"{p}." for p in freeze))
+    return out
+
+
+def train_path(dev, sd):
+    """Phase 7: the Patch2Pix train step, bf16 then f32 (TF32 off), 3
+    warm-up and 10 timed steps each, then one step with ``freeze=()``."""
+    batches = train_batches(dev)
+    remat = resolve_remat("auto", TRAIN_BATCH, PTMAX, 8)
+    for dtype in ("bfloat16", "float32"):
+        tag = f"train [{dtype}]"
+        r = train_run(tag, dev, sd, dtype, batches, profile=True)
+        if not (r["launches"].get("tap_sum", 0) > 0
+                and r["launches"].get("expand_scale_pair", 0) > 0):
+            fail(f"{tag}: B1 and B3 must launch in a step: {r['launches']}")
+        times = r["times"]
+        n_same, n_moved, n_stats = r["updates"]
+        log(f"{tag} [ResNet34 change_stride {TRAIN_W}x{TRAIN_H} B={TRAIN_BATCH} "
+            f"ptmax={PTMAX} panc=8 ksize 2, Adam 5e-4, freeze extract+ncn, remat auto = "
+            f"{remat}]: ms/step median {float(np.median(times)):.2f} (min {min(times):.2f}, "
+            f"max {max(times):.2f}) over {len(times)} steps; "
+            f"{TRAIN_BATCH * len(times) / (sum(times) / 1e3):.2f} training pairs/s; peak "
+            f"device memory {r['peak_gb']:.2f} GB; launches per step {r['launches']}; "
+            f"backward calls per step {r['calls']}; last loss {r['loss']:.5g}; {n_same} "
+            f"frozen tensors bit-identical, {n_moved} trained tensors and {n_stats} running "
+            f"averages moved")
+        torch.cuda.empty_cache()
+
+    # one step with nothing frozen: the backbone needs the patch rows'
+    # gradient, so B3's backward runs
+    tag = "train [bfloat16, freeze=()]"
+    r = train_run(tag, dev, sd, "bfloat16", batches, freeze=(), warmup=1, timed=1)
+    if r["calls"]["expand_scale_pair_backward"] == 0:
+        fail(f"{tag}: B3's backward did not run: {r['calls']}")
+    n_same, n_moved, _ = r["updates"]
+    log(f"{tag}: ms/step {r['times'][0]:.2f} (after one warm-up step); peak device memory "
+        f"{r['peak_gb']:.2f} GB; launches per step {r['launches']}; backward calls per step "
+        f"{r['calls']}; {n_moved} tensors moved, {n_same} without a gradient (the NCN, "
+        f"layer3, layer4) bit-identical")
+    torch.cuda.empty_cache()
+
+
+def train_golden(dev):
+    """Phase 8: the f32 training forward (panc 8 anchors, both stages over
+    every coarse row) against ``pipeline_golden_train_panc8.npz``,
+    composed as ``tests/test_pipeline_e2e_parity.py`` does: anchors
+    within 1e-3, coords 0.05 px, scores 5e-3."""
+    g, meta, sd = load_golden("train_panc8")
+    model = seeded_model(sd, "float32", dev, meta["change_stride"], meta["panc"])
+    r = model.config.regressor
+    ims = [torch.from_numpy(seeded_images(meta["batch"], meta["h"], meta["w"],
+                                          meta["im_seed"] + i)).to(dev) for i in (0, 1)]
+    reset_counts()
+    with torch.no_grad():
+        feats1, feats2 = model.extract_pyramid_pair(*ims)
+        corr, delta4d = model.coarse_corr(feats1[-1], feats2[-1], 2)
+        cm = model.coarse_matches(corr, delta4d, 2, mutual=True, ncn_thres=0.0)
+        anchors = shift_to_anchors(cm.coords, r.pshift, r.panc)
+        tiles1, tiles2 = model._shared_tiles(feats1, feats2)
+        midm, midp = model.fine_match(feats1, feats2, anchors, "mid", tiles1=tiles1,
+                                      tiles2=tiles2)
+        finem, finep = model.fine_match(feats1, feats2, midm, "fine", tiles1=tiles1,
+                                        tiles2=tiles2)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    if launches.get("expand_scale_pair", 0) != 2:
+        fail(f"train golden: B3 must run in both stages: {launches}")
+    errs = {}
+    for name, got, tol in (("coarse", anchors, 1e-3), ("mid", midm, 0.05),
+                           ("mid_scores", midp, 5e-3), ("fine", finem, 0.05),
+                           ("fine_scores", finep, 5e-3)):
+        errs[name] = float(np.abs(got[0].cpu().numpy() - g[f"{name}_0"]).max())
+        if not errs[name] <= tol:
+            fail(f"train golden: {name} err {errs[name]} > {tol}")
+    log(f"golden train_panc8 [{meta['h']}x{meta['w']} f32, M={anchors.shape[1]}]: max errs "
+        + " ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f"; launches {launches}")
+
+
+def ncn_pretrain_path(dev, sd):
+    """Phase 9: NCN pretraining at 1024x768, change_stride, ksize 2, bf16,
+    one (src, pos, neg) triplet: 2 warm-up and 5 timed steps (B1 and B2
+    forward, B1's backward; only the NCN moves), then one more step whose
+    B1 and B2 calls are held against the plain versions."""
+    rs = np.random.RandomState(4)
+    pos = synthetic_batch(rs, 1, H, W)
+    neg = synthetic_batch(rs, 1, H, W)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             (("im_src", pos["im1"]), ("im_pos", pos["im2"]), ("im_neg", neg["im1"]))}
+    model = seeded_model(sd, "bfloat16", dev)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step, init = make_ncn_pretrain_step(model, lr=5e-4, ksize=2)
+    opt = init()
+    metrics = [step(opt, batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    reset_counts()
+    calls0 = backward_calls()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        metrics.append(step(opt, batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v / 5 for k, v in counts().items() if v}
+    calls = {k: v / 5 for k, v in calls_since(calls0).items()}
+    if not (launches.get("tap_sum", 0) > 0 and launches.get("corr_pool", 0) > 0
+            and calls["tap_sum_backward"] > 0):
+        fail(f"ncn pretrain: B1 and B2 must launch and B1's backward run: {launches}, {calls}")
+    with capture_inputs() as captured:
+        metrics.append(step(opt, batch))
+    torch.cuda.synchronize()
+    check_finite("ncn pretrain", metrics)
+    # only the NCN moves
+    check_updates("ncn pretrain", model, before, ("extract.", "regress_"), stats_prefixes=())
+    del model, before, opt
+    torch.cuda.empty_cache()
+    log(f"ncn pretrain [change_stride {W}x{H} ksize 2 bf16, one triplet, Adam 5e-4, "
+        f"backbone frozen]: ms/step median {float(np.median(times)):.2f} (min "
+        f"{min(times):.2f}, max {max(times):.2f}) over 5 steps; peak device memory "
+        f"{peak_gb:.2f} GB; launches per step {launches}; backward calls per step {calls}; "
+        f"loss {float(metrics[0]['loss/nc']):.5g} -> {float(metrics[-1]['loss/nc']):.5g}")
+    hold_path_calls("ncn pretrain", captured, torch.Generator(device=dev).manual_seed(2))
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -837,6 +1276,11 @@ def main():
     checks = {tap_sum: check_tap_sum, corr_pool: check_corr_pool,
               expand_scale_pair: check_expand, conv4d_small: check_conv4d_small,
               fused_fine_head: check_fine_head, expand_level: check_expand_level}
+    backward_checks = {
+        tap_sum: lambda dt: backward_tap_sum(gen, *tap_sum_inputs(dt, gen, dev)),
+        corr_pool: lambda dt: backward_corr_pool(gen, *corr_pool_inputs(dt, gen, dev, H // 8,
+                                                                         W // 8)),
+        expand_scale_pair: lambda dt: backward_expand(gen, *expand_inputs(dt, gen, dev))}
     results = {}
     for fn, check in checks.items():
         name = KERNELS[fn][0]
@@ -849,7 +1293,14 @@ def main():
                 f"{r['bound_ms']:.4f} ({r['bound_by']})")
             if dtype == torch.bfloat16:
                 results[fn] = r
-        torch.cuda.empty_cache()
+            if fn in backward_checks:
+                same, ms, shape = backward_checks[fn](dtype)
+                if not same:
+                    fail(f"{name} backward [{str(dtype)[6:]}]: the kernel route's gradients "
+                         f"are not torch.equal to the plain route's")
+                log(f"backward {name} [{str(dtype)[6:]}] {shape}: kernel route torch.equal "
+                    f"to the plain route; {ms:.4f} ms per call")
+            torch.cuda.empty_cache()
 
     # phase 3: golden parity, f32, TF32 off
     reset_counts()
@@ -946,8 +1397,15 @@ def main():
     torch.cuda.empty_cache()
     fine_counts = fine_head_path(dev)
     path_counts.update({k: fine_counts[k] for k in ("fused_fine_head", "expand_level")})
+    torch.cuda.empty_cache()
 
-    # phase 7: report
+    # phase 7: training; phase 8: the training forward's golden; phase 9:
+    # NCN pretraining
+    train_path(dev, sd)
+    train_golden(dev)
+    ncn_pretrain_path(dev, sd)
+
+    # phase 10: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

@@ -1,10 +1,13 @@
-"""Configuration dataclasses: the inference fields of
-``patch2pix_tpu.config``'s ``ModelConfig`` and ``RegressorConfig``, with
-the compute dtype as a torch dtype, and the device rule of the port's
-entry points."""
+"""Configuration dataclasses: ``patch2pix_tpu.config``'s
+``ModelConfig`` (inference fields), ``RegressorConfig``, ``OptimConfig``
+and ``TrainConfig`` with the JAX defaults and their JSON round trip, the
+compute dtype as a torch dtype (parameters stay float32), and the device
+rule of the port's entry points."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -60,6 +63,71 @@ class ModelConfig:
         if self.regressor is not None:
             self.regressor.feat_dim = sum(self.feat_dims[i] for i in self.feat_idx)
         return self
+
+
+@dataclass
+class OptimConfig:
+    opt: str = "adam"  # "adam" | "sgd" (momentum 0.9)
+    lr_init: float = 5e-4
+    weight_decay: float = 0.0  # coupled: added to the gradient
+    # ('step', factor, step) or ('multistep', factor, *steps) or None,
+    # in epochs
+    lr_decay: Optional[Tuple] = None
+    epochs: int = 100
+
+
+@dataclass
+class TrainConfig:
+    seed: int = 1
+    epochs: int = 100
+    save_step: int = 1
+    batch: int = 4
+    ksize: int = 2
+    freeze_feat: int = 87  # the reference's parameter index; the whole backbone is frozen
+    ptmax: int = 400
+    cthres: float = 0.5
+    cls_dthres: Tuple[int, int] = (50, 5)
+    epi_dthres: Tuple[int, int] = (50, 5)
+    weight_cls: float = 10.0
+    weight_epi: Tuple[float, float] = (1.0, 1.0)  # (fine, mid)
+    out_dir: str = "output/patch2pix"
+    data_root: str = "data"
+    pair_root: str = "data_pairs"
+    match_npy: str = "megadepth_pairs.ov0.35_imrat1.5.pair500.excl_test.npy"
+    # training pair size (the reference's 480x320)
+    wt: int = 480
+    ht: int = 320
+
+
+def to_json(cfg) -> str:
+    """A config dataclass as indented JSON (tuples as lists)."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def from_dict(cls, d):
+    """``cls`` from a dict of its fields: unknown keys are dropped (a
+    JAX ``ModelConfig``'s ``gather``), lists become tuples, and a
+    ``regressor`` dict a ``RegressorConfig``."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        if k == "regressor" and v is not None:
+            v = from_dict(RegressorConfig, v)
+        elif isinstance(v, list):
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def from_json(cls, s: str):
+    """Inverse of :func:`to_json` for config dataclass ``cls``."""
+    return from_dict(cls, json.loads(s))
+
+
+def model_config_from_json(s: str) -> ModelConfig:
+    return from_json(ModelConfig, s)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,5 +1,5 @@
 """Patch2Pix pipeline: coarse 4D-correlation matching + two-stage
-pixel-level regression (inference).
+pixel-level regression.
 
 Port of ``patch2pix_tpu.models.patch2pix``: fixed-shape ``(B, N, 4)``
 matches with validity masks, both regressor stages as one batched
@@ -14,6 +14,11 @@ Kernels on this path: B2 (``corr_pool``) whenever ksize == 2 and the
 feature maps have even sides, B1 (``tap_sum``) in both NCN branches,
 B3 (``expand_scale_pair``) in every regression stage that is not
 grid-aligned.
+
+``forward`` is the training forward (the JAX ``__call__``): coarse
+matches, ``select_ptmax``, ``panc`` anchors, then both regression stages
+with the regressors' BatchNorms on batch statistics, differentiable
+through B1-B3's backward passes.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from patch2pix_tpu_torch.config import ModelConfig, resolve_device
 from patch2pix_tpu_torch.models.ncn import NeighConsensus
-from patch2pix_tpu_torch.models.regressor import FeatRegressNet
+from patch2pix_tpu_torch.models.regressor import FeatRegressNet, update_running_stats
 from patch2pix_tpu_torch.models.resnet import BACKBONES
 from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_supported
 from patch2pix_tpu_torch.ops.correlation import (
@@ -40,6 +46,7 @@ from patch2pix_tpu_torch.ops.match_extract import (
     grid_to_pixel,
     mutual_consistency_mask,
     score_threshold_mask,
+    select_ptmax,
 )
 from patch2pix_tpu_torch.ops.patch_gather import (
     gather_local_patches_grid_levels,
@@ -66,7 +73,10 @@ def shift_to_anchors(coords: torch.Tensor, pshift: int, panc: int) -> torch.Tens
 
 def parse_regressor_out(out, in_coords, psize: int, ptype: str, bounds):
     """Raw regressor output ``(B, N, 5)`` -> refined matches (clamped to
-    the image bounds, inclusive) and confidences."""
+    the image bounds, inclusive) and confidences. The clamp is a
+    maximum then a minimum, whose gradient at a bound is halved, as
+    ``jnp.clip``'s is; the coordinates keep their gradient, so the fine
+    stage's loss reaches the mid regressor through ``in_coords``."""
     w1, h1, w2, h2 = bounds
     offset = float(psize) * torch.tanh(torch.relu(out[..., :4]))
     if ptype == "center":
@@ -74,7 +84,7 @@ def parse_regressor_out(out, in_coords, psize: int, ptype: str, bounds):
     matches = in_coords.float() + offset
     io_probs = torch.sigmoid(out[..., 4])
     lims = torch.tensor([w1, h1, w2, h2], dtype=torch.float32, device=out.device)
-    matches = torch.clamp(matches, min=torch.zeros_like(lims), max=lims)
+    matches = torch.minimum(torch.maximum(matches, torch.zeros_like(lims)), lims)
     return matches, io_probs
 
 
@@ -159,13 +169,14 @@ class Patch2Pix(nn.Module):
                 make_padded_tiles_levels(feats2, cfg.feat_idx, cfg.feats_downsample, psize))
 
     def fine_match(self, feats1, feats2, coords, stage: str,
-                   grid_aligned: bool = False, tiles1=None, tiles2=None):
+                   grid_aligned: bool = False, tiles1=None, tiles2=None, stats=None):
         """One regression stage over every proposal: coords ``(B, N, 4)``
         -> (refined ``(B, N, 4)``, probs ``(B, N)``). ``grid_aligned``
         asserts every coord is a coarse-cell centre and takes the
         space-to-depth gather; otherwise the superblock gather + B3 where
         both pyramids are psize-tileable, else the per-pixel block
-        gather."""
+        gather. ``stats``: a list to run the regressor on batch
+        statistics (``FeatRegressNet.forward``)."""
         cfg = self.config
         r = cfg.regressor
         psize = r.psize[0] if stage == "mid" else r.psize[1]
@@ -180,7 +191,7 @@ class Patch2Pix(nn.Module):
             patches, smap = gather_scaled_patch_pairs_fused(
                 feats1, feats2, coords, cfg.feat_idx, cfg.feats_downsample,
                 psize, dtype, tiles1=tiles1, tiles2=tiles2)
-            out = regressor(patches, None, slice_map=smap).reshape(b, n, 5)
+            out = regressor(patches, None, slice_map=smap, stats=stats).reshape(b, n, 5)
             return parse_regressor_out(out, coords, psize, "center", bounds)
 
         def scaled(levels, inv):
@@ -191,10 +202,61 @@ class Patch2Pix(nn.Module):
         gather = gather_local_patches_grid_levels if grid_aligned else gather_local_patches_levels
         lv1, inv1 = gather(feats1, coords[..., 0:2], cfg.feat_idx, cfg.feats_downsample, psize)
         lv2, inv2 = gather(feats2, coords[..., 2:4], cfg.feat_idx, cfg.feats_downsample, psize)
-        out = regressor(scaled(lv1, inv1), scaled(lv2, inv2)).reshape(b, n, 5)
+        out = regressor(scaled(lv1, inv1), scaled(lv2, inv2), stats=stats).reshape(b, n, 5)
         return parse_regressor_out(out, coords, psize, "center", bounds)
 
     # ---------------- end-to-end paths ----------------
+
+    def forward(self, im1, im2, ksize: int = 2, ptmax: int = 400, train: bool = True,
+                backbone_train_bn: bool = False, remat: str = "none", generator=None,
+                rand=None):
+        """Training forward on NHWC images ``(B, H, W, 3)``: coarse
+        matches -> ``ptmax`` proposals per pair (:func:`select_ptmax` with
+        ``generator``, or the explicit ``(B, N)`` uniform draw ``rand``)
+        -> ``panc`` anchors -> mid stage -> fine stage. Returns the dict
+        of the JAX ``__call__``: ``coarse`` (the anchors), ``mid``,
+        ``mid_probs``, ``fine``, ``fine_probs``, ``corr``.
+
+        ``train``: the regressors' BatchNorms run on batch statistics and
+        their running averages are updated once the stages have run.
+        ``remat``: activation checkpointing of the regression stages
+        (``torch.utils.checkpoint``, non-reentrant): ``none``, ``fine``
+        (the fine stage), ``both``; ``dots`` (the JAX policy that saves
+        matmul outputs) recomputes both stages here, as ``both`` does.
+        ``backbone_train_bn`` (batch-statistics BatchNorm in the
+        backbone) is not ported and raises."""
+        if backbone_train_bn:
+            raise NotImplementedError("backbone_train_bn: batch-statistics BatchNorm in "
+                                      "the backbone is not ported")
+        if remat not in ("none", "fine", "both", "dots"):
+            raise ValueError(f"unknown remat mode {remat!r}")
+        r = self.config.regressor
+        feats1, feats2 = self.extract_pyramid_pair(im1, im2)
+        corr, delta4d = self.coarse_corr(feats1[-1], feats2[-1], ksize)
+        cm = self.coarse_matches(corr, delta4d, ksize, mutual=True, ncn_thres=0.0)
+        sel = select_ptmax(cm.coords, cm.scores, cm.valid, ptmax, generator, rand)
+        anchors = shift_to_anchors(sel.coords, r.pshift, r.panc)
+        tiles1, tiles2 = self._shared_tiles(feats1, feats2)
+
+        def stage(coords, name):
+            # batch statistics are returned, not applied: a checkpointed
+            # stage runs twice and its recomputation's are dropped
+            st = [] if train else None
+            matches, probs = self.fine_match(feats1, feats2, coords, name,
+                                             tiles1=tiles1, tiles2=tiles2, stats=st)
+            return matches, probs, st
+
+        def run(coords, name, recompute):
+            if recompute:
+                return checkpoint(stage, coords, name, use_reentrant=False)
+            return stage(coords, name)
+
+        mid_matches, mid_probs, st_mid = run(anchors, "mid", remat in ("both", "dots"))
+        fine_matches, fine_probs, st_fine = run(mid_matches, "fine", remat != "none")
+        if train:
+            update_running_stats(st_mid + st_fine)
+        return {"coarse": anchors, "mid": mid_matches, "mid_probs": mid_probs,
+                "fine": fine_matches, "fine_probs": fine_probs, "corr": corr}
 
     @torch.inference_mode()
     def predict_coarse(self, im1, im2, ksize: int = 2, ncn_thres: float = 0.0,

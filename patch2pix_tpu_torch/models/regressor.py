@@ -1,4 +1,4 @@
-"""Mid/fine local-patch regressor (inference).
+"""Mid/fine local-patch regressor.
 
 Port of ``patch2pix_tpu.models.regressor.FeatRegressNet`` with feat_comb
 ``pre``: a small CNN over psize x psize hypercolumn patches of both
@@ -22,6 +22,15 @@ Inference arithmetic, as in the JAX package:
 are separate methods so that the fused fine-stage head
 (``ops/fine_stage.py``) can feed its pooled features to the same fc
 layers.
+
+Training (``stats``, a list, given to ``forward``, ``pooled`` or
+``fc_head``): every BatchNorm normalises with the batch's statistics, as
+the JAX package's ``BNAffine`` and flax ``nn.BatchNorm`` do — float32
+mean and biased variance ``E[x^2] - mean^2`` clamped at 0, the conv BNs
+still folded as affines — and appends ``(module, mean, var)`` to
+``stats``; :func:`update_running_stats` then folds them into the running
+averages, ``0.9 * old + 0.1 * batch``. The caller applies the update, so
+a stage recomputed under activation checkpointing counts once.
 """
 
 from __future__ import annotations
@@ -56,6 +65,32 @@ def segmented_conv(xs, weight, stride: int, dtype, slice_map=None):
         y = conv2d_nhwc(x.to(dtype), ks.to(dtype), stride, 1).float()
         acc = y if acc is None else acc + y
     return acc.to(dtype)
+
+
+def batch_moments(x):
+    """Float32 mean and biased variance over every axis but the last,
+    from one sum / sum-of-squares pass: ``E[x^2] - mean^2`` clamped at 0
+    (``BNAffine``'s and flax ``nn.BatchNorm``'s fast variance)."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    n = xf.shape[0]
+    mean = xf.sum(dim=0) / n
+    var = torch.clamp(xf.square().sum(dim=0) / n - mean.square(), min=0.0)
+    return mean, var
+
+
+def bn_affine(bn, mean, var):
+    """BatchNorm with the given statistics as the f32 affine ``(s, t)``."""
+    s = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    return s, bn.bias.float() - mean * s
+
+
+@torch.no_grad()
+def update_running_stats(stats, momentum: float = 0.9) -> None:
+    """Fold ``[(BatchNorm, batch mean, batch var), ...]`` into the running
+    averages, in order: ``momentum * old + (1 - momentum) * batch``."""
+    for bn, mean, var in stats:
+        bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * var)
 
 
 def scaled_kernel_conv(x, weight, stride: int, dtype, in_affine=None):
@@ -99,14 +134,23 @@ class FeatRegressNet(nn.Module):
         fcs.append(nn.Linear(cin, out_dim, device=device))
         self.fc = nn.Sequential(*fcs)
 
-    def forward(self, f1, f2=None, slice_map=None):
+    def forward(self, f1, f2=None, slice_map=None, stats=None):
         """``f1``/``f2``: each a hypercolumn tensor or a sequence of
         per-level tensors. ``f2=None`` marks ``f1`` as the fused-gather
         layout: a flat tuple of patch tensors whose kernel-channel
-        slices are given by ``slice_map``. Returns (M, 5) float32."""
-        return self.fc_head(self.pooled(f1, f2, slice_map))
+        slices are given by ``slice_map``. ``stats``: a list to train
+        with batch statistics (module docstring). Returns (M, 5)
+        float32."""
+        return self.fc_head(self.pooled(f1, f2, slice_map, stats), stats)
 
-    def pooled(self, f1, f2=None, slice_map=None):
+    def _affine(self, bn, y, stats):
+        if stats is None:
+            return bn_fold(bn)
+        mean, var = batch_moments(y)
+        stats.append((bn, mean.detach(), var.detach()))
+        return bn_affine(bn, mean, var)
+
+    def pooled(self, f1, f2=None, slice_map=None, stats=None):
         """The conv layers, their BatchNorms and the global max-pool:
         (M, F) features in the compute dtype (arguments as
         :meth:`forward`)."""
@@ -115,26 +159,32 @@ class FeatRegressNet(nn.Module):
         xs = _as_tuple(f1) if f2 is None else _as_tuple(f1) + _as_tuple(f2)
         y = segmented_conv(xs, convs[0].weight, self.conv_strs[0], dtype,
                            None if f2 is not None else list(slice_map))
-        affine = bn_fold(convs[1])
+        affine = self._affine(convs[1], y, stats)
         for li in range(1, len(convs) // 2):
             y = scaled_kernel_conv(y, convs[2 * li].weight, self.conv_strs[li],
                                    dtype, in_affine=affine)
-            affine = bn_fold(convs[2 * li + 1])
+            affine = self._affine(convs[2 * li + 1], y, stats)
         sa, ta = affine
         xmax = torch.amax(y, dim=(1, 2)).float()
         xmin = torch.amin(y, dim=(1, 2)).float()
         return torch.relu(sa * torch.where(sa > 0, xmax, xmin) + ta).to(dtype)
 
-    def fc_head(self, feat):
+    def fc_head(self, feat, stats=None):
         """(M, F) pooled features -> (M, 5) float32: the fc layers with
-        their BatchNorms and ReLUs, then the output layer."""
+        their BatchNorms and ReLUs, then the output layer (``stats`` as
+        :meth:`forward`)."""
         dtype = self.dtype
         fcs = list(self.fc)
         for li in range(len(fcs) // 3):
             lin, bn = fcs[3 * li], fcs[3 * li + 1]
             feat = F.linear(feat.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
-            feat = ((feat.float() - bn.running_mean)
-                    * (torch.rsqrt(bn.running_var + bn.eps) * bn.weight)
+            if stats is None:
+                mean, var = bn.running_mean, bn.running_var
+            else:
+                mean, var = batch_moments(feat)
+                stats.append((bn, mean.detach(), var.detach()))
+            feat = ((feat.float() - mean)
+                    * (torch.rsqrt(var + bn.eps) * bn.weight)
                     + bn.bias).to(dtype)
             feat = torch.relu(feat)
         out = fcs[-1]

@@ -104,13 +104,15 @@ def check_launch(rc: int, what: str) -> None:
 
 
 def refuse_grad(what: str, *tensors) -> None:
-    """Raise where autograd would need a kernel's gradient: the kernel
-    writes into fresh storage through ctypes, so its output carries no
-    ``grad_fn`` (on the CPU the plain version is differentiable)."""
+    """Raise where autograd would need the gradient of a kernel that has
+    no backward (B5, B7: the JAX package gives them no VJP either): the
+    kernel writes into fresh storage through ctypes, so its output
+    carries no ``grad_fn`` (on the CPU the plain version is
+    differentiable)."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{what}: the CUDA kernel has no backward pass yet; call it "
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward pass; call it "
                            f"under torch.no_grad() or on inputs that do not require grad")
 
 

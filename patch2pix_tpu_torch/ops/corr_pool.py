@@ -8,6 +8,12 @@ launches ``csrc/corr_pool.cu``; on CPU tensors it runs
 :func:`corr_pool_plain`. The within-window argmax offsets are not
 produced: :func:`decode_delta_from_feats` recomputes them from the
 features for the few selected cells.
+
+Differentiable: the backward is the JAX custom VJP's
+(``_corr_pool_bwd``, ``patch2pix_tpu/ops/corr_pool_pallas.py:178-181``)
+in plain PyTorch, :func:`corr_pool_backward`: the correlation and the
+pool's ``torch.maximum`` cascade replayed from the saved features, so
+the pre-pool volume exists only inside the backward.
 """
 
 from __future__ import annotations
@@ -74,11 +80,23 @@ def cell_parity_rows(feat: torch.Tensor, row_mult: int, chan_mult: int,
     return out
 
 
-def corr_pool(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
-    """``(B, h1, w1, C)``, ``(B, h2, w2, C)`` even spatial dims ->
-    ``(B, h1/2, w1/2, h2/2, w2/2)`` float32 pooled correlation."""
-    if feat1.device.type == "cpu" and feat2.device.type == "cpu":
-        return corr_pool_plain(feat1, feat2)
+def corr_pool_backward(feat1: torch.Tensor, feat2: torch.Tensor, g: torch.Tensor):
+    """The adjoint of :func:`corr_pool`: the vector-Jacobian product of
+    :func:`corr_pool_plain` at (feat1, feat2) with the pooled gradient
+    ``g``, replayed from the features -> (dfeat1, dfeat2) in the
+    features' dtypes. A pairwise tie in the pool sends half the gradient
+    to each side, as ``jnp.maximum`` does."""
+    corr_pool_backward.calls += 1
+    with torch.enable_grad():
+        f1 = feat1.detach().requires_grad_()
+        f2 = feat2.detach().requires_grad_()
+        return torch.autograd.grad(corr_pool_plain(f1, f2), (f1, f2), g)
+
+
+corr_pool_backward.calls = 0
+
+
+def _launch(feat1, feat2):
     b, h1, w1, c = feat1.shape
     _, h2, w2, _ = feat2.shape
     if feat1.device.type != "cuda" or feat2.device != feat1.device:
@@ -88,7 +106,6 @@ def corr_pool(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
     if not corr_pool_supported(feat1, feat2, KSIZE) or feat2.shape[0] != b:
         raise ValueError(f"corr_pool: shapes {tuple(feat1.shape)}, {tuple(feat2.shape)} "
                          f"(bf16 takes at most {BF16_MAX_C} channels)")
-    _build.refuse_grad("corr_pool", feat1, feat2)
     rows1, rows2, chans, k_major = LAYOUTS[feat1.dtype]
     a = cell_parity_rows(feat1, rows1, chans, k_major)
     m = cell_parity_rows(feat2, rows2, chans, k_major)
@@ -104,6 +121,27 @@ def corr_pool(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
     _build.check_launch(rc, "corr_pool")
     corr_pool.launches += 1
     return out
+
+
+class _CorrPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat1, feat2):
+        ctx.save_for_backward(feat1, feat2)
+        if feat1.device.type == "cpu" and feat2.device.type == "cpu":
+            return corr_pool_plain(feat1, feat2)
+        return _launch(feat1, feat2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return corr_pool_backward(*ctx.saved_tensors, g)
+
+
+def corr_pool(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
+    """``(B, h1, w1, C)``, ``(B, h2, w2, C)`` even spatial dims ->
+    ``(B, h1/2, w1/2, h2/2, w2/2)`` float32 pooled correlation. On CPU
+    tensors it runs :func:`corr_pool_plain`, on CUDA tensors the
+    kernel."""
+    return _CorrPool.apply(feat1, feat2)
 
 
 corr_pool.launches = 0

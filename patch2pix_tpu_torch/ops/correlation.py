@@ -39,13 +39,22 @@ def mutual_matching(corr: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def maxpool4d_values(corr: torch.Tensor, ksize: int = 2) -> torch.Tensor:
     """Values-only 4D max-pool over (h1, w1, h2, w2) with window
-    ``ksize`` along each axis."""
+    ``ksize`` along each axis, as the JAX package computes it: axis by
+    axis (h1 first), a cascade of pairwise ``torch.maximum`` over the
+    strided slices. The values are those of one max over the window;
+    the cascade's gradient, like ``jnp.maximum``'s, sends half to each
+    side of a pairwise tie."""
     if ksize == 1:
         return corr
-    b, h1, w1, h2, w2 = corr.shape
-    k = ksize
-    v = corr.reshape(b, h1 // k, k, w1 // k, k, h2 // k, k, w2 // k, k)
-    return torch.amax(v, dim=(2, 4, 6, 8))
+    x = corr
+    for axis in (1, 2, 3, 4):
+        best = None
+        for i in range(ksize):
+            idx = [slice(None)] * x.dim()
+            idx[axis] = slice(i, None, ksize)
+            best = x[tuple(idx)] if best is None else torch.maximum(best, x[tuple(idx)])
+        x = best
+    return x
 
 
 def window_argmax(vals: torch.Tensor, k: int):

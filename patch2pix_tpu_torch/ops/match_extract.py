@@ -1,8 +1,9 @@
 """Fixed-shape match extraction from correlation volumes.
 
-Port of ``patch2pix_tpu.ops.match_extract`` (inference subset): both
-matching directions in one pass, mutual filtering as an argmax
-round-trip test, ``N = h2*w2 + h1*w1`` rows with a validity mask.
+Port of ``patch2pix_tpu.ops.match_extract`` (inference subset, and the
+training step's :func:`select_ptmax`): both matching directions in one
+pass, mutual filtering as an argmax round-trip test, ``N = h2*w2 +
+h1*w1`` rows with a validity mask.
 """
 
 from __future__ import annotations
@@ -107,3 +108,24 @@ def grid_to_pixel(grid, upsample: int, center: bool = True):
     if center:
         pix = pix + float(upsample // 2)
     return pix
+
+
+def select_ptmax(coords, scores, valid, ptmax: int, generator=None, rand=None) -> Matches:
+    """Resample the valid rows to exactly ``ptmax`` proposals per pair:
+    valid rows in a random order, cycled until ``ptmax`` slots are
+    filled; a pair with no valid row repeats row 0. The order comes from
+    ``rand``, a ``(B, N)`` uniform draw, or else one drawn with
+    ``generator`` (``torch.rand`` on the scores' device). Returns
+    :class:`Matches` with an all-True valid mask."""
+    b, n = scores.shape
+    if rand is None:
+        rand = torch.rand((b, n), generator=generator, device=scores.device)
+    # invalid rows sort to the back; valid rows in the draw's order
+    order = torch.argsort(torch.where(valid, rand, torch.full_like(rand, 2.0)),
+                          dim=1, stable=True)
+    n_valid = torch.clamp(valid.sum(dim=1), min=1)
+    slots = torch.arange(ptmax, device=scores.device)[None, :] % n_valid[:, None]
+    ids = torch.gather(order, 1, slots)
+    return Matches(torch.gather(coords, 1, ids[..., None].expand(-1, -1, coords.shape[-1])),
+                   torch.gather(scores, 1, ids),
+                   torch.ones((b, ptmax), dtype=torch.bool, device=scores.device))

@@ -21,6 +21,12 @@ and gives the kernel its divisor constants.
 source) is the one-level, one-sided, unscaled expansion that the fused
 fine-stage head's prolog needs; it is a pure gather, bit-identical to
 :func:`expand_level_plain`.
+
+:func:`expand_scale_pair` is differentiable with respect to both sides'
+rows: the backward is the JAX custom VJP's (``_bwd``,
+``patch2pix_tpu/ops/patch_expand_pallas.py:458-467``) in plain PyTorch,
+:func:`expand_scale_pair_backward`; the int32 corners get none. B7 has
+no backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -180,19 +186,56 @@ def plan(shapes: Tuple[Tuple[int, int], ...], psize: int, elsize: int) -> _Args:
     return a
 
 
+class _WindowGather(torch.autograd.Function):
+    """One axis of a window expansion: ``x`` holds 2t cells along
+    ``dim``; output pixel d of proposal m reads cell ``(r[m] + d) // ds``
+    (r = the padded corner mod psize, which is :func:`_window_indices`).
+    The gather copies values; its backward sums each cell's run of ds
+    pixel gradients by a shift and a reshape, not by scattered adds, so
+    it is deterministic on every device."""
+
+    @staticmethod
+    def forward(ctx, x, r, psize, ds, dim):
+        ctx.geometry = (r, psize, ds, dim, x.shape[dim])
+        d = torch.arange(psize, device=x.device)
+        idx = torch.div(r[:, None] + d, ds, rounding_mode="floor")
+        shape = [1] * x.dim()
+        shape[0], shape[dim] = x.shape[0], psize
+        out_shape = list(x.shape)
+        out_shape[dim] = psize
+        return torch.gather(x, dim, idx.view(shape).expand(out_shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        r, psize, ds, dim, cells = ctx.geometry
+        # pixel d of proposal m lands at q = r[m] + d of cells * ds slots
+        q = torch.arange(cells * ds, device=g.device)
+        src = q - r[:, None]
+        keep = (src >= 0) & (src < psize)
+        shape = [1] * g.dim()
+        shape[0], shape[dim] = g.shape[0], cells * ds
+        slot_shape = list(g.shape)
+        slot_shape[dim] = cells * ds
+        slots = torch.gather(g, dim, src.clamp(0, psize - 1).view(shape).expand(slot_shape))
+        slots = torch.where(keep.view(shape), slots, torch.zeros((), dtype=g.dtype,
+                                                                  device=g.device))
+        split = list(g.shape)
+        split[dim:dim + 1] = [cells, ds]
+        return slots.reshape(split).sum(dim=dim + 1), None, None, None, None
+
+
 def expand_level_plain(rows: torch.Tensor, y0, x0, psize: int) -> torch.Tensor:
     """One level, one side: (M, 4, t, t*C) rows -> (M, p, p, C) window
-    values by plain indexed reads."""
+    values by plain gathers (differentiable with respect to rows)."""
     m, _, t, tc = rows.shape
     c = tc // t
     ds = psize // t
     # (M, ty, tx, wy, wx, C) -> superblock (M, 2t, 2t, C)
     sb = rows.reshape(m, 2, 2, t, t, c).permute(0, 1, 3, 2, 4, 5).reshape(
         m, 2 * t, 2 * t, c)
-    iy = _window_indices(y0, psize, ds)
-    ix = _window_indices(x0, psize, ds)
-    mi = torch.arange(m, device=rows.device)[:, None, None]
-    return sb[mi, iy[:, :, None], ix[:, None, :]]
+    ry = y0.long().clamp_min(0) % psize
+    rx = x0.long().clamp_min(0) % psize
+    return _WindowGather.apply(_WindowGather.apply(sb, ry, psize, ds, 1), rx, psize, ds, 2)
 
 
 def expand_scale_pair_plain(rows1, rows2, y1, x1, y2, x2, psize: int,
@@ -253,17 +296,28 @@ def expand_level(rows: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
 expand_level.launches = 0
 
 
-def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
-                      out_dtype) -> Tuple[torch.Tensor, ...]:
-    """rows1/rows2: per-level ``(M, 4, t_l, t_l*C_l)``; y*/x*: ``(M,)``
-    int32 padded corners (clipped at 0 by the gather; a negative corner
-    counts as 0). Returns the scaled patch tensors in
-    :func:`output_slice_map` order."""
-    rows1, rows2 = tuple(rows1), tuple(rows2)
-    tensors = rows1 + rows2 + (y1, x1, y2, x2)
-    if all(x.device.type == "cpu" for x in tensors):
-        return expand_scale_pair_plain(rows1, rows2, y1, x1, y2, x2, psize,
+def expand_scale_pair_backward(rows1, rows2, y1, x1, y2, x2, psize: int, out_dtype,
+                               grads) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """The adjoint of :func:`expand_scale_pair` with respect to both
+    sides' rows: the vector-Jacobian product of
+    :func:`expand_scale_pair_plain`, recomputed from the rows, with the
+    outputs' gradients ``grads`` (in output order). Returns (drows1,
+    drows2), one gradient per level and side in the rows' dtype."""
+    expand_scale_pair_backward.calls += 1
+    n = len(rows1)
+    with torch.enable_grad():
+        rows = [r.detach().requires_grad_() for r in (*rows1, *rows2)]
+        outs = expand_scale_pair_plain(rows[:n], rows[n:], y1, x1, y2, x2, psize,
                                        out_dtype)
+        drows = torch.autograd.grad(outs, rows, grads)
+    return drows[:n], drows[n:]
+
+
+expand_scale_pair_backward.calls = 0
+
+
+def _launch_pair(rows1, rows2, y1, x1, y2, x2, psize, out_dtype):
+    tensors = rows1 + rows2 + (y1, x1, y2, x2)
     dev = y1.device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError("expand_scale_pair: tensors must share one CUDA device")
@@ -275,9 +329,6 @@ def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
         if c.dtype != torch.int32 or c.shape != (m,) or not c.is_contiguous():
             raise ValueError("expand_scale_pair: corners must be contiguous "
                              "(M,) int32")
-    if len(rows1) != len(rows2):
-        raise ValueError(f"expand_scale_pair: {len(rows1)} levels of side 1, "
-                         f"{len(rows2)} of side 2")
     shapes = []
     for r1, r2 in zip(rows1, rows2):
         m_, four, t, tc = r1.shape
@@ -286,7 +337,6 @@ def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
             raise ValueError(f"expand_scale_pair: rows {tuple(r1.shape)}, "
                              f"{tuple(r2.shape)}")
         shapes.append((t, tc // t))
-    _build.refuse_grad("expand_scale_pair", *rows1, *rows2)
     elsize = out_dtype.itemsize
     a = _Args.from_buffer_copy(plan(tuple(shapes), psize, elsize))
     outs = []
@@ -311,6 +361,41 @@ def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
     _build.check_launch(rc, "expand_scale_pair")
     expand_scale_pair.launches += 1
     return tuple(outs)
+
+
+class _ExpandScalePair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psize, out_dtype, n_levels, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.geometry = (psize, out_dtype, n_levels)
+        rows1, rows2 = tensors[:n_levels], tensors[n_levels:2 * n_levels]
+        corners = tensors[2 * n_levels:]
+        if all(x.device.type == "cpu" for x in tensors):
+            return expand_scale_pair_plain(rows1, rows2, *corners, psize, out_dtype)
+        return _launch_pair(rows1, rows2, *corners, psize, out_dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        psize, out_dtype, n = ctx.geometry
+        tensors = ctx.saved_tensors
+        d1, d2 = expand_scale_pair_backward(tensors[:n], tensors[n:2 * n],
+                                            *tensors[2 * n:], psize, out_dtype, grads)
+        return (None, None, None, *d1, *d2, None, None, None, None)
+
+
+def expand_scale_pair(rows1, rows2, y1, x1, y2, x2, psize: int,
+                      out_dtype) -> Tuple[torch.Tensor, ...]:
+    """rows1/rows2: per-level ``(M, 4, t_l, t_l*C_l)``; y*/x*: ``(M,)``
+    int32 padded corners (clipped at 0 by the gather; a negative corner
+    counts as 0). Returns the scaled patch tensors in
+    :func:`output_slice_map` order: the plain version on CPU tensors,
+    the kernel's on CUDA tensors."""
+    rows1, rows2 = tuple(rows1), tuple(rows2)
+    if len(rows1) != len(rows2):
+        raise ValueError(f"expand_scale_pair: {len(rows1)} levels of side 1, "
+                         f"{len(rows2)} of side 2")
+    return _ExpandScalePair.apply(psize, out_dtype, len(rows1), *rows1, *rows2,
+                                  y1, x1, y2, x2)
 
 
 expand_scale_pair.launches = 0

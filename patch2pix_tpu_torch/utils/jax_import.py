@@ -15,7 +15,10 @@ is mapped back with the inverse of the JAX package's
 
 The JAX tree has no ``layer4`` (never run) and no
 ``num_batches_tracked``; :func:`load_jax_variables` leaves those keys
-at their initial values.
+at their initial values. The regressors' ``BNAffine`` ``convbn{i}``
+running ``mean``/``var`` map onto the ``conv.{2i+1}`` BatchNorm
+buffers. A JAX ``TrainState`` (its ``params`` and ``batch_stats``; the
+optimizer state is not carried) loads with :func:`load_jax_train_state`.
 """
 
 from __future__ import annotations
@@ -97,7 +100,7 @@ def _regressor(out, name, params, stats):
 
 
 def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -133,3 +136,9 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
            if ".layer4." not in k and not k.endswith("num_batches_tracked")]
     if bad or unexpected:
         raise KeyError(f"missing {bad}, unexpected {list(unexpected)}")
+
+
+def load_jax_train_state(model: torch.nn.Module, state) -> None:
+    """Load a JAX ``TrainState``'s ``params`` and ``batch_stats`` into a
+    port ``Patch2Pix`` (as :func:`load_jax_variables`)."""
+    load_jax_variables(model, {"params": state.params, "batch_stats": state.batch_stats})

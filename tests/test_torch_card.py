@@ -23,9 +23,13 @@ expand_level bit-identical; fused_fine_head float32 rtol/atol 2e-4,
 bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
 midpoint moves a BN0 output by one ulp; chip_smoke's ``bf16_ulps``),
 at M from 1 to 2399, F 64 to 512 and corners at the superblock's edges.
-B1-B3 refuse inputs that require grad while grad mode is on. The whole
-pipeline on the card (f32, TF32 off) is held against the same model on
-the CPU, which runs the plain versions.
+The backward passes of B1-B3: the gradients through the kernel route
+are ``torch.equal`` to autograd's through the plain version (the same
+plain code runs in both), in f32 and bf16, with non-contiguous upstream
+gradients and an odd M for B3. B5 and B7, which have no backward,
+refuse inputs that require grad while grad mode is on. The whole
+pipeline on the card (f32, TF32 off), and one training step, are held
+against the same model on the CPU, which runs the plain versions.
 """
 
 import json
@@ -36,10 +40,11 @@ import pytest
 import torch
 
 from chip_smoke import bf16_ulps, expand_bf16_mismatch
-from patch2pix_tpu_torch.config import ModelConfig
+from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
+from patch2pix_tpu_torch.data.synthetic import synthetic_batch
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
-from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_plain
+from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_backward, corr_pool_plain
 from patch2pix_tpu_torch.ops.fine_stage import (
     fused_fine_head,
     fused_fine_head_plain,
@@ -50,9 +55,11 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_level,
     expand_level_plain,
     expand_scale_pair,
+    expand_scale_pair_backward,
     expand_scale_pair_plain,
 )
-from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_plain
+from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_backward, tap_sum_plain
+from patch2pix_tpu_torch.train import create_train_state, make_train_step
 from tests.ref_loader import seeded_state_dict
 
 PSIZE = 16
@@ -351,18 +358,18 @@ def test_fused_fine_head_rejects_bad_inputs(cuda):
 
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):
-    """B1-B3 write through ctypes, so their outputs carry no grad_fn:
-    with grad mode on, an input that requires grad raises; under no_grad
-    the same call runs the kernel."""
-    z = torch.zeros((8, 9, 4), device=cuda, requires_grad=True)
-    bias = torch.zeros(1, device=cuda)
-    f = _unit_feats(1, 1, 4, 4, 8).to(cuda).requires_grad_()
-    rows = [torch.zeros((2, 4, 8, 8 * 64), device=cuda, requires_grad=True)]
-    c = [torch.zeros(2, device=cuda, dtype=torch.int32)] * 4
-    calls = [(tap_sum, lambda: tap_sum(z, bias, 1, 2, 4)),
-             (corr_pool, lambda: corr_pool(f, f)),
-             (expand_scale_pair,
-              lambda: expand_scale_pair(rows, rows, *c, PSIZE, torch.float32))]
+    """B5 and B7 write through ctypes and have no backward, so their
+    outputs carry no grad_fn: with grad mode on, an input that requires
+    grad raises; under no_grad the same call runs the kernel."""
+    rs = _rs(12)
+    m = 3
+    corners = [torch.from_numpy(rs.randint(0, 2 * PSIZE, (m,)).astype(np.int32))
+               for _ in range(4)]
+    args = list(_fine_head_args(rs, m, 64, torch.float32, corners, cuda))
+    args[0] = [r.requires_grad_() for r in args[0]]
+    rows = args[0][0]
+    calls = [(expand_level, lambda: expand_level(rows, args[2], args[3], PSIZE)),
+             (fused_fine_head, lambda: fused_fine_head(*args))]
     for fn, call in calls:
         n0 = fn.launches
         with pytest.raises(RuntimeError, match="backward"):
@@ -371,6 +378,119 @@ def test_kernels_refuse_inputs_that_require_grad(cuda):
         with torch.no_grad():
             call()
         assert fn.launches == n0 + 1
+
+
+def _backward_pair(kernel, plain, inputs, grads):
+    """Gradients with respect to ``inputs`` through the kernel route and
+    through autograd of the plain version, for the upstream ``grads``."""
+    out = []
+    for fn in (kernel, plain):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        out.append(torch.autograd.grad(outs, xs, grads))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,h1,w1,hw,cout", [(2, 8, 8, 24, 1), (1, 5, 7, 300, 2)])
+def test_tap_sum_backward_kernel_route_equals_plain(cuda, dtype, bs, h1, w1, hw, cout):
+    rs = _rs(13)
+    n = bs * h1 * w1
+    z = torch.from_numpy(rs.standard_normal((n, 9, cout * hw)).astype(np.float32)).to(cuda, dtype)
+    bias = torch.from_numpy(rs.standard_normal(cout).astype(np.float32)).to(cuda)
+    # a non-contiguous upstream gradient
+    g = torch.from_numpy(rs.standard_normal((cout * hw, n)).astype(np.float32)).to(cuda).T
+    n0, c0 = tap_sum.launches, tap_sum_backward.calls
+    got, want = _backward_pair(lambda a, b: tap_sum(a, b, bs, h1, w1),
+                               lambda a, b: tap_sum_plain(a, b, bs, h1, w1), (z, bias), (g,))
+    assert tap_sum.launches == n0 + 1 and tap_sum_backward.calls == c0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", [False, True])
+def test_corr_pool_backward_kernel_route_equals_plain(cuda, dtype, ties):
+    f1 = _unit_feats(14, 2, 10, 12, 128)
+    f2 = _unit_feats(15, 2, 8, 14, 128)
+    if ties:  # a window of equal rows in both images
+        f1[0, 2:4, 4:6] = f1[0, 2, 4].clone()
+        f2[0, 0:2, 2:4] = f2[0, 0, 2].clone()
+    f1, f2 = f1.to(cuda, dtype), f2.to(cuda, dtype)
+    # a non-contiguous upstream gradient of the (2, 5, 6, 4, 7) output
+    g = torch.from_numpy(_rs(16).standard_normal((2, 6, 5, 4, 7)).astype(np.float32))
+    g = g.to(cuda).permute(0, 2, 1, 3, 4)
+    n0, c0 = corr_pool.launches, corr_pool_backward.calls
+    got, want = _backward_pair(corr_pool, corr_pool_plain, (f1, f2), (g,))
+    assert corr_pool.launches == n0 + 1 and corr_pool_backward.calls == c0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 7])
+def test_expand_scale_pair_backward_kernel_route_equals_plain(cuda, dtype, m):
+    levels = ((16, 3), (8, 64), (4, 64), (2, 128))
+    rs = _rs(17)
+    rows = [torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
+            .to(cuda, dtype) for _ in range(2) for t, c in levels]
+    corners = [torch.from_numpy(rs.randint(-4, 64 + PSIZE, (m,)).astype(np.int32)).to(cuda)
+               for _ in range(4)]
+    n = len(levels)
+
+    def route(fn):
+        return lambda *r: fn(r[:n], r[n:], *corners, PSIZE, dtype)
+
+    outs = expand_scale_pair_plain(rows[:n], rows[n:], *corners, PSIZE, dtype)
+    # non-contiguous upstream gradients: transposed pixel axes
+    grads = tuple(torch.from_numpy(rs.standard_normal(o.shape).astype(np.float32))
+                  .to(cuda, dtype).transpose(1, 2).contiguous().transpose(1, 2) for o in outs)
+    n0, c0 = expand_scale_pair.launches, expand_scale_pair_backward.calls
+    got, want = _backward_pair(route(expand_scale_pair), route(expand_scale_pair_plain),
+                               rows, grads)
+    assert expand_scale_pair.launches == n0 + 1
+    assert expand_scale_pair_backward.calls == c0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Patch2Pix train step (narrow regressors, 96x64, batch 2, f32,
+    TF32 off) through B1-B3 on the card and their plain versions on the
+    CPU, from the same weights and draw: metrics rtol 1e-3, regressor
+    gradients within 1e-3 of their largest, frozen weights unchanged."""
+    cfg = ModelConfig(change_stride=True, regressor=RegressorConfig(
+        conv_dims=(64, 64), fc_dims=(64, 32))).resolved()
+    cpu = Patch2Pix(cfg, device="cpu")
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in cpu.state_dict().items()}, seed=0)
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(_rs(0), 2, 64, 96).items()}
+    rand = torch.from_numpy(_rs(1).uniform(size=(2, 2 * 4 * 6)).astype(np.float32))
+    runs = []
+    for dev in ("cpu", cuda):
+        model = cpu if dev == "cpu" else Patch2Pix(cfg, device=dev)
+        model.load_state_dict(sd)
+        state = create_train_state(model, OptimConfig())
+        step = make_train_step(model, state.optimizer, ksize=2, ptmax=8)
+        counts = (tap_sum.launches, corr_pool.launches, expand_scale_pair.launches)
+        _, met = step(state, {k: v.to(dev) for k, v in batch.items()}, rand=rand.to(dev))
+        if dev != "cpu":
+            assert all(a > b for a, b in zip(
+                (tap_sum.launches, corr_pool.launches, expand_scale_pair.launches), counts))
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+        runs.append(({k: float(v) for k, v in met.items()}, grads,
+                     {k: v.cpu() for k, v in model.state_dict().items()}))
+    (mc, gc, sc), (mg, gg, sg) = runs
+    for k in mc:
+        np.testing.assert_allclose(mg[k], mc[k], rtol=1e-3, atol=1e-5, err_msg=k)
+    assert set(gg) == set(gc) and all(k.startswith("regress_") for k in gc)
+    scale = max(float(g.abs().max()) for g in gc.values())
+    for k in gc:
+        torch.testing.assert_close(gg[k], gc[k], rtol=0, atol=1e-3 * scale)
+    for k, v in sd.items():
+        if k.startswith(("extract.", "ncn.")):
+            assert torch.equal(sg[k], v) and torch.equal(sc[k], v), k
 
 
 def test_wrappers_reject_bad_inputs(cuda):
