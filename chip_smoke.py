@@ -13,8 +13,13 @@ Phases, each fatal on failure:
      proposals, F = 512; B2 also at upsample 16), in bf16 and in float32:
      hold the kernel against its plain PyTorch version on the card, time
      kernel, plain version and library yardstick, and compute the bound
-     from the bytes and operations this run's inputs need (B3 also
-     prints its share of the bound); for B1-B3, the gradients through the
+     from the bytes and operations this run's inputs need (B3, B4 and B5
+     also print their share of the bound; B4 is held and timed on the
+     channels-last volume the NCN's fold-in leaves and on an NCHW view,
+     and prints its tensor-core kernel's registers and shared memory for
+     each staging and, as a yardstick the port never calls for these
+     channels,
+     ``conv4d_xla_taps``); for B1-B3, the gradients through the
      kernel route must be ``torch.equal`` to autograd's through the plain
      version, and their named backward is timed;
   3. golden parity in float32 with TF32 off: rebuild the seeded weights
@@ -30,9 +35,12 @@ Phases, each fatal on failure:
      device busy share over 3 calls under torch.profiler (after the
      launch counts are read);
   5. the conv4d path: a symmetric NeighConsensus with channels (4, 4, 1)
-     in bf16 on the change_stride volume — B4 twice and B1 twice per
-     call, output held against the same NCN with B4's plain version;
-     then one B4 layer's backward through the kernel against the CPU's;
+     in bf16 on the change_stride volume — B4 twice (both on its
+     tensor-core kernel, staging channels-last) and B1 twice per call,
+     output held against the
+     same NCN with B4's plain version; then one B4 layer's backward
+     through the kernel against the CPU's, and one bf16 4->4 layer's
+     backward timed at the change_stride shape;
   6. the fine-head path (the port's ``tools/try_fine_stage.py``): a
      full-width fine FeatRegressNet, M = 2400 seeded bf16 rows, (M, 5)
      outputs fused (prolog with B7, B5, fc_head) and unfused (B3,
@@ -68,6 +76,7 @@ Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -87,7 +96,13 @@ from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops import conv4d as conv4d_module
 from patch2pix_tpu_torch.ops import patch_gather as patch_gather_module
-from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
+from patch2pix_tpu_torch.ops.conv4d_small import _SIGNATURES as CONV4D_SIGNATURES
+from patch2pix_tpu_torch.ops.conv4d_small import (
+    banded_filter,
+    conv4d_small,
+    conv4d_small_plain,
+    mma_fragments,
+)
 from patch2pix_tpu_torch.ops.corr_pool import LAYOUTS as CORR_POOL_LAYOUTS
 from patch2pix_tpu_torch.ops.corr_pool import (
     cell_parity_rows,
@@ -152,7 +167,8 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
 # the device functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_f32_kernel",
                      "expand_kernel", "expand_level_kernel", "conv4d_small_kernel",
-                     "fine_head_bf16_kernel", "fine_head_f32_kernel")
+                     "conv4d_small_mma_kernel", "fine_head_bf16_kernel",
+                     "fine_head_f32_kernel")
 
 # the main path's setting: 1024x768, B=2, fine_cap 1200
 H, W, BATCH, FINE_CAP = 768, 1024, 2, 1200
@@ -220,6 +236,8 @@ def bf16_ulps(got, want, atol=0.0):
 def reset_counts():
     for fn in KERNELS:
         fn.launches = 0
+    conv4d_small.mma_launches = 0
+    conv4d_small.channels_last_launches = 0
 
 
 def counts():
@@ -448,36 +466,102 @@ def window_bytes(levels, corners, psize, elsize):
     return total
 
 
+def conv4d_small_attrs(cin, cout, out_dtype, mode):
+    """Registers a thread, static shared memory and spill bytes a block of
+    B4's bf16 (tensor-core) kernel with staging ``mode`` (0: any strides,
+    1: channels-last Cin 4)."""
+    lib = _build.library("conv4d", CONV4D_SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.p2p_conv4d_small_mma_attrs(cin, cout, int(out_dtype == torch.bfloat16), mode,
+                                        *(ctypes.addressof(v) for v in vals))
+    _build.check_launch(rc, "conv4d_small attributes")
+    return [v.value for v in vals]
+
+
+def conv4d_small_any_strides_ms(x, w, b):
+    """ms of B4's bf16 kernel on the channels-last Cin 4 volume x when it
+    is made to stage any strides (mode 0), not a position at a time (mode
+    1, the wrapper's choice): the gain of mode 1. Calls the library entry
+    directly, so the launches do not count. Returns the ms and the output
+    as the wrapper returns it."""
+    bs, h1, w1, h2, w2, cin = x.shape
+    cout = w.shape[-1]
+    frag = mma_fragments(banded_filter(w.to(torch.bfloat16)))
+    bias = b.float().contiguous()
+    out = torch.empty((bs * h1 * w1, cout, h2, w2), dtype=x.dtype, device=x.device)
+    lib = _build.library("conv4d", CONV4D_SIGNATURES)
+    _, _, sj, sk, sl, sc = x.stride()
+    stream = _build.current_stream(x.device)
+
+    def run():
+        rc = lib.p2p_conv4d_small_mma(x.data_ptr(), frag.data_ptr(), bias.data_ptr(),
+                                      out.data_ptr(), bs, h1, w1, h2, w2, cin, cout, sj, sc,
+                                      sk, sl, 1, 1, 0, stream)
+        _build.check_launch(rc, "conv4d_small (any-strides staging)")
+    return time_ms(run), out.view(bs, h1, w1, cout, h2, w2).permute(0, 1, 2, 4, 5, 3)
+
+
 def check_conv4d_small(dtype, gen, dev):
     """B4 at the change_stride NCN volume: a 4->4 layer on (2, 48, 64, 48,
-    64, 4); bf16 in and out (the NCN's intermediate), or float32."""
+    64, 4); bf16 in and out (the NCN's intermediate; the tensor-core
+    kernel), or float32 (the SIMT kernel). Held and timed on two layouts
+    of the same values: the contiguous channels-last volume, which the
+    NCN's fold-in leaves (the conv4d path's input, phase 5; its time is the
+    kernel's number), and the NCHW-per-cell view."""
     cin = cout = 4
     dims = (BATCH, H // 16, W // 16, H // 16, W // 16)
     x = torch.randn(dims + (cin,), generator=gen, device=dev).to(dtype)
+    nchw = (x.reshape(-1, *dims[3:], cin).permute(0, 3, 1, 2).contiguous()
+            .view(*dims[:3], cin, *dims[3:]).permute(0, 1, 2, 4, 5, 3))
     w = torch.randn((3, 3, 3, 3, cin, cout), generator=gen, device=dev) / (81 * cin) ** 0.5
     b = torch.randn((cout,), generator=gen, device=dev) * 0.1
-    got = conv4d_small(x, w, b, dtype)
     want = conv4d_small_plain(x, w, b, dtype)
-    torch.cuda.synchronize()
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    note = ""
-    if dtype == torch.float32:
-        if not err <= 1e-4:
-            fail(f"conv4d_small f32: max abs err {err} > 1e-4")
-    else:
-        ulps = bf16_ulps(got.float(), want.float(), atol=1e-5)
-        if ulps.max().item() > 1:
-            fail(f"conv4d_small bf16: {int((ulps > 1).sum())} values beyond one bf16 ulp "
-                 f"+ 1e-5")
-        note = f", {int((diff > 0).sum())} of {diff.numel()} values one ulp off"
-    ms = time_ms(lambda: conv4d_small(x, w, b, dtype))
+    mma = int(dtype == torch.bfloat16)
+    errs, times, notes = [], [], []
+    for xin, layout, mode in ((x, "channels-last", 1), (nchw, "NCHW", 0)):
+        mma0, cl0 = conv4d_small.mma_launches, conv4d_small.channels_last_launches
+        got = conv4d_small(xin, w, b, dtype)
+        if (conv4d_small.mma_launches - mma0 != mma
+                or conv4d_small.channels_last_launches - cl0 != mma * mode):
+            fail(f"conv4d_small {dtype} {layout}: the wrong kernel or staging ran")
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        errs.append(diff.max().item())
+        if dtype == torch.float32:
+            if not errs[-1] <= 1e-4:
+                fail(f"conv4d_small f32 {layout}: max abs err {errs[-1]} > 1e-4")
+        else:
+            ulps = bf16_ulps(got.float(), want.float(), atol=1e-5)
+            if ulps.max().item() > 1:
+                fail(f"conv4d_small bf16 {layout}: {int((ulps > 1).sum())} values beyond one "
+                     f"bf16 ulp + 1e-5")
+        times.append(time_ms(lambda: conv4d_small(xin, w, b, dtype)))
+        note = f"{layout} {times[-1]:.4f} ms"
+        if mma:
+            regs, smem, local = conv4d_small_attrs(cin, cout, dtype, mode)
+            note += (f" ({int((diff > 0).sum())} of {diff.numel()} values one ulp off; "
+                     f"staging mode {mode}: {regs} registers a thread, {smem} B shared "
+                     f"memory a block, {local} B spilled)")
+        notes.append(note)
+    ms = times[0]
+    if mma:
+        any_ms, got = conv4d_small_any_strides_ms(x, w, b)
+        if bf16_ulps(got.float(), want.float(), atol=1e-5).max().item() > 1:
+            fail("conv4d_small bf16 channels-last, any-strides staging: values beyond one "
+                 "bf16 ulp + 1e-5")
+        notes.insert(1, f"channels-last made to stage any strides (mode 0) {any_ms:.4f} ms")
     plain_ms = time_ms(lambda: conv4d_small_plain(x, w, b, dtype), iters=2, warmup=1)
+    # yardstick, never called by the port for these channels: the per-tap
+    # path (nine cuDNN convs), float32 sums rounded to dtype
+    taps_ms = time_ms(lambda: conv4d_module.conv4d_xla_taps(x, w, b).to(dtype), iters=10)
     flops = 2 * (x.numel() // cin) * 81 * cin * cout
-    b_ms, b_by = bound(nbytes(x, w, b, got), flops, dtype)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+    b_ms, b_by = bound(nbytes(x, w, b, want), flops, dtype)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None,
-                shape=f"x {tuple(x.shape)} {dtype} -> 4 channels {got.dtype}{note}")
+                shape=f"x {tuple(x.shape)} {dtype} -> 4 channels {want.dtype}; "
+                      f"{'; '.join(notes)}; channels-last {100 * b_ms / ms:.1f}% of its bound; "
+                      f"library: none; yardstick conv4d_xla_taps (nine cuDNN convs) "
+                      f"{taps_ms:.4f} ms")
 
 
 def check_expand_level(dtype, gen, dev):
@@ -815,8 +899,12 @@ def conv4d_path(dev):
     torch.cuda.synchronize()
     launches = counts()
     expect = {**{k: 0 for k in launches}, "conv4d_small": 2, "tap_sum": 2}
-    if launches != expect:
-        fail(f"conv4d path launches {launches}, expected {expect}")
+    staged = conv4d_small.channels_last_launches
+    if launches != expect or conv4d_small.mma_launches != 2 or staged != 2:
+        fail(f"conv4d path launches {launches} ({conv4d_small.mma_launches} through B4's "
+             f"tensor-core kernel, {staged} staging channels-last), expected {expect}, "
+             f"both B4 launches on the tensor cores staging the fold-in's channels-last "
+             f"volume")
     if got.shape != dims or not torch.isfinite(got).all():
         fail(f"conv4d path: output {tuple(got.shape)} or non-finite values")
     with torch.no_grad(), plain_b4():
@@ -833,7 +921,8 @@ def conv4d_path(dev):
         with plain_b4():
             plain_ms = time_ms(lambda: ncn(corr), iters=2, warmup=1)
     log(f"conv4d path [NCN (4, 4, 1) symmetric bf16 on {dims}]: launches per call "
-        f"{launches}; max abs err to the plain-B4 run {err:.3g} (max |ref| {scale:.3g}), "
+        f"{launches} (both B4 launches staging channels-last); max abs err to the "
+        f"plain-B4 run {err:.3g} (max |ref| {scale:.3g}), "
         f"{off} of {diff.numel()} values off by more than 2^-7 of it; "
         f"{ms:.3f} ms per call (plain B4 {plain_ms:.3f} ms)")
 
@@ -853,6 +942,20 @@ def conv4d_path(dev):
             fail(f"conv4d_small backward: {name} differs from the CPU's (max {berr})")
     log(f"conv4d_small backward [(1, 4, 5, 6, 4, 4) f32, 4->3]: dx, dw, db against "
         f"the CPU autograd, max abs err {berr:.3g}")
+
+    # one bf16 4->4 layer's backward (plain PyTorch) at the change_stride shape
+    x = torch.randn(dims + (4,), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((3, 3, 3, 3, 4, 4), generator=gen, device=dev) / 18
+    b = torch.randn((4,), generator=gen, device=dev) * 0.1
+    x.requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    y = conv4d_small(x, w, b, torch.bfloat16)
+    g = torch.randn(y.shape, generator=gen, device=dev).to(torch.bfloat16)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(y, (x, w, b), g, retain_graph=True),
+                     iters=3, warmup=1)
+    log(f"conv4d_small backward [{tuple(x.shape)} bf16, 4->4]: plain PyTorch (per-tap "
+        f"convs for dx, 81 contractions for dw), {bwd_ms:.4f} ms per call")
     return launches
 
 

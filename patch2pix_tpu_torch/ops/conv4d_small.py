@@ -14,6 +14,18 @@ given. On CUDA tensors the forward launches ``csrc/conv4d.cu``, on CPU
 tensors it runs :func:`conv4d_small_plain`. The two add the 81*cin
 products in different orders, so they agree to float32 rounding.
 
+Two kernels, by x's dtype. bfloat16 runs on the tensor cores
+(``mma.sync.m16n8k16``): for each outer tap (di, dj) the (dk, dl, ci) ->
+co contraction of two output rows is one product with a banded filter,
+``B[tap][(r, dl, ci), (ro, co)] = w[di, dj, r - ro, dl, ci, co]`` for
+0 <= r - ro <= 2 (r one of the four input rows k-1 .. k+2 under output
+rows k, k+1), else 0. :func:`band_index` and :func:`banded_filter` build
+it and :func:`mma_fragments` lays it out as the kernel's B fragments;
+all three run here, so the CPU tests hold the packing, as they hold
+:func:`staging_mode`, the wrapper's choice of how the kernel loads the
+input's planes. float32 runs on a SIMT kernel (its 1e-4 rule leaves no
+room for TF32).
+
 Differentiable: the backward is the JAX custom VJP's
 (``conv4d_pallas.py:268-302``) in plain PyTorch — dx is the conv4d of g
 with the spatially flipped, in/out-swapped filter on the per-tap conv
@@ -22,6 +34,9 @@ path, dw the per-tap float32 contraction, db the float32 sum of g.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,7 +44,76 @@ from patch2pix_tpu_torch.ops import _build
 
 K = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"p2p_conv4d_small": "ppppiiiiiiilllliip"}
+_SIGNATURES = {"p2p_conv4d_small": "ppppiiiiiiilllliip",
+               "p2p_conv4d_small_mma": "ppppiiiiiiilllliiip",
+               "p2p_conv4d_small_mma_attrs": "iiiippp"}
+ROWS_IN = 4  # input rows k-1 .. k+2 under the output row pair (k, k+1)
+
+
+def mma_dims(cin, cout):
+    """(channels padded to even, k-steps of 16, n-tiles of 8) of the
+    banded filter: K = (4 rows, 3 dl, padded channels), N = (2 rows,
+    cout), each padded to the m16n8k16 tile."""
+    cinp = cin + cin % 2
+    return cinp, -(-ROWS_IN * K * cinp // 16), -(-2 * cout // 8)
+
+
+@functools.lru_cache(maxsize=None)
+def band_index(cin, cout):
+    """int64 ``(9, KS * 16, NT * 8)``: for each outer tap di*3 + dj and
+    entry ``((r * 3 + dl) * cinp + ci, ro * cout + co)`` of the banded
+    filter, its flat index in ``w.reshape(-1)`` (``w`` of shape (3, 3, 3,
+    3, cin, cout)), that of ``w[di, dj, r - ro, dl, ci, co]``, or -1 where
+    the entry is zero (outside the band, a pad channel, row or column)."""
+    cinp, ks, nt = mma_dims(cin, cout)
+    idx = np.full((K * K, ks * 16, nt * 8), -1, np.int64)
+    flat = np.arange(K ** 4 * cin * cout).reshape(K * K, K, K, cin, cout)
+    for r in range(ROWS_IN):
+        for ro in range(2):
+            if 0 <= r - ro < K:
+                for dl in range(K):
+                    rows = (r * K + dl) * cinp + np.arange(cin)
+                    cols = ro * cout + np.arange(cout)
+                    idx[:, rows[:, None], cols[None, :]] = flat[:, r - ro, dl]
+    return idx
+
+
+_BAND_INDEX = {}  # (cin, cout, device) -> band_index on that device
+
+
+def banded_filter(w):
+    """``(3, 3, 3, 3, cin, cout)`` -> the banded filter ``(9, KS * 16,
+    NT * 8)`` of :func:`band_index`, in w's dtype."""
+    key = (w.shape[4], w.shape[5], w.device)
+    idx = _BAND_INDEX.get(key)
+    if idx is None:  # one host-to-device copy per shape and device
+        idx = _BAND_INDEX[key] = torch.from_numpy(band_index(*key[:2])).to(w.device)
+    return torch.cat([w.reshape(-1), w.new_zeros(1)])[idx]
+
+
+def mma_fragments(band):
+    """Banded filter ``(9, KS * 16, NT * 8)`` -> the kernel's B fragments,
+    int32 ``(9, KS, NT, 2, 32)`` of bf16 pairs: register j of lane
+    4 * g + t holds rows ``ks * 16 + 8 * j + 2 * t`` (low half) and ``+ 1``
+    (high half) of column ``nt * 8 + g``, the m16n8k16 B layout."""
+    taps, kp, npad = band.shape
+    ks, nt = kp // 16, npad // 8
+    f = band.to(torch.bfloat16).reshape(taps, ks, 2, 4, 2, nt, 8)  # (., ks, j, t, half, nt, g)
+    f = f.permute(0, 1, 5, 2, 6, 3, 4).contiguous()  # (., ks, nt, j, g, t, half)
+    return f.view(torch.int32).reshape(taps, ks, nt, 2, 32)
+
+
+def staging_mode(x):
+    """How the bf16 kernel stages the planes of x ``(B, h1, w1, h2, w2,
+    Cin)``, whose cells share one stride: 1 (one 8-byte load a position)
+    where x is channels-last with Cin 4 (ci contiguous, l stride 4, the j
+    and k strides multiples of 4, 8-byte aligned), as the volume the NCN's
+    fold-in leaves on the card; else 0 (any strides, one 2-byte load an
+    element)."""
+    _, _, sj, sk, sl, sc = x.stride()
+    cl4 = (x.shape[5] == 4 and sc == 1 and sl == 4 and sj % 4 == 0 and sk % 4 == 0
+           and x.data_ptr() % 8 == 0)
+    return int(cl4)
 
 
 def conv4d_small_plain(x, w, b=None, out_dtype=None):
@@ -66,22 +150,30 @@ def _launch(x, w, b, out_dtype):
         # the kernel walks the cells (b, i, j) with one stride
         x = x.contiguous()
         sb, si, sj, sk, sl, sc = x.stride()
-    # the filter rounded to x.dtype, handed over in float32 (<= 5 KB);
-    # any layout in (a permuted filter from the transposed branch)
-    wf = w.to(x.dtype).float().contiguous()
+    mma = x.dtype == torch.bfloat16
+    mode = staging_mode(x) if mma else 0
+    if mma:
+        # bf16: the banded filter as B fragments (9 * KS * NT * 256 B);
+        # any filter layout in (a permuted one from the transposed branch)
+        wf = mma_fragments(banded_filter(w.to(torch.bfloat16)))
+    else:
+        # float32: the filter handed over contiguous (<= 5 KB)
+        wf = w.float().contiguous()
     bias = (torch.zeros(cout, dtype=torch.float32, device=dev) if b is None
             else b.float().contiguous())
     # written NCHW per cell, (B*h1*w1, Cout, h2, w2), the layout the
     # NCN's next cuDNN conv reads; returned as the 6D channels-last view
     out = torch.empty((bs * h1 * w1, cout, h2, w2), dtype=odt, device=dev)
     lib = _build.library("conv4d", _SIGNATURES)
-    rc = lib.p2p_conv4d_small(
-        x.data_ptr(), wf.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        bs, h1, w1, h2, w2, cin, cout, sj, sc, sk, sl,
-        _DTYPES[x.dtype], _DTYPES[odt], _build.current_stream(dev),
-    )
+    args = (x.data_ptr(), wf.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            bs, h1, w1, h2, w2, cin, cout, sj, sc, sk, sl, _DTYPES[x.dtype], _DTYPES[odt])
+    stream = _build.current_stream(dev)
+    rc = (lib.p2p_conv4d_small_mma(*args, mode, stream) if mma
+          else lib.p2p_conv4d_small(*args, stream))
     _build.check_launch(rc, "conv4d_small")
     conv4d_small.launches += 1
+    conv4d_small.mma_launches += mma
+    conv4d_small.channels_last_launches += mode
     return out.view(bs, h1, w1, cout, h2, w2).permute(0, 1, 2, 4, 5, 3)
 
 
@@ -129,3 +221,5 @@ def conv4d_small(x, w, b=None, out_dtype=None):
 
 
 conv4d_small.launches = 0
+conv4d_small.mma_launches = 0  # of those, the bf16 tensor-core kernel's
+conv4d_small.channels_last_launches = 0  # of those, staging channels-last Cin 4

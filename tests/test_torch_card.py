@@ -16,7 +16,9 @@ pixels whose inverse norm rounds to the neighbouring bf16 value (one in
 10^4 at most; chip_smoke's ``expand_bf16_mismatch``), with corners
 aligned to the cells and not, negative and at the superblock's edge, M
 from 1, psize 6, 8 and 16, and rows off a 16-byte boundary; conv4d_small
-float32 atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
+(bf16 input on its tensor-core kernel, at ragged tiles and strips, h1 or
+w1 of 1, odd h2, both input layouts, with and without bias) float32
+atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
 cancels to near zero keeps the float32 rounding of its terms), its backward
 through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
 expand_level bit-identical; fused_fine_head float32 rtol/atol 2e-4,
@@ -227,23 +229,39 @@ def test_expand_scale_pair_rejects_bad_inputs(cuda):
     assert expand_scale_pair.launches == n0
 
 
+@pytest.mark.parametrize("dims,with_bias", [
+    # ragged (k, l) tiles, w1 = 5 a strip shorter than the bf16 kernel's
+    # (7 cells at this w1), h2 odd (the last output row pair cut)
+    ((2, 3, 5, 11, 37), True),
+    ((1, 1, 6, 9, 20), False),  # h1 = 1: only the middle row of outer taps
+    ((2, 4, 1, 17, 33), True),  # w1 = 1: one cell a strip, a 1-row second tile
+    # three (k, l) tiles each way; w1 = 17 is a strip of 16 cells and one of 1
+    ((1, 3, 17, 35, 68), False),
+], ids=["ragged", "h1_1", "w1_1", "tiles"])
 @pytest.mark.parametrize("odtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,cout", [(3, 3), (3, 4), (3, 5), (4, 3), (4, 4), (5, 3)])
-def test_conv4d_small_matches_plain(cuda, cin, cout, dtype, odtype):
+def test_conv4d_small_matches_plain(cuda, cin, cout, dtype, odtype, dims, with_bias):
     rs = _rs(5)
-    dims = (2, 3, 5, 11, 37)  # ragged (k, l) tiles
     x = torch.from_numpy(rs.standard_normal(dims + (cin,)).astype(np.float32)).to(cuda, dtype)
     w = torch.from_numpy((rs.standard_normal((3, 3, 3, 3, cin, cout)) * 0.1)
                          .astype(np.float32)).to(cuda)
     b = torch.from_numpy(rs.standard_normal(cout).astype(np.float32)).to(cuda)
-    # channels-last, and the NCHW-per-cell view the NCN's fold-in leaves
+    b = b if with_bias else None
+    # channels-last (the volume the NCN's fold-in leaves), and an
+    # NCHW-per-cell view
     nchw = x.reshape(-1, *dims[3:], cin).permute(0, 3, 1, 2).contiguous()
     nchw = nchw.reshape(*dims[:3], cin, *dims[3:]).permute(0, 1, 2, 4, 5, 3)
-    for xin in (x, nchw):
-        n0 = conv4d_small.launches
+    # bf16 channels-last Cin 4 is staged a position at a time (8-byte loads)
+    cl4 = int(dtype == torch.bfloat16 and cin == 4)
+    for xin, mode in ((x, cl4), (nchw, 0)):
+        n0, m0 = conv4d_small.launches, conv4d_small.mma_launches
+        p0 = conv4d_small.channels_last_launches
         got = conv4d_small(xin, w, b, odtype)
         assert conv4d_small.launches == n0 + 1
+        # bf16 input goes through the tensor-core kernel, float32 the SIMT one
+        assert conv4d_small.mma_launches == m0 + (dtype == torch.bfloat16)
+        assert conv4d_small.channels_last_launches == p0 + mode
         want = conv4d_small_plain(x, w, b, odtype)
         assert got.dtype == want.dtype and got.shape == want.shape
         if odtype is None:
