@@ -13,8 +13,9 @@ Phases, each fatal on failure:
      proposals, F = 512; B2 also at upsample 16), in bf16 and in float32:
      hold the kernel against its plain PyTorch version on the card, time
      kernel, plain version and library yardstick, and compute the bound
-     from the bytes and operations this run's inputs need (B3, B4 and B5
-     also print their share of the bound; B4 is held and timed on the
+     from the bytes and operations this run's inputs need (B3, B4, B5 and
+     B7 also print their share of the bound, B4 and B7 their registers,
+     shared memory and spills; B4 is held and timed on the
      channels-last volume the NCN's fold-in leaves and on an NCHW view,
      and prints its tensor-core kernel's registers and shared memory for
      each staging and, as a yardstick the port never calls for these
@@ -44,7 +45,9 @@ Phases, each fatal on failure:
   6. the fine-head path (the port's ``tools/try_fine_stage.py``): a
      full-width fine FeatRegressNet, M = 2400 seeded bf16 rows, (M, 5)
      outputs fused (prolog with B7, B5, fc_head) and unfused (B3,
-     ``forward``), held to the rules below, both timed;
+     ``forward``), held to the rules below, both timed; then the ten B7
+     calls of one prolog, each held ``torch.equal`` to its plain version
+     and timed, their sum printed beside the fused stage's split;
   7. training: the Patch2Pix train step at the reference setting
      (ResNet34 change_stride, 480x320, batch 4, ptmax 400, panc 8, ksize
      2, Adam 5e-4, backbone and NCN frozen, remat auto), seeded weights
@@ -95,6 +98,7 @@ from patch2pix_tpu_torch.models.patch2pix import Patch2Pix, shift_to_anchors
 from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops import conv4d as conv4d_module
+from patch2pix_tpu_torch.ops import fine_stage as fine_stage_module
 from patch2pix_tpu_torch.ops import patch_gather as patch_gather_module
 from patch2pix_tpu_torch.ops.conv4d_small import _SIGNATURES as CONV4D_SIGNATURES
 from patch2pix_tpu_torch.ops.conv4d_small import (
@@ -120,6 +124,7 @@ from patch2pix_tpu_torch.ops.fine_stage import (
     head_prolog,
     segment_weights,
 )
+from patch2pix_tpu_torch.ops.patch_expand import _SIGNATURES as EXPAND_SIGNATURES
 from patch2pix_tpu_torch.ops.patch_expand import (
     _window_indices,
     expand_level,
@@ -127,6 +132,7 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_scale_pair,
     expand_scale_pair_backward,
     expand_scale_pair_plain,
+    level_plan,
     output_slice_map,
     window_extent,
 )
@@ -564,8 +570,18 @@ def check_conv4d_small(dtype, gen, dev):
                       f"{taps_ms:.4f} ms")
 
 
+def expand_level_attrs(elsize):
+    """Registers a thread, static shared memory and spill bytes of B7's
+    kernel for ``elsize``-byte values."""
+    lib = _build.library("patch_expand", EXPAND_SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.p2p_expand_level_attrs(elsize, *(ctypes.addressof(v) for v in vals))
+    _build.check_launch(rc, "expand_level attributes")
+    return [v.value for v in vals]
+
+
 def check_expand_level(dtype, gen, dev):
-    """B7 at the fine stage: M = B*fine_cap, each level of one side (one
+    """B7 at phase 2's shapes: M = B*fine_cap, each level of one side (one
     launch per level; times are for the four together)."""
     m = BATCH * FINE_CAP
     rows = [torch.randn((m, 4, t, t * c), generator=gen, device=dev).to(dtype)
@@ -591,13 +607,29 @@ def check_expand_level(dtype, gen, dev):
     plain_ms = time_ms(lambda: [expand_level_plain(r, y0, x0, PSIZE) for r in rows], iters=5)
     library_ms = time_ms(lambda: [r6[idx] for r6, idx in gathers], iters=5)
     per_level = [time_ms(lambda r=r: expand_level(r, y0, x0, PSIZE)) for r in rows]
+    # the device's own time per level: a launch-sized level's event time
+    # is the host's enqueue
+    per_level_dev = [device_ms(lambda r=r: expand_level(r, y0, x0, PSIZE)) for r in rows]
+    per_level_dev = [sum(v for k, v in d.items() if "expand_level_kernel" in k)
+                     for d in per_level_dev]
     rows_bytes = window_bytes(LEVELS, (y0, x0), PSIZE, rows[0].element_size())
     b_ms, b_by = bound(rows_bytes + nbytes(y0, x0, *got), 0, torch.float32)
+    elsize = rows[0].element_size()
+    plans = [level_plan(PSIZE, t, c, elsize, r.data_ptr() % 16 == 0)
+             for r, (t, c) in zip(rows, LEVELS)]
+    regs, smem, local = expand_level_attrs(elsize)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms,
                 shape=f"M={m} one side, levels {LEVELS} {dtype}, per level ms "
                       + "/".join(f"{t:.4f}" for t in per_level)
-                      + f", window reads {rows_bytes / 1e6:.1f} MB")
+                      + " (device, profiler: " + "/".join(f"{t:.4f}" for t in per_level_dev)
+                      + f"), window reads {rows_bytes / 1e6:.1f} MB, {100 * b_ms / ms:.1f}% of "
+                      f"its bound; per level " + ", ".join(
+                          f"{'16-byte units' if pl.vec else 'flat runs'} x{pl.per_block}"
+                          for pl in plans)
+                      + f" proposals a block; {regs} registers a thread, {smem} B static + "
+                      f"{max(8 * pl.per_block * PSIZE for pl in plans)} B table shared memory "
+                      f"a block at most, {local} B spilled")
 
 
 def backward_routes(kernel, plain, inputs, grads):
@@ -1035,6 +1067,17 @@ def fine_head_path(dev):
                          iters=5),
                  time_ms(lambda: fused_fine_head(*hargs), iters=5),
                  time_ms(lambda: nets[torch.bfloat16].fc_head(fp), iters=5))
+        # the prolog's own B7 calls, each held bit for bit and timed
+        with capture_inputs(((fine_stage_module, "expand_level"),)) as captured:
+            head_args(nets[torch.bfloat16], *rows, *corners, PSIZE)
+        if len(captured["expand_level"]) != 10:
+            fail(f"fine-head path: the prolog made {len(captured['expand_level'])} B7 calls, "
+                 f"expected 10")
+        b7_ms, b7_plain_ms = hold_path_calls("fine-head prolog", captured, None,
+                                             time_all=True)["expand_level"]
+        # one prolog under the profiler: its kernels' device time, B7's part
+        prolog_dev = device_ms(lambda: head_args(nets[torch.bfloat16], *rows, *corners, PSIZE))
+        b7_dev = sum(v for k, v in prolog_dev.items() if "expand_level_kernel" in k)
     log(f"fine-head path [M={m}, F={F_REG}, bf16]: launches fused {launches}, unfused "
         f"{unfused_launches}; f32 pooled fused vs unfused max abs err "
         f"{(fp32 - up32).abs().max().item():.3g}, (M, 5) {(fo32 - uo32).abs().max().item():.3g}; "
@@ -1042,7 +1085,12 @@ def fine_head_path(dev):
         + ", ".join(f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in stats.items())
         + f"; fused - unfused bf16 max {(fo.float() - uo.float()).abs().max().item():.4g}; "
         f"{ms_f:.3f} ms per call fused (prolog {split[0]:.3f} + B5 {split[1]:.3f} + fc_head "
-        f"{split[2]:.3f}), {ms_u:.3f} ms unfused (B3 + forward)")
+        f"{split[2]:.3f}), {ms_u:.3f} ms unfused (B3 + forward); the prolog's 10 B7 calls, "
+        f"each torch.equal to the plain version, {b7_ms:.4f} ms summed (plain "
+        f"{b7_plain_ms:.4f}); one prolog's device time (profiler) {sum(prolog_dev.values()):.4f} "
+        f"ms, of which B7 x10 {b7_dev:.4f}; its top device kernels: "
+        + "; ".join(f"{k[:60]} {v:.4f}" for k, v in
+                    sorted(prolog_dev.items(), key=lambda kv: -kv[1])[:6]))
     return launches
 
 
@@ -1062,18 +1110,22 @@ def calls_since(before):
 
 
 class capture_inputs:
-    """Within the block, the port's calls of B1, B2 and B3 go through
-    shims that keep each call's arguments (tensors detached) and then
-    call the wrapper, whose launch count rises as before. ``as`` gives
-    ``{kernel name: [args of each call]}``."""
+    """Within the block, the port's calls of the kernels at ``sites``
+    ((module, wrapper name) pairs; by default B1, B2 and B3 on the
+    training paths) go through shims that keep each call's arguments
+    (tensors detached) and then call the wrapper, whose launch count rises
+    as before. ``as`` gives ``{kernel name: [args of each call]}``."""
 
     SITES = ((conv4d_module, "tap_sum"), (patch2pix_module, "corr_pool"),
              (patch_gather_module, "expand_scale_pair"))
 
+    def __init__(self, sites=SITES):
+        self.sites = sites
+
     def __enter__(self):
-        self.saved = [getattr(mod, name) for mod, name in self.SITES]
-        self.calls = {name: [] for _, name in self.SITES}
-        for (mod, name), fn in zip(self.SITES, self.saved):
+        self.saved = [getattr(mod, name) for mod, name in self.sites]
+        self.calls = {name: [] for _, name in self.sites}
+        for (mod, name), fn in zip(self.sites, self.saved):
             setattr(mod, name, self.shim(fn, self.calls[name]))
         return self.calls
 
@@ -1090,27 +1142,42 @@ class capture_inputs:
         return call
 
     def __exit__(self, *exc):
-        for (mod, name), fn in zip(self.SITES, self.saved):
+        for (mod, name), fn in zip(self.sites, self.saved):
             setattr(mod, name, fn)
 
 
-# kernel name -> (wrapper, plain version, forward rule, backward check)
+def hold_expand_level(tag, rows, y0, x0, psize):
+    """B7's rule: ``torch.equal`` to the plain version. Returns (out, max
+    abs err)."""
+    got = expand_level(rows, y0, x0, psize)
+    if not torch.equal(got, expand_level_plain(rows, y0, x0, psize)):
+        fail(f"{tag}: not bit-identical")
+    return got, 0.0
+
+
+# kernel name -> (wrapper, plain version, forward rule, backward check or
+# None where the kernel has no backward)
 PATH_HOLDS = {
     "tap_sum": (tap_sum, tap_sum_plain, hold_tap_sum, backward_tap_sum),
     "corr_pool": (corr_pool, corr_pool_plain, hold_corr_pool, backward_corr_pool),
     "expand_scale_pair": (expand_scale_pair, expand_scale_pair_plain, hold_expand,
                           backward_expand),
+    "expand_level": (expand_level, expand_level_plain, hold_expand_level, None),
 }
 
 
-def hold_path_calls(tag, captured, gen):
-    """Phase 2's checks at a path's own shapes: every captured call of
-    B1-B3 held against its plain version by phase 2's rule; the first
-    call of each kernel also timed beside its plain version and put
-    through both backward routes (``torch.equal``), its backward timed.
-    Frees each call's inputs once held."""
+def hold_path_calls(tag, captured, gen, time_all=False):
+    """Phase 2's checks at a path's own shapes: every captured call held
+    against its plain version by phase 2's rule; the first call of each
+    kernel (every call with ``time_all``) also timed beside its plain
+    version, and the first put through both backward routes
+    (``torch.equal``) where the kernel has a backward, its backward timed.
+    Frees each call's inputs once held. Returns {kernel name: (summed ms,
+    summed plain ms) of the timed calls}."""
+    sums = {}
     for name, calls in captured.items():
         kernel, plain, hold, backward = PATH_HOLDS[name]
+        sums[name] = (0.0, 0.0)
         for i, args in enumerate(calls):
             err, *note = hold(f"{tag} {name} call {i}", *args)[1:]
             shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else
@@ -1118,18 +1185,22 @@ def hold_path_calls(tag, captured, gen):
             dtype = args[-1] if name == "expand_scale_pair" else args[0].dtype
             msg = (f"{tag} hold {name} call {i} {shapes} {dtype}{''.join(note)}: "
                    f"max_abs_err {err:.3g}")
-            if i == 0:
+            if i == 0 or time_all:
                 ms = time_ms(lambda: kernel(*args), iters=5)
                 plain_ms = time_ms(lambda: plain(*args), iters=3, warmup=1)
+                sums[name] = (sums[name][0] + ms, sums[name][1] + plain_ms)
+                msg += f"; ms {ms:.4f} plain_ms {plain_ms:.4f}"
+            if i == 0 and backward is not None:
                 same, bwd_ms, shape = backward(gen, *args)
                 if not same:
                     fail(f"{tag} {name} backward: the kernel route's gradients are not "
                          f"torch.equal to the plain route's")
-                msg += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f}; backward {shape}: kernel "
-                        f"route torch.equal to the plain route, {bwd_ms:.4f} ms per call")
+                msg += (f"; backward {shape}: kernel route torch.equal to the plain route, "
+                        f"{bwd_ms:.4f} ms per call")
             log(msg)
             calls[i] = args = None
             torch.cuda.empty_cache()
+    return sums
 
 
 def seeded_model(sd, dtype, dev, change_stride=True, panc=8):
@@ -1368,9 +1439,11 @@ def main():
     log(f"kernel build: {secs:.1f} s ({len(reports)} sources compiled)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            # every kernel's registers and spills; the wgmma kernels' entry names too
+            # every kernel's registers and spills; the entry names of the wgmma
+            # kernels and of patch_expand's B3 and B7 too
             if ("registers" in line or "spill" in line
-                    or (name in ("corr_pool", "fine_head") and "Compiling entry" in line)):
+                    or (name in ("corr_pool", "fine_head", "patch_expand")
+                        and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions

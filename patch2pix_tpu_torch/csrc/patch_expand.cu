@@ -132,16 +132,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Offset of pixel (p, q)'s channel 0 inside proposal m's level rows (B7).
-__device__ __forceinline__ int64_t pixel_offset(int m, int p, int q, int y0, int x0,
-                                                int psize, int t, int c) {
-  const int ds = psize / t;
-  const int iy = (y0 + p) / ds - (y0 / psize) * t;
-  const int ix = (x0 + q) / ds - (x0 / psize) * t;
-  const int tile = (iy / t) * 2 + ix / t;
-  return ((((int64_t)m * 4 + tile) * t + iy % t) * t + ix % t) * c;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS) expand_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -305,43 +295,175 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(const __grid_constant__
 // B7: replaces tools/try_expand_kernels.py build (and the function of
 // patch_expand_pallas.py _xla_expand_side): out[m, p, q, :] = the window
 // cell of pixel (p, q) in one level's rows, a pure copy in the rows'
-// type. Bound: memory (the window reads and the patch writes). One block
-// per proposal; consecutive threads copy consecutive channels of a pixel.
+// type (the copy is type-blind: T is a 2- or 4-byte word).
+//
+// Bound on the H100: memory, by the writes. A proposal reads a window of
+// (t+1)^2 cells (t^2 where ds = 1) and writes psize^2 pixels, 3-28x the
+// window at the main path's levels; the ds^2 re-reads of a cell hit L1.
+// So the kernel spends its instructions on 16-byte stores:
+//   1. per proposal, two tables in shared memory: for each patch row p the
+//      element offset of its cell row (tile row, iy % t), for each column q
+//      that of its cell column (tile column, ix % t); a pixel's cell starts
+//      at rows_m + rt[p] + ct[q];
+//   2. where a cell is a whole number of 16-byte units (and the rows are
+//      16-byte aligned), each thread moves one unit: one read-only uint4
+//      load, one uint4 store, four units in flight;
+//   3. otherwise (C = 1 in float32, C = 3 in bf16: the fine-stage prolog's
+//      levels) each thread gathers the values of one flat 16-byte run of
+//      the proposal's output by table lookups, stepping (p, q, channel)
+//      without division, and stores one uint4; an unaligned head and tail
+//      go a value at a time.
+// Divisions by runtime sizes are multiply-shifts whose constants the
+// wrapper plans (ops/patch_expand.py level_plan); there are two per
+// 16-byte store and none per value. A block is 256 threads: one proposal,
+// or per_block proposals (one row of threads each) where a proposal's
+// output is smaller than the block's stores.
+struct LevelPlan {
+  int32_t psize, t, c;
+  int32_t vec;        // move whole cells in 16-byte units
+  int32_t per_block;  // proposals a block (blockDim.y)
+  int32_t per_pixel;  // work items a pixel: its 16-byte units (vec) or its c values
+  FastDiv by_psize, by_ds, by_pixel, by_row;  // psize, psize / t, per_pixel, psize * per_pixel
+};
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(THREADS)
 expand_level_kernel(const T* __restrict__ rows, const int* __restrict__ ys,
-                    const int* __restrict__ xs, T* __restrict__ out, int psize, int t,
-                    int c) {
-  const int m = blockIdx.x, npix = psize * psize;
-  const int y0 = max(ys[m], 0), x0 = max(xs[m], 0);
-  for (int e = threadIdx.x; e < npix * c; e += blockDim.x) {
-    const int pix = e / c, k = e % c;
-    out[((int64_t)m * npix + pix) * c + k] =
-        rows[pixel_offset(m, pix / psize, pix % psize, y0, x0, psize, t, c) + k];
+                    const int* __restrict__ xs, T* __restrict__ out, int m_total,
+                    const __grid_constant__ LevelPlan pl) {
+  extern __shared__ int tabs[];  // [proposal][row, column][psize]: element offsets
+  constexpr int V = 16 / sizeof(T);  // values per 16-byte unit
+  constexpr int UNROLL = 4;
+  const int psize = pl.psize, t = pl.t, c = pl.c, tid = threadIdx.x, nt = blockDim.x;
+  const int m = blockIdx.x * pl.per_block + threadIdx.y;
+  int* rt = tabs + threadIdx.y * 2 * psize;
+  const int* ct = rt + psize;
+
+  // 1. the tables; a negative corner counts as 0. Cell (r + d) / ds of the
+  // 2t x 2t superblock, r = corner % psize, is in tile (hi) and cell (lo)
+  if (m < m_total) {
+    for (int i = tid; i < 2 * psize; i += nt) {
+      const int axis = i >= psize, d = i - axis * psize;
+      const int base = max((axis ? xs : ys)[m], 0);
+      const int cell = fdiv(base - fdiv(base, pl.by_psize) * psize + d, pl.by_ds);
+      const int hi = cell >= t, lo = cell - hi * t;
+      rt[i] = axis ? (hi * t * t + lo) * c : (2 * hi * t + lo) * t * c;
+    }
   }
+  __syncthreads();
+  if (m >= m_total) return;
+  const T* src = rows + (int64_t)m * 4 * t * t * c;
+  const int row = psize * pl.per_pixel;  // work items a patch row
+
+  if (pl.vec) {
+    // 2. unit k of the proposal's output: pixel (p, q), unit j of its cell
+    const int n = psize * row;
+    uint4* dst = (uint4*)(out + (int64_t)m * psize * psize * c);
+    for (int k0 = tid; k0 < n; k0 += UNROLL * nt) {
+      uint4 v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int k = k0 + u * nt;
+        if (k < n) {
+          const int p = fdiv(k, pl.by_row), r = k - p * row;
+          const int q = fdiv(r, pl.by_pixel), j = r - q * pl.per_pixel;
+          v[u] = __ldg((const uint4*)(src + rt[p] + ct[q]) + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (k0 + u * nt < n) dst[k0 + u * nt] = v[u];
+      }
+    }
+    return;
+  }
+
+  // 3. flat 16-byte runs of the proposal's psize^2 * c values
+  const int len = psize * row;
+  T* dst = out + (int64_t)m * len;
+  const int head = min(len, (int)(((16 - ((uintptr_t)dst & 15)) & 15) / sizeof(T)));
+  const int chunks = (len - head) / V, tail = head + chunks * V;
+  for (int k = tid; k < chunks; k += nt) {
+    const int e0 = head + k * V;
+    int p = fdiv(e0, pl.by_row);
+    const int r = e0 - p * row;
+    int q = fdiv(r, pl.by_pixel), ch = r - q * c;
+    union {
+      uint4 u;
+      T e[V];
+    } v;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      v.e[j] = __ldg(src + rt[p] + ct[q] + ch);
+      if (++ch == c) {
+        ch = 0;
+        if (++q == psize) {
+          q = 0;
+          ++p;
+        }
+      }
+    }
+    *(uint4*)(dst + e0) = v.u;
+  }
+  for (int k = tid; k < head + len - tail; k += nt) {
+    const int e = k < head ? k : tail + k - head;
+    const int p = fdiv(e, pl.by_row), r = e - p * row;
+    const int q = fdiv(r, pl.by_pixel);
+    dst[e] = __ldg(src + rt[p] + ct[q] + r - q * c);
+  }
+}
+
+template <typename T>
+const void* level_kernel() {
+  return (const void*)expand_level_kernel<T>;
 }
 
 }  // namespace
 
-// B7. rows: (M, 4, t, t*c); y0, x0: (M,) int32 padded corners; out:
-// (M, psize, psize, c). elsize: bytes per element (2 or 4; the copy is
-// type-blind). Returns a cudaError_t.
-extern "C" int p2p_expand_level(const void* rows, const void* y0, const void* x0, void* out,
-                                int m, int psize, int t, int c, int elsize, void* stream) {
-  if (m <= 0 || c <= 0 || t <= 0 || psize % t != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+// The size of B7's LevelPlan, which the wrapper checks its mirror against.
+extern "C" int p2p_expand_level_plan_size() { return (int)sizeof(LevelPlan); }
+
+// B7. plan: a LevelPlan (ops/patch_expand.py level_plan); rows: (M, 4, t,
+// t*c); y0, x0: (M,) int32 padded corners; out: (M, psize, psize, c);
+// elsize: bytes per element, 2 or 4. Returns a cudaError_t.
+extern "C" int p2p_expand_level(const void* plan, const void* rows, const void* y0,
+                                const void* x0, void* out, int m, int elsize, void* stream) {
+  const LevelPlan& pl = *(const LevelPlan*)plan;
+  const int pb = pl.per_block;
+  const bool ok =
+      m > 0 && (elsize == 2 || elsize == 4) && pl.c > 0 && pl.t > 0 && pl.psize > 0 &&
+      pl.psize % pl.t == 0 && (int64_t)4 * pl.t * pl.t * pl.c < INT32_MAX &&
+      (int64_t)pl.psize * pl.psize * pl.c < INT32_MAX && pb > 0 && pb <= 8 && THREADS % pb == 0 &&
+      ((uintptr_t)out & (elsize - 1)) == 0 &&
+      (pl.vec ? pl.c * elsize % 16 == 0 && pl.per_pixel == pl.c * elsize / 16 &&
+                    (((uintptr_t)rows | (uintptr_t)out) & 15) == 0
+              : pl.per_pixel == pl.c);
+  const int smem = 2 * pb * pl.psize * (int)sizeof(int);
+  if (!ok || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + pb - 1) / pb), block(THREADS / pb, pb);
   cudaStream_t s = (cudaStream_t)stream;
   if (elsize == 2) {
-    expand_level_kernel<uint16_t><<<m, 256, 0, s>>>(
-        (const uint16_t*)rows, (const int*)y0, (const int*)x0, (uint16_t*)out, psize, t, c);
-  } else if (elsize == 4) {
-    expand_level_kernel<uint32_t><<<m, 256, 0, s>>>(
-        (const uint32_t*)rows, (const int*)y0, (const int*)x0, (uint32_t*)out, psize, t, c);
+    expand_level_kernel<uint16_t><<<grid, block, smem, s>>>(
+        (const uint16_t*)rows, (const int*)y0, (const int*)x0, (uint16_t*)out, m, pl);
   } else {
-    return (int)cudaErrorInvalidValue;
+    expand_level_kernel<uint32_t><<<grid, block, smem, s>>>(
+        (const uint32_t*)rows, (const int*)y0, (const int*)x0, (uint32_t*)out, m, pl);
   }
   return (int)cudaGetLastError();
+}
+
+// B7's registers a thread, static shared memory and local (spill) bytes
+// for elsize 2 or 4, from cudaFuncGetAttributes.
+extern "C" int p2p_expand_level_attrs(int elsize, int* regs, int* smem, int* local) {
+  if (elsize != 2 && elsize != 4) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  cudaError_t rc = cudaFuncGetAttributes(
+      &fa, elsize == 2 ? level_kernel<uint16_t>() : level_kernel<uint32_t>());
+  if (rc != cudaSuccess) return (int)rc;
+  *regs = fa.numRegs;
+  *smem = (int)fa.sharedSizeBytes;
+  *local = (int)fa.localSizeBytes;
+  return 0;
 }
 
 // The size of B3's Args, which the wrapper checks its mirror against.

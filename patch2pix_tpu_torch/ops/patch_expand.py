@@ -20,7 +20,8 @@ and gives the kernel its divisor constants.
 :func:`expand_level` (kernel B7, a second entry point of the same
 source) is the one-level, one-sided, unscaled expansion that the fused
 fine-stage head's prolog needs; it is a pure gather, bit-identical to
-:func:`expand_level_plain`.
+:func:`expand_level_plain`, written in 16-byte stores by the plan of
+:func:`level_plan`.
 
 :func:`expand_scale_pair` is differentiable with respect to both sides'
 rows: the backward is the JAX custom VJP's (``_bwd``,
@@ -43,9 +44,12 @@ EPS = 1e-6
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"p2p_patch_expand": "pip",
                "p2p_expand_args_size": "",
-               "p2p_expand_level": "ppppiiiiip"}
+               "p2p_expand_level": "pppppiip",
+               "p2p_expand_level_plan_size": "",
+               "p2p_expand_level_attrs": "ippp"}
 MAX_LEVELS = 8
 SMEM_LIMIT = 232448  # bytes of shared memory one block may take on the H100
+LEVEL_THREADS = 256  # threads of a B7 block
 
 
 def _paired(c: int) -> bool:
@@ -224,6 +228,44 @@ class _WindowGather(torch.autograd.Function):
         return slots.reshape(split).sum(dim=dim + 1), None, None, None, None
 
 
+class _LevelPlan(ctypes.Structure):
+    """``LevelPlan`` of ``csrc/patch_expand.cu``, field for field."""
+    _fields_ = [("psize", ctypes.c_int32), ("t", ctypes.c_int32), ("c", ctypes.c_int32),
+                ("vec", ctypes.c_int32), ("per_block", ctypes.c_int32),
+                ("per_pixel", ctypes.c_int32),
+                ("by_psize", _FastDiv), ("by_ds", _FastDiv), ("by_pixel", _FastDiv),
+                ("by_row", _FastDiv)]
+
+
+@functools.lru_cache(maxsize=None)
+def level_plan(psize: int, t: int, c: int, elsize: int, aligned: bool) -> _LevelPlan:
+    """B7's launch plan for one level of tile side ``t`` and ``c``
+    channels at ``psize``, ``elsize`` bytes per value, rows 16-byte
+    ``aligned`` or not. The kernel moves a pixel's cell in 16-byte units
+    (``vec``) where the cell is whole units and the rows are aligned,
+    else flat 16-byte runs of values; ``per_pixel`` is its work items a
+    pixel (units or values). ``per_block`` proposals share a block where a
+    proposal's output is smaller than the block's 16-byte stores. Divisor
+    constants for psize, ds = psize / t, per_pixel and a patch row's
+    items. Raises ValueError on shapes the kernel does not take."""
+    if psize <= 0 or t <= 0 or c <= 0 or psize % t or elsize not in (2, 4):
+        raise ValueError(f"expand_level: t {t}, C {c} at psize {psize}, {elsize}-byte values")
+    if 4 * t * t * c >= 2 ** 31 or psize * psize * c >= 2 ** 31:
+        raise ValueError(f"expand_level: t {t}, C {c} at psize {psize} overflow int32 offsets")
+    vec = aligned and c * elsize % 16 == 0
+    per_pixel = c * elsize // 16 if vec else c
+    per_block = 1
+    while per_block < 8 and 2 * per_block * psize * psize * c * elsize <= 16 * LEVEL_THREADS:
+        per_block *= 2
+    if 2 * per_block * psize * 4 > 48 * 1024:
+        raise ValueError(f"expand_level: psize {psize} beyond the tables' shared memory")
+    return _LevelPlan(psize=psize, t=t, c=c, vec=int(vec), per_block=per_block,
+                      per_pixel=per_pixel, by_psize=_FastDiv(*fast_div(psize)),
+                      by_ds=_FastDiv(*fast_div(psize // t)),
+                      by_pixel=_FastDiv(*fast_div(per_pixel)),
+                      by_row=_FastDiv(*fast_div(psize * per_pixel)))
+
+
 def expand_level_plain(rows: torch.Tensor, y0, x0, psize: int) -> torch.Tensor:
     """One level, one side: (M, 4, t, t*C) rows -> (M, p, p, C) window
     values by plain gathers (differentiable with respect to rows)."""
@@ -282,11 +324,15 @@ def expand_level(rows: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
         if v.dtype != torch.int32 or v.shape != (m,) or not v.is_contiguous():
             raise ValueError("expand_level: corners must be contiguous (M,) int32")
     _build.refuse_grad("expand_level", rows)
+    elsize = rows.element_size()
+    pl = level_plan(psize, t, c, elsize, rows.data_ptr() % 16 == 0)
     out = torch.empty((m, psize, psize, c), dtype=rows.dtype, device=dev)
     lib = _build.library("patch_expand", _SIGNATURES)
+    if lib.p2p_expand_level_plan_size() != ctypes.sizeof(_LevelPlan):
+        raise RuntimeError("expand_level: _LevelPlan does not match the kernel's LevelPlan")
     rc = lib.p2p_expand_level(
-        rows.data_ptr(), y0.data_ptr(), x0.data_ptr(), out.data_ptr(),
-        m, psize, t, c, rows.element_size(), _build.current_stream(dev),
+        ctypes.addressof(pl), rows.data_ptr(), y0.data_ptr(), x0.data_ptr(), out.data_ptr(),
+        m, elsize, _build.current_stream(dev),
     )
     _build.check_launch(rc, "expand_level")
     expand_level.launches += 1

@@ -21,7 +21,8 @@ w1 of 1, odd h2, both input layouts, with and without bias) float32
 atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
 cancels to near zero keeps the float32 rounding of its terms), its backward
 through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
-expand_level bit-identical; fused_fine_head float32 rtol/atol 2e-4,
+expand_level bit-identical (C from 1 to 256, M from 1 to 2400, every
+tile side, rows off a 16-byte boundary); fused_fine_head float32 rtol/atol 2e-4,
 bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
 midpoint moves a BN0 output by one ulp; chip_smoke's ``bf16_ulps``),
 at M from 1 to 2399, F 64 to 512 and corners at the superblock's edges.
@@ -285,17 +286,30 @@ def test_conv4d_small_backward_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_expand_level_bit_identical(cuda, dtype):
-    rs, m = _rs(7), 29
-    y0, x0 = (torch.from_numpy(rs.randint(-20, 80, (m,)).astype(np.int32)).to(cuda)
-              for _ in range(2))
-    for t, c in ((16, 3), (8, 64), (4, 64), (2, 128), (1, 256), (16, 1)):
-        rows = torch.from_numpy(rs.standard_normal((m, 4, t, t * c)).astype(np.float32))
-        rows = rows.to(cuda, dtype)
-        n0 = expand_level.launches
-        got = expand_level(rows, y0, x0, PSIZE)
-        assert expand_level.launches == n0 + 1
-        assert torch.equal(got, expand_level_plain(rows, y0, x0, PSIZE))
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 8, 64, 128, 256])
+@pytest.mark.parametrize("m", [1, 29, 2400])
+def test_expand_level_bit_identical(cuda, dtype, c, m):
+    """Cells of whole 16-byte units (16-byte copies), cells that are not
+    and cells below 16 bytes (flat runs), at every tile side from t = 16
+    (ds = 1) to t = 1, corners negative, 0, psize - 1 (a t + 1-cell
+    window) and at the last tile of a 1024-wide map's padded corners; at
+    M = 29 also rows off a 16-byte boundary."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(c * 10000 + m)
+    edges = torch.tensor([-20, 0, PSIZE - 1, 1024 + PSIZE - 1], dtype=torch.int32)
+    y0, x0 = (torch.randint(-20, 1024 + PSIZE, (m,), generator=gen, device=cuda,
+                            dtype=torch.int32) for _ in range(2))
+    y0[:4], x0[:4] = edges[:m].to(cuda), edges.roll(1)[:m].to(cuda)
+    for t in (16, 8, 4, 2, 1):
+        rows = torch.randn((m, 4, t, t * c + 8), generator=gen, device=cuda).to(dtype)
+        views = [rows[..., :t * c].contiguous()]
+        if m == 29:
+            views.append(rows.flatten()[1:1 + rows[..., :t * c].numel()].view(m, 4, t, t * c))
+        for r in views:
+            n0 = expand_level.launches
+            got = expand_level(r, y0, x0, PSIZE)
+            assert expand_level.launches == n0 + 1
+            assert torch.equal(got, expand_level_plain(r, y0, x0, PSIZE)), (t, r.data_ptr() % 16)
 
 
 def _fine_head_args(rs, m, f, dtype, corners, cuda):

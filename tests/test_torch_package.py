@@ -5,11 +5,18 @@
   * the port's parameter keys are the reference's (the 276-key shape
     map stored in the golden fixtures), and ``state_dict_from_jax``
     inverts ``convert_patch2pix_state_dict`` exactly;
-  * config-derived fields and device resolution.
+  * config-derived fields and device resolution;
+  * each kernel module's ctypes signatures name, for every C function
+    it binds, one type code per parameter of that function's prototype
+    in ``csrc/`` (a pointer ``p``, an int ``i``, a 64-bit int ``l``):
+    ctypes passes a missing or extra code silently until the card
+    calls it.
 """
 
 import ast
+import importlib
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -95,3 +102,26 @@ def test_resolve_device():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device()
+
+
+def _c_prototypes():
+    """{C function: type codes} of every ``extern "C"`` function in
+    ``csrc/*.cu``."""
+    out = {}
+    for src in sorted((ROOT / "patch2pix_tpu_torch" / "csrc").glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            params = [a for a in m.group(2).split(",") if a.strip()]
+            out[m.group(1)] = "".join(
+                "p" if "*" in a else "l" if "long long" in a or "int64_t" in a else "i"
+                for a in params)
+    return out
+
+
+@pytest.mark.parametrize("module", ["tap_sum", "corr_pool", "patch_expand", "conv4d_small",
+                                    "fine_stage"])
+def test_ctypes_signatures_match_the_c_prototypes(module):
+    protos = _c_prototypes()
+    sigs = importlib.import_module(f"patch2pix_tpu_torch.ops.{module}")._SIGNATURES
+    assert sigs
+    for fn, codes in sigs.items():
+        assert protos.get(fn) == codes, fn
