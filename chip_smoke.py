@@ -69,10 +69,30 @@ Phases, each fatal on failure:
      backward; only the NCN moves, as in JAX, so no training path
      reaches B2's backward), then one more step whose B1 and B2 calls
      are held as in phase 7;
-  10. one JSON line of per-kernel numbers, then the result line.
+  10. the training entry point, ``python -m patch2pix_tpu_torch.train.cli``
+     through ``train.cli.main``: a seeded MegaDepth-layout fixture (12
+     pairs of 480x320 PNGs from ``make_posed_pair``, their K, R, t in the
+     pair npy) and the seeded state dict as a ``.pth``; the reference
+     best-model setting (phase 7's) with ``--pretrain``, bf16,
+     ``--no_eval``, 2 epochs x 3 steps, with B1-B3's launches counted from
+     zero and the first call of each held against its plain version as in
+     phase 7; then ``--resume`` for a third epoch (the meta's epoch, the
+     step count, frozen weights bit-identical to the ``.pth``, the
+     regressors and their running averages moved, finite losses); one
+     epoch of 2 steps with ``--feat_comb post --backbone_train_bn`` (B1-B3
+     launch, the backbone's running averages move, its weights do not);
+     ``init_patch2pix_matcher`` on the run directory (its parameters
+     ``torch.equal`` to ``load_ckpt``'s) and the functional
+     ``estimate_matches(model, ...)`` on two fixture PNGs (equal to the
+     matcher's method). Prints the CLI's ms per step beside phase 7's,
+     split into each epoch's first-batch wait, device ms per step and
+     metrics flush; the peak memory, the checkpoint's bytes and its save
+     and restore ms;
+  11. one JSON line of per-kernel numbers, then the result line.
 
 Each path's launches are counted from zero just before it runs: phase 4
-for B1-B3, phase 5 for B4, phase 6 for B5 and B7.
+for B1-B3, phase 5 for B4, phase 6 for B5 and B7, phase 10 for B1-B3
+under the CLI.
 
 Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 """
@@ -82,6 +102,8 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -89,9 +111,13 @@ import time
 import numpy as np
 import torch
 
-from patch2pix_tpu_torch.config import ModelConfig, OptimConfig
-from patch2pix_tpu_torch.data.synthetic import synthetic_batch
-from patch2pix_tpu_torch.evaluation.matcher import Matcher
+from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, model_config_from_json
+from patch2pix_tpu_torch.data.synthetic import synthetic_batch, write_megadepth_fixture
+from patch2pix_tpu_torch.evaluation.matcher import (
+    Matcher,
+    estimate_matches,
+    init_patch2pix_matcher,
+)
 from patch2pix_tpu_torch.models import patch2pix as patch2pix_module
 from patch2pix_tpu_torch.models.ncn import NeighConsensus
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix, shift_to_anchors
@@ -143,8 +169,11 @@ from patch2pix_tpu_torch.ops.tap_sum import (
     tap_sum_backward,
     tap_sum_plain,
 )
+from patch2pix_tpu_torch.train import cli as train_cli
 from patch2pix_tpu_torch.train import create_train_state, make_ncn_pretrain_step, make_train_step
+from patch2pix_tpu_torch.train.checkpoint import load_ckpt, read_meta, save_ckpt
 from patch2pix_tpu_torch.train.step import resolve_remat
+from patch2pix_tpu_torch.utils import logging as logging_module
 from tests.ref_loader import seeded_state_dict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1119,25 +1148,27 @@ class capture_inputs:
     SITES = ((conv4d_module, "tap_sum"), (patch2pix_module, "corr_pool"),
              (patch_gather_module, "expand_scale_pair"))
 
-    def __init__(self, sites=SITES):
+    def __init__(self, sites=SITES, keep=None):
         self.sites = sites
+        self.keep = keep  # keep the first ``keep`` calls of each kernel (all: None)
 
     def __enter__(self):
         self.saved = [getattr(mod, name) for mod, name in self.sites]
         self.calls = {name: [] for _, name in self.sites}
         for (mod, name), fn in zip(self.sites, self.saved):
-            setattr(mod, name, self.shim(fn, self.calls[name]))
+            setattr(mod, name, self.shim(fn, self.calls[name], self.keep))
         return self.calls
 
     @staticmethod
-    def shim(fn, calls):
+    def shim(fn, calls, keep):
         def detach(a):
             if isinstance(a, torch.Tensor):
                 return a.detach()
             return type(a)(x.detach() for x in a) if isinstance(a, (list, tuple)) else a
 
         def call(*args):
-            calls.append(tuple(detach(a) for a in args))
+            if keep is None or len(calls) < keep:
+                calls.append(tuple(detach(a) for a in args))
             return fn(*args)
         return call
 
@@ -1304,6 +1335,7 @@ def train_path(dev, sd):
     warm-up and 10 timed steps each, then one step with ``freeze=()``."""
     batches = train_batches(dev)
     remat = resolve_remat("auto", TRAIN_BATCH, PTMAX, 8)
+    medians = {}
     for dtype in ("bfloat16", "float32"):
         tag = f"train [{dtype}]"
         r = train_run(tag, dev, sd, dtype, batches, profile=True)
@@ -1311,6 +1343,7 @@ def train_path(dev, sd):
                 and r["launches"].get("expand_scale_pair", 0) > 0):
             fail(f"{tag}: B1 and B3 must launch in a step: {r['launches']}")
         times = r["times"]
+        medians[dtype] = float(np.median(times))
         n_same, n_moved, n_stats = r["updates"]
         log(f"{tag} [ResNet34 change_stride {TRAIN_W}x{TRAIN_H} B={TRAIN_BATCH} "
             f"ptmax={PTMAX} panc=8 ksize 2, Adam 5e-4, freeze extract+ncn, remat auto = "
@@ -1335,6 +1368,7 @@ def train_path(dev, sd):
         f"{r['calls']}; {n_moved} tensors moved, {n_same} without a gradient (the NCN, "
         f"layer3, layer4) bit-identical")
     torch.cuda.empty_cache()
+    return medians
 
 
 def train_golden(dev):
@@ -1418,6 +1452,248 @@ def ncn_pretrain_path(dev, sd):
         f"{peak_gb:.2f} GB; launches per step {launches}; backward calls per step {calls}; "
         f"loss {float(metrics[0]['loss/nc']):.5g} -> {float(metrics[-1]['loss/nc']):.5g}")
     hold_path_calls("ncn pretrain", captured, torch.Generator(device=dev).manual_seed(2))
+
+
+# ------------------------------------------------------------ phase 10
+
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+CLI_PAIRS, CLI_STEPS = 12, 3
+
+
+class record_metrics:
+    """Within the block, every metrics dict the CLI's ``MetricsWriter``
+    queues is also kept (``as`` gives the list), so that a non-finite
+    loss, which the writer's means drop, still fails the phase."""
+
+    def __enter__(self):
+        self.saved = logging_module.MetricsWriter.append
+        self.kept = []
+        saved, kept = self.saved, self.kept
+
+        def append(writer, metrics):
+            kept.append(dict(metrics))
+            saved(writer, metrics)
+        logging_module.MetricsWriter.append = append
+        return kept
+
+    def __exit__(self, *exc):
+        logging_module.MetricsWriter.append = self.saved
+
+
+class time_cli_epochs:
+    """Within the block, each epoch of ``train.cli.main`` is split (``as``
+    gives the list, one dict per epoch): ``wait_ms``, host time from the
+    epoch's ``prefetch_to_device`` to its first step (the first batch's
+    decode and copy); ``step_ms``, device time from each step's start to
+    the next one's (CUDA events on the step's stream, so a step the
+    loader held back shows its gap); ``flush_ms``, host time of the
+    epoch's ``MetricsWriter.flush`` (the drain, which waits for the
+    epoch's queued device work)."""
+
+    def __enter__(self):
+        self.saved = (train_cli.prefetch_to_device, train_cli.make_train_step,
+                      logging_module.MetricsWriter.flush)
+        prefetch, make_step, flush = self.saved
+        epochs = self.epochs = []
+
+        def timed_prefetch(*args, **kw):
+            epochs.append({"t0": time.perf_counter(), "events": []})
+            return prefetch(*args, **kw)
+
+        def timed_make_step(*args, **kw):
+            step = make_step(*args, **kw)
+
+            def timed_step(state, batch, **kw):
+                epoch = epochs[-1]
+                if not epoch["events"]:
+                    epoch["wait_ms"] = (time.perf_counter() - epoch["t0"]) * 1e3
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(state, batch, **kw)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                epoch["events"].append((start, end))
+                return out
+            return timed_step
+
+        def timed_flush(writer, *args, **kw):
+            t0 = time.perf_counter()
+            out = flush(writer, *args, **kw)
+            epochs[-1]["flush_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        train_cli.prefetch_to_device = timed_prefetch
+        train_cli.make_train_step = timed_make_step
+        logging_module.MetricsWriter.flush = timed_flush
+        return epochs
+
+    def __exit__(self, *exc):
+        (train_cli.prefetch_to_device, train_cli.make_train_step,
+         logging_module.MetricsWriter.flush) = self.saved
+        torch.cuda.synchronize()
+        for epoch in self.epochs:
+            ev = epoch.pop("events")
+            ends = [s for s, _ in ev[1:]] + [ev[-1][1]]
+            epoch["step_ms"] = [s.elapsed_time(e) for (s, _), e in zip(ev, ends)]
+            del epoch["t0"]
+
+
+def split_line(epochs):
+    """One epoch split of :class:`time_cli_epochs` as text."""
+    return "; ".join(
+        f"epoch {i + 1}: first-batch wait {e['wait_ms']:.2f} ms, device ms per step "
+        + " ".join(f"{t:.2f}" for t in e["step_ms"]) + f", flush {e['flush_ms']:.2f} ms"
+        for i, e in enumerate(epochs))
+
+
+def cli_argv(fixture, out_dir, epochs, *extra):
+    data_root, pair_root, npy, _ = fixture
+    return ["--data_root", data_root, "--pair_root", pair_root, "--match_npy", npy,
+            "--out_dir", out_dir, "--change_stride", "--batch", str(TRAIN_BATCH), "--ptmax",
+            str(PTMAX), "--ksize", "2", "--dtype", "bfloat16", "--no_eval", "--epochs",
+            str(epochs), "--steps_per_epoch", str(CLI_STEPS), *extra]
+
+
+def epoch_seconds(run_dir):
+    """{epoch: seconds} from the CLI's log (its ``>Epoch:N time:Xs`` lines)."""
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        return {int(m.group(1)): float(m.group(2))
+                for m in re.finditer(r">Epoch:(\d+) time:([0-9.]+)s", f.read())}
+
+
+def checkpoint_model(run_dir, tag="last"):
+    return torch.load(os.path.join(run_dir, f"{tag}.pt"), map_location="cpu",
+                      weights_only=True)
+
+
+def cli_path(dev, sd, train_ms):
+    """Phase 10: the training entry point (module docstring)."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    fixture = write_megadepth_fixture(os.path.join(CLI_DIR, "fixture"), CLI_PAIRS, TRAIN_H,
+                                      TRAIN_W, seed=0)
+    pth = os.path.join(CLI_DIR, "seeded.pth")
+    pre = {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+    torch.save({"state_dict": pre}, pth)
+    out = os.path.join(CLI_DIR, "out")
+
+    # 2 epochs x 3 steps, B1-B3 counted from zero, their first calls kept
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with capture_inputs(keep=1) as captured, record_metrics() as metrics, \
+            time_cli_epochs() as split:
+        run = train_cli.main(cli_argv(fixture, out, 2, "--pretrain", pth))
+    torch.cuda.synchronize()
+    peak_gb = logging_module.get_device_mem()[f"cuda:{dev.index or 0}"]["peak_bytes_in_use"]
+    launches = {k: v for k, v in counts().items() if v}
+    if not all(launches.get(k, 0) > 0 for k in ("tap_sum", "corr_pool", "expand_scale_pair")):
+        fail(f"cli: B1, B2 and B3 must launch under the CLI: {launches}")
+    hold_path_calls("cli", captured, torch.Generator(device=dev).manual_seed(3))
+    del captured
+
+    # a third epoch from the checkpoint
+    with record_metrics() as more:
+        if train_cli.main(cli_argv(fixture, out, 3, "--pretrain", pth, "--resume")) != run:
+            fail("cli: --resume wrote another run directory")
+    check_finite("cli", metrics + more)
+    meta = read_meta(run)
+    steps = {tag: checkpoint_model(run, tag)["step"] for tag in ("ep2", "last")}
+    if meta["epoch"] != 2 or steps != {"ep2": 2 * CLI_STEPS, "last": 3 * CLI_STEPS}:
+        fail(f"cli: resumed run at epoch {meta['epoch']}, steps {steps}")
+    last = checkpoint_model(run)["model"]
+    frozen = [k for k in pre if k.startswith(("extract.", "ncn."))]
+    changed = [k for k in frozen if not torch.equal(last[k], pre[k])]
+    trained = [k for k in pre if k.startswith("regress_") and "num_batches" not in k]
+    unmoved = [k for k in trained if torch.equal(last[k], pre[k])]
+    if changed or unmoved:
+        fail(f"cli: frozen tensors changed {changed}; regressor tensors unmoved {unmoved}")
+    ms_step = {e: t * 1e3 / CLI_STEPS for e, t in epoch_seconds(run).items()}
+    steady = [t for e in split for t in e["step_ms"][1:]]
+    log(f"cli [train.cli.main, ResNet34 change_stride {TRAIN_W}x{TRAIN_H} B={TRAIN_BATCH} "
+        f"ptmax={PTMAX} panc=8 ksize 2 bf16, --pretrain, {CLI_PAIRS} PNG pairs, "
+        f"{CLI_STEPS} steps/epoch]: epochs 1-2, then --resume epoch 3: ms/step (epoch time / "
+        f"steps, loader, prefetch, logging and the per-epoch drain included) "
+        + ", ".join(f"epoch {e} {v:.2f}" for e, v in sorted(ms_step.items()))
+        + f"; split of epochs 1-2: {split_line(split)}; steps 2-{CLI_STEPS} mean "
+        f"{sum(steady) / len(steady):.2f} device ms/step"
+        + f"; phase 7's synchronised bf16 step {train_ms:.2f} ms; peak device memory "
+        f"{peak_gb:.2f} GB (epochs 1-2); launches in epochs 1-2 {launches}; meta epoch "
+        f"{meta['epoch']}, steps {steps}; {len(frozen)} frozen tensors bit-identical to the "
+        f".pth, {len(trained)} regressor tensors (running averages included) moved; losses "
+        f"finite over {len(metrics + more)} steps")
+
+    # checkpoint bytes, save and restore
+    cfg = model_config_from_json(json.dumps(meta["model_config"]))
+    model = Patch2Pix(cfg, device=dev)
+    state = create_train_state(model, OptimConfig(), freeze=("extract", "ncn"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = load_ckpt(run, state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    timing_dir = os.path.join(CLI_DIR, "timing")
+    t0 = time.perf_counter()
+    save_ckpt(timing_dir, state, cfg, meta["epoch"])
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_bytes = os.path.getsize(os.path.join(timing_dir, "last.pt"))
+
+    # the matcher from the run directory
+    matcher = init_patch2pix_matcher(run)
+    got = matcher.model.state_dict()
+    bad = [k for k, v in state.model.state_dict().items() if not torch.equal(got[k], v)]
+    if bad or matcher.model.config.regressor.panc != 1:
+        fail(f"cli: the matcher's weights differ from load_ckpt's: {bad}")
+    del model, state
+    png = os.path.join(fixture[0], "MegaDepth_undistort", "0000")
+    png1, png2 = (os.path.join(png, f"pair000_{i}.png") for i in (1, 2))
+    fm, fs, cm = estimate_matches(matcher.model, png1, png2, device=dev)
+    if not (len(fm) > 0 and fm.shape[1:] == (4,) and np.isfinite(fm).all()
+            and np.isfinite(fs).all()):
+        fail(f"cli: estimate_matches from the run directory gave {fm.shape}")
+    if not all(np.array_equal(a, b) for a, b in zip((fm, fs, cm),
+                                                     matcher.estimate_matches(png1, png2))):
+        fail("cli: estimate_matches(model, ...) differs from the matcher's estimate_matches")
+    del matcher
+    torch.cuda.empty_cache()
+    log(f"cli checkpoint [{cfg.dtype}]: last.pt {ckpt_bytes} bytes; save_ckpt {save_ms:.1f} "
+        f"ms, load_ckpt {restore_ms:.1f} ms; init_patch2pix_matcher(run dir) weights "
+        f"torch.equal to load_ckpt's; estimate_matches(model, png1, png2) on a fixture pair: "
+        f"{len(fm)} matches, equal to the matcher's method")
+
+    # feat_comb post + backbone_train_bn, from a post-shaped seeded .pth
+    cfg_post = ModelConfig(change_stride=True, dtype="bfloat16").resolved()
+    cfg_post.regressor.feat_comb = "post"
+    shapes = {k: tuple(v.shape) for k, v in Patch2Pix(cfg_post, device=dev).state_dict().items()}
+    pre_post = {k: torch.from_numpy(np.asarray(v))
+                for k, v in seeded_state_dict(shapes, seed=0).items()}
+    pth_post = os.path.join(CLI_DIR, "seeded_post.pth")
+    torch.save({"state_dict": pre_post}, pth_post)
+    torch.cuda.synchronize()
+    reset_counts()
+    with record_metrics() as post_metrics:
+        run_post = train_cli.main(cli_argv(fixture, os.path.join(CLI_DIR, "out_post"), 1,
+                                           "--pretrain", pth_post, "--feat_comb", "post",
+                                           "--backbone_train_bn", "--steps_per_epoch", "2"))
+    torch.cuda.synchronize()
+    post_launches = {k: v for k, v in counts().items() if v}
+    if not all(post_launches.get(k, 0) > 0
+               for k in ("tap_sum", "corr_pool", "expand_scale_pair")):
+        fail(f"cli post + backbone_train_bn: B1-B3 must launch: {post_launches}")
+    check_finite("cli post + backbone_train_bn", post_metrics)
+    last = checkpoint_model(run_post)["model"]
+    backbone = [k for k in pre_post if k.startswith("extract.") and ".layer4." not in k
+                and "num_batches" not in k]
+    wrong = [k for k in backbone if torch.equal(last[k], pre_post[k]) == ("running" in k)]
+    if wrong:
+        fail(f"cli post + backbone_train_bn: backbone running averages must move and its "
+             f"weights stay: {wrong}")
+    post_ms = epoch_seconds(run_post)[1] * 1e3 / 2
+    log(f"cli [--feat_comb post --backbone_train_bn, otherwise as above, 1 epoch x 2 steps]: "
+        f"ms/step {post_ms:.2f} (epoch time / steps); launches {post_launches}; "
+        f"{sum('running' in k for k in backbone)} backbone running averages moved, "
+        f"{sum('running' not in k for k in backbone)} backbone weights bit-identical")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -1576,12 +1852,13 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 7: training; phase 8: the training forward's golden; phase 9:
-    # NCN pretraining
-    train_path(dev, sd)
+    # NCN pretraining; phase 10: the training entry point
+    train_ms = train_path(dev, sd)
     train_golden(dev)
     ncn_pretrain_path(dev, sd)
+    cli_path(dev, sd, train_ms["bfloat16"])
 
-    # phase 10: report
+    # phase 11: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

@@ -100,14 +100,22 @@ class TrainConfig:
 
 
 def to_json(cfg) -> str:
-    """A config dataclass as indented JSON (tuples as lists)."""
-    return json.dumps(dataclasses.asdict(cfg), indent=2)
+    """A config dataclass as indented JSON (tuples as lists). A
+    ``ModelConfig`` also carries the JAX config's ``gather`` key, always
+    ``"auto"``: the route the port's regression stages take."""
+    d = dataclasses.asdict(cfg)
+    if isinstance(cfg, ModelConfig):
+        d["gather"] = "auto"
+    return json.dumps(d, indent=2)
 
 
 def from_dict(cls, d):
-    """``cls`` from a dict of its fields: unknown keys are dropped (a
-    JAX ``ModelConfig``'s ``gather``), lists become tuples, and a
-    ``regressor`` dict a ``RegressorConfig``."""
+    """``cls`` from a dict of its fields: unknown keys are dropped,
+    lists become tuples, and a ``regressor`` dict a
+    ``RegressorConfig``. A JAX ``gather`` other than ``"auto"`` raises:
+    the port has no forced block-gather route."""
+    if cls is ModelConfig and d.get("gather", "auto") != "auto":
+        raise ValueError(f"gather={d['gather']!r} is not ported; only 'auto' is")
     names = {f.name for f in dataclasses.fields(cls)}
     kwargs = {}
     for k, v in d.items():

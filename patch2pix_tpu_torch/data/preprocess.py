@@ -1,7 +1,8 @@
 """Host-side image loading / preprocessing (numpy + PIL, channels-last).
 
-A copy of ``patch2pix_tpu.data.preprocess``'s eval loaders: HWC float32
-arrays, sizes snapped to multiples of ``upsample * ksize``. PIL is
+A copy of ``patch2pix_tpu.data.preprocess``: HWC float32 arrays, eval
+sizes snapped to multiples of ``upsample * ksize``, and the training
+loader's bottom-right aspect crop and intrinsics rescale. PIL is
 imported inside the loaders so the package imports without it.
 """
 
@@ -31,6 +32,19 @@ def to_array(im, normalize: bool = True) -> np.ndarray:
     return arr
 
 
+def load_image(path: str, crop: Optional[Tuple[float, float]] = None):
+    """Open an RGB image (PIL); optionally crop (dw, dh) from the
+    bottom-right: keep rows [0, h-dh) and cols [0, w-dw)."""
+    from PIL import Image
+
+    im = Image.open(path).convert("RGB")
+    if crop is not None:
+        dw, dh = int(crop[0]), int(crop[1])
+        if dw or dh:
+            im = im.crop((0, 0, im.width - dw, im.height - dh))
+    return im
+
+
 def cal_rescale_size(
     image_size: int, w: int, h: int, k_size: int = 2, upsample: int = 16
 ) -> Tuple[int, int]:
@@ -56,7 +70,7 @@ def load_im_flexible(
     """
     from PIL import Image
 
-    im = Image.open(path).convert("RGB")
+    im = load_image(path)
     wo, ho = im.width, im.height
     target = imsize if (imsize and imsize > 0) else max(wo, ho)
     target = min(target, max(wo, ho))  # never upsample
@@ -65,9 +79,10 @@ def load_im_flexible(
     return to_array(im), (wo / wt, ho / ht)
 
 
-def load_im_tensor(path: str, imsize: Optional[int] = None):
+def load_im_tensor(path: str, imsize: Optional[int] = None, with_gray: bool = False):
     """Load + optionally resize to max dim ``imsize``; return the
-    normalised RGB array and its (sx, sy) scale."""
+    normalised RGB array, with ``with_gray`` also the unnormalised
+    (H, W, 1) gray image in [0, 1], and the (sx, sy) scale."""
     from PIL import Image
 
     im = Image.open(path).convert("RGB")
@@ -77,4 +92,34 @@ def load_im_tensor(path: str, imsize: Optional[int] = None):
         s = imsize / max(wo, ho)
         wt, ht = int(round(wo * s)), int(round(ho * s))
         im = im.resize((wt, ht), Image.BICUBIC)
-    return to_array(im), (wo / wt, ho / ht)
+    scale = (wo / wt, ho / ht)
+    rgb = to_array(im)
+    if with_gray:
+        gray = np.asarray(im.convert("L"), dtype=np.float32)[..., None] / 255.0
+        return rgb, gray, scale
+    return rgb, scale
+
+
+def crop_from_bottom_right(w: int, h: int, target_ratio: float = 1.5,
+                           min_ratio: float = 1.3, max_ratio: float = 1.7
+                           ) -> Optional[Tuple[float, float]]:
+    """Bottom-right crop (dw, dh) bringing aspect w/h to ``target_ratio``;
+    None when the aspect is outside [min_ratio, max_ratio] (the pair is
+    rejected). The kept height is even, the kept width a multiple of 3."""
+    ratio = w / h
+    if ratio < min_ratio or ratio > max_ratio:
+        return None
+    if ratio == target_ratio:
+        return 0.0, 0.0
+    if ratio > target_ratio:
+        dh = h % 2
+        dw = w - (h - dh) * target_ratio
+    else:
+        dw = w % 3
+        dh = h - (w - dw) / target_ratio
+    return dw, dh
+
+
+def scale_intrinsic(K: np.ndarray, wi: int, hi: int, wt: int, ht: int) -> np.ndarray:
+    """Rescale a 3x3 intrinsic matrix for an (wi, hi) -> (wt, ht) resize."""
+    return np.diag([wt / wi, ht / hi, 1.0]) @ K

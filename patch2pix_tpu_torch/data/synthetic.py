@@ -129,6 +129,13 @@ def make_pair(
     plane homography H in the pixel frame (H gives exact dense
     correspondence x2 = H x1 — used by the self-supervised backbone
     warm-up)."""
+    return make_posed_pair(rs, h, w, max_angle, max_shift, texture_pool)[:4]
+
+
+def make_posed_pair(rs: np.random.RandomState, h: int, w: int, max_angle: float = 0.12,
+                    max_shift: float = 0.25, texture_pool: list | None = None):
+    """:func:`make_pair` (the same draws) returning also the pose: (im1,
+    im2, F, H, K, R, t), K shared by both views."""
     f = 0.9 * max(h, w)
     K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float64)
     R = rot_xyz(*(rs.uniform(-max_angle, max_angle, 3)))
@@ -140,13 +147,49 @@ def make_pair(
     H = K @ (R - np.outer(t, n) / d) @ Kinv
     F = Kinv.T @ skew(t) @ R @ Kinv
     F /= np.linalg.norm(F)
-
     if texture_pool:
         im1 = textured_image_from_pool(rs, h, w, texture_pool)
     else:
         im1 = textured_image(rs, h, w)
     im2 = warp_homography(im1, H)
-    return im1, im2, F.astype(np.float32), H.astype(np.float32)
+    return im1, im2, F.astype(np.float32), H.astype(np.float32), K, R, t
+
+
+def write_megadepth_fixture(root: str, n_pairs: int, h: int, w: int, seed: int = 0,
+                            n_scenes: int = 1, match_npy: str = "pairs.npy"):
+    """A MegaDepth-layout dataset of :func:`make_posed_pair` pairs on
+    disk, for the training loader (``data/megadepth.py``): each pair's two
+    views as 8-bit PNGs under ``{root}/data/MegaDepth_undistort/{scene}/``
+    and the pair npy ``{root}/pairs/{match_npy}`` (``{scene: {"ims",
+    "pairs"}}``, each pair with ``im1``, ``im2``, ``K1``, ``K2``, ``R``,
+    ``t``, no crop), pairs dealt to ``n_scenes`` scenes in turn. Returns
+    (data_root, pair_root, match_npy, the pairs' unit-norm F)."""
+    import os
+    from types import SimpleNamespace
+
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    data_root = os.path.join(root, "data")
+    pair_root = os.path.join(root, "pairs")
+    os.makedirs(pair_root, exist_ok=True)
+    scenes: Dict[str, dict] = {}
+    Fs = []
+    for i in range(n_pairs):
+        scene = f"{i % n_scenes:04d}"
+        os.makedirs(os.path.join(data_root, "MegaDepth_undistort", scene), exist_ok=True)
+        im1, im2, F, _, K, R, t = make_posed_pair(rs, h, w)
+        names = [f"{scene}/pair{i:03d}_{v}.png" for v in (1, 2)]
+        for name, im in zip(names, (im1, im2)):
+            u8 = np.clip(np.round(im * 255), 0, 255).astype(np.uint8)
+            Image.fromarray(u8).save(os.path.join(data_root, "MegaDepth_undistort", name))
+        sc = scenes.setdefault(scene, {"ims": [], "pairs": []})
+        sc["ims"] += names
+        sc["pairs"].append(SimpleNamespace(im1=names[0], im2=names[1], K1=K, K2=K, R=R, t=t,
+                                           crop1=None, crop2=None))
+        Fs.append(F)
+    np.save(os.path.join(pair_root, match_npy), scenes)
+    return data_root, pair_root, match_npy, np.stack(Fs)
 
 
 def imagenet_normalize(im: np.ndarray) -> np.ndarray:

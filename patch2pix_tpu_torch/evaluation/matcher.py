@@ -5,7 +5,8 @@ compile cache); images are snapped to multiples of ``upsample * ksize``
 as the reference does, and the fixed-shape device output becomes the
 reference's variable-length numpy contract at the host boundary.
 Reference ``.pth`` checkpoints load as they are: the port's modules use
-the reference's key names.
+the reference's key names; a checkpoint directory written by the port's
+training (``train/checkpoint.py``) loads through ``restore_for_eval``.
 """
 
 from __future__ import annotations
@@ -48,18 +49,23 @@ def _config_from_torch_ckpt(ckpt: dict, method: str) -> ModelConfig:
 
 
 def load_model(ckpt_path: str, method: str = "patch2pix", device=None,
-               dtype: str = "float32") -> Patch2Pix:
-    """Build a Patch2Pix model from a reference ``.pth`` checkpoint.
-    A full Patch2Pix checkpoint must hold every key; an NCNet-only
-    checkpoint may leave keys at their initial values."""
+               dtype: Optional[str] = None, tag: str = "last") -> Patch2Pix:
+    """Build a Patch2Pix model from a reference ``.pth`` checkpoint
+    (computing in ``dtype``, float32 by default), or from a checkpoint
+    directory of the port's training (its ``tag``; the dtype it was
+    trained in unless ``dtype`` is given). A full Patch2Pix checkpoint
+    must hold every key; an NCNet-only checkpoint may leave keys at
+    their initial values."""
     if os.path.isdir(ckpt_path):
-        raise NotImplementedError("orbax checkpoint directories are not ported")
+        from patch2pix_tpu_torch.train.checkpoint import restore_for_eval
+
+        return restore_for_eval(ckpt_path, tag, device=device, dtype=dtype)
     device = resolve_device(device)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
     if not isinstance(ckpt, dict):
         raise ValueError(f"unsupported checkpoint object: {type(ckpt)}")
     cfg = _config_from_torch_ckpt(ckpt, method)
-    cfg.dtype = dtype
+    cfg.dtype = dtype or "float32"
     model = Patch2Pix(cfg, device=device)
     sd = ckpt.get("state_dict", ckpt)
     sd = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
@@ -170,10 +176,15 @@ class Matcher:
     __call__ = estimate_matches
 
     def refine_matches(self, im1_path: str, im2_path: str,
-                       coarse_matches: np.ndarray, io_thres: float = 0.0):
+                       coarse_matches: np.ndarray, io_thres: float = 0.0,
+                       max_matches: int = 2048):
         """Refine an external detector's ``(N, 4)`` matches given in the
         ORIGINAL frames (plug-in mode). Returns (refined, scores, coarse)
-        in original coords."""
+        in original coords. ``max_matches`` is the JAX package's slot
+        count, which pads the rows to bound its recompiles; rows are
+        independent at eval and nothing compiles here, so no row is
+        padded and the result does not depend on it."""
+        del max_matches
         im1, sc1 = load_im_tensor(im1_path, self.imsize)
         im2, sc2 = load_im_tensor(im2_path, self.imsize)
         return self.refine_matches_arrays(im1, im2, coarse_matches, sc1, sc2, io_thres)
@@ -203,8 +214,21 @@ class Matcher:
         return fmat / downscale, fscore, coarse_matches
 
 
+def estimate_matches(model: Patch2Pix, im1_path: str, im2_path: str, ksize: int = 2,
+                     ncn_thres: float = 0.0, mutual: bool = True, io_thres: float = 0.25,
+                     eval_type: str = "fine", imsize: Optional[int] = None, device=None):
+    """One-shot matching of two image files (the JAX package's
+    functional API): a :class:`Matcher` with these settings, then its
+    ``estimate_matches``."""
+    return Matcher(model, ksize=ksize, io_thres=io_thres, ncn_thres=ncn_thres,
+                   mutual=mutual, imsize=imsize, eval_type=eval_type,
+                   device=device).estimate_matches(im1_path, im2_path)
+
+
 def init_patch2pix_matcher(ckpt: str, ksize: int = 2, io_thres: float = 0.25,
                            imsize: Optional[int] = None, device=None) -> Matcher:
+    """A fine matcher from a reference ``.pth`` or a training run
+    directory (its ``last`` checkpoint)."""
     model = load_model(ckpt, method="patch2pix", device=device)
     return Matcher(model, ksize=ksize, io_thres=io_thres, imsize=imsize,
                    eval_type="fine", device=device)

@@ -3,7 +3,12 @@
 Port of ``patch2pix_tpu.models.ncn``. Symmetric mode convolves the
 volume and its A<->B transpose and sums (two independent ReLU stacks).
 Parameters keep the reference layout and key names
-(``ncn.conv.{0,2}.weight`` stored ``(k1, out, in, k2, k3, k4)``).
+(``ncn.conv.{0,2}.weight`` stored ``(k1, out, in, k2, k3, k4)``). A
+fresh layer draws its weight as flax's ``xavier_uniform`` draws the JAX
+kernel ``(k, k, k, k, in, out)``: uniform within ``sqrt(6 / (fan_in +
+fan_out))``, fan_in = in * k^4 and fan_out = out * k^4 (torch's
+``xavier_uniform_`` on the stored layout would take other fans); biases
+start at zero.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ class Conv4dParams(nn.Module):
 
     def __init__(self, cin: int, cout: int, k: int, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(k, cout, cin, k, k, k, device=device))
+        limit = (6.0 / ((cin + cout) * k ** 4)) ** 0.5
+        kernel = torch.empty(k, k, k, k, cin, cout, device=device).uniform_(-limit, limit)
+        self.weight = nn.Parameter(kernel.permute(0, 5, 4, 1, 2, 3).contiguous())
         self.bias = nn.Parameter(torch.zeros(cout, device=device))
 
     def kernel(self) -> torch.Tensor:

@@ -18,7 +18,10 @@ grid-aligned.
 ``forward`` is the training forward (the JAX ``__call__``): coarse
 matches, ``select_ptmax``, ``panc`` anchors, then both regression stages
 with the regressors' BatchNorms on batch statistics, differentiable
-through B1-B3's backward passes.
+through B1-B3's backward passes. With ``backbone_train_bn`` the backbone
+runs once per image side on batch statistics too (stacking the sides
+would change them) and its running averages move; the kernels on the
+path are the same.
 """
 
 from __future__ import annotations
@@ -116,11 +119,14 @@ class Patch2Pix(nn.Module):
 
     # ---------------- coarse stage ----------------
 
-    def extract_pyramid_pair(self, im1, im2):
+    def extract_pyramid_pair(self, im1, im2, stats=None):
         """Both images' pyramids; one stacked backbone call when the
-        shapes match (exact: BN runs on running averages)."""
-        if im1.shape != im2.shape:
-            return self.extract(im1, pyramid=True), self.extract(im2, pyramid=True)
+        shapes match (exact: BN runs on running averages). ``stats``: a
+        list to run the backbone's BatchNorms on batch statistics, one
+        call per side (``ResNetFeatures.forward``)."""
+        if stats is not None or im1.shape != im2.shape:
+            return (self.extract(im1, pyramid=True, stats=stats),
+                    self.extract(im2, pyramid=True, stats=stats))
         b = im1.shape[0]
         feats = self.extract(torch.cat([im1, im2], dim=0), pyramid=True)
         return tuple(f[:b] for f in feats), tuple(f[b:] for f in feats)
@@ -223,15 +229,14 @@ class Patch2Pix(nn.Module):
         (``torch.utils.checkpoint``, non-reentrant): ``none``, ``fine``
         (the fine stage), ``both``; ``dots`` (the JAX policy that saves
         matmul outputs) recomputes both stages here, as ``both`` does.
-        ``backbone_train_bn`` (batch-statistics BatchNorm in the
-        backbone) is not ported and raises."""
-        if backbone_train_bn:
-            raise NotImplementedError("backbone_train_bn: batch-statistics BatchNorm in "
-                                      "the backbone is not ported")
+        ``backbone_train_bn``: the backbone's BatchNorms run on each
+        side's batch statistics and their running averages are updated
+        with the regressors'."""
         if remat not in ("none", "fine", "both", "dots"):
             raise ValueError(f"unknown remat mode {remat!r}")
         r = self.config.regressor
-        feats1, feats2 = self.extract_pyramid_pair(im1, im2)
+        st_backbone = [] if backbone_train_bn else None
+        feats1, feats2 = self.extract_pyramid_pair(im1, im2, st_backbone)
         corr, delta4d = self.coarse_corr(feats1[-1], feats2[-1], ksize)
         cm = self.coarse_matches(corr, delta4d, ksize, mutual=True, ncn_thres=0.0)
         sel = select_ptmax(cm.coords, cm.scores, cm.valid, ptmax, generator, rand)
@@ -255,6 +260,8 @@ class Patch2Pix(nn.Module):
         fine_matches, fine_probs, st_fine = run(mid_matches, "fine", remat != "none")
         if train:
             update_running_stats(st_mid + st_fine)
+        if backbone_train_bn:
+            update_running_stats(st_backbone)
         return {"coarse": anchors, "mid": mid_matches, "mid_probs": mid_probs,
                 "fine": fine_matches, "fine_probs": fine_probs, "corr": corr}
 

@@ -1,8 +1,13 @@
 """Mid/fine local-patch regressor.
 
-Port of ``patch2pix_tpu.models.regressor.FeatRegressNet`` with feat_comb
-``pre``: a small CNN over psize x psize hypercolumn patches of both
-images giving 4 offset logits + 1 confidence logit per proposal.
+Port of ``patch2pix_tpu.models.regressor.FeatRegressNet``: a small CNN
+over psize x psize hypercolumn patches of both images giving 4 offset
+logits + 1 confidence logit per proposal. ``feat_comb='pre'`` runs one
+conv stack over both sides' channels; ``'post'`` runs one conv stack
+(input ``feat_dim`` channels) over each side's patches and concatenates
+the two pooled features before the fcs. In ``'post'`` the fused-gather
+layout (B3's outputs, channel-paired levels included) is split back into
+its sides, so the stage keeps B3.
 Parameters keep the reference key names: ``conv.{0,2}`` convs,
 ``conv.{1,3}`` BatchNorm2d, ``fc.{0,3}`` Linear, ``fc.{1,4}``
 BatchNorm1d, ``fc.6`` the output Linear.
@@ -30,7 +35,13 @@ mean and biased variance ``E[x^2] - mean^2`` clamped at 0, the conv BNs
 still folded as affines — and appends ``(module, mean, var)`` to
 ``stats``; :func:`update_running_stats` then folds them into the running
 averages, ``0.9 * old + 0.1 * batch``. The caller applies the update, so
-a stage recomputed under activation checkpointing counts once.
+a stage recomputed under activation checkpointing counts once. In
+``'post'`` the shared conv BatchNorms see each side's batch in turn, and
+their running averages take both updates in that order, as flax's do.
+
+A fresh regressor draws its conv and Linear weights with flax's
+``lecun_normal`` (the JAX ``nn.Conv`` and ``nn.Dense`` default); Linear
+biases start at zero, BatchNorms at scale 1 and bias 0.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from patch2pix_tpu_torch.models.resnet import bn_fold, conv2d_nhwc
+from patch2pix_tpu_torch.models.resnet import bn_fold, conv2d_nhwc, lecun_normal_
 
 
 def _as_tuple(x):
@@ -115,17 +126,20 @@ class FeatRegressNet(nn.Module):
                  psize: int = 16, out_dim: int = 5,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if feat_comb != "pre":
-            raise NotImplementedError(
-                f"feat_comb {feat_comb!r}: only 'pre' is ported")
+        if feat_comb not in ("pre", "post"):
+            raise ValueError(f"unknown feat_comb {feat_comb!r}")
+        self.feat_comb = feat_comb
+        self.feat_dim = feat_dim
         self.conv_strs = tuple(conv_strs)
         self.dtype = dtype
-        convs, cin = [], 2 * feat_dim
+        convs, cin = [], feat_dim if feat_comb == "post" else 2 * feat_dim
         for dim, k, s in zip(conv_dims, conv_kers, conv_strs):
             convs += [nn.Conv2d(cin, dim, k, s, 1, bias=False, device=device),
                       nn.BatchNorm2d(dim, device=device)]
             cin = dim
         self.conv = nn.Sequential(*convs)
+        if feat_comb == "post":
+            cin *= 2
         fcs = []
         for dim in fc_dims:
             fcs += [nn.Linear(cin, dim, device=device),
@@ -133,6 +147,11 @@ class FeatRegressNet(nn.Module):
             cin = dim
         fcs.append(nn.Linear(cin, out_dim, device=device))
         self.fc = nn.Sequential(*fcs)
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                lecun_normal_(m.weight)
+            if isinstance(m, nn.Linear):
+                nn.init.zeros_(m.bias)
 
     def forward(self, f1, f2=None, slice_map=None, stats=None):
         """``f1``/``f2``: each a hypercolumn tensor or a sequence of
@@ -150,15 +169,44 @@ class FeatRegressNet(nn.Module):
         stats.append((bn, mean.detach(), var.detach()))
         return bn_affine(bn, mean, var)
 
+    def _split_sides(self, xs, slice_map):
+        """The fused-gather layout -> each side's (tensors, slice map),
+        kernel-channel offsets relative to that side's ``feat_dim``
+        channels. A channel-paired output holds side 1's channels then
+        side 2's."""
+        d = self.feat_dim
+        sides = (([], []), ([], []))
+        for x, sl in zip(xs, slice_map):
+            if len(sl) == 2:
+                c = sl[0][1]
+                parts = ((x[..., :c], sl[0]), (x[..., c:], sl[1]))
+            else:
+                parts = ((x, sl[0]),)
+            for part, (off, size) in parts:
+                side = 0 if off < d else 1
+                sides[side][0].append(part)
+                sides[side][1].append(((off - side * d, size),))
+        return sides
+
     def pooled(self, f1, f2=None, slice_map=None, stats=None):
         """The conv layers, their BatchNorms and the global max-pool:
         (M, F) features in the compute dtype (arguments as
         :meth:`forward`)."""
+        if self.feat_comb == "pre":
+            if f2 is None:
+                return self._conv_stack(_as_tuple(f1), list(slice_map), stats)
+            return self._conv_stack(_as_tuple(f1) + _as_tuple(f2), None, stats)
+        if f2 is None:
+            (x1, m1), (x2, m2) = self._split_sides(_as_tuple(f1), slice_map)
+        else:
+            (x1, m1), (x2, m2) = (_as_tuple(f1), None), (_as_tuple(f2), None)
+        return torch.cat([self._conv_stack(x1, m1, stats),
+                          self._conv_stack(x2, m2, stats)], dim=-1)
+
+    def _conv_stack(self, xs, slice_map, stats):
         dtype = self.dtype
         convs = list(self.conv)
-        xs = _as_tuple(f1) if f2 is None else _as_tuple(f1) + _as_tuple(f2)
-        y = segmented_conv(xs, convs[0].weight, self.conv_strs[0], dtype,
-                           None if f2 is not None else list(slice_map))
+        y = segmented_conv(xs, convs[0].weight, self.conv_strs[0], dtype, slice_map)
         affine = self._affine(convs[1], y, stats)
         for li in range(1, len(convs) // 2):
             y = scaled_kernel_conv(y, convs[2 * li].weight, self.conv_strs[li],

@@ -295,6 +295,8 @@ def head_args(net, rows1, rows2, y1, x1, y2, x2, psize: int):
     :func:`fused_fine_head`'s layout. rows*: all pyramid levels'
     superblock rows in ``net.dtype``. Returns fused_fine_head's
     arguments."""
+    if net.feat_comb != "pre":
+        raise ValueError(f"the fused fine head takes feat_comb 'pre', not {net.feat_comb!r}")
     dtype = net.dtype
     conv0, bn0, conv1, bn1 = list(net.conv)
     kernel0 = conv0.weight.permute(2, 3, 1, 0)  # (3, 3, 2D, F)

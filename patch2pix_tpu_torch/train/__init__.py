@@ -1,6 +1,13 @@
-"""patch2pix_tpu_torch.train: the single-device training step and NCN
-pretraining."""
+"""patch2pix_tpu_torch.train: the single-device training step, NCN
+pretraining, checkpoints (``checkpoint.py``) and the training entry
+point (``python -m patch2pix_tpu_torch.train.cli``)."""
 
+from patch2pix_tpu_torch.train.checkpoint import (
+    load_ckpt,
+    read_meta,
+    restore_for_eval,
+    save_ckpt,
+)
 from patch2pix_tpu_torch.train.losses import patch2pix_losses
 from patch2pix_tpu_torch.train.ncn_pretrain import make_ncn_pretrain_step, ncn_weak_loss
 from patch2pix_tpu_torch.train.state import (
@@ -12,6 +19,10 @@ from patch2pix_tpu_torch.train.state import (
 from patch2pix_tpu_torch.train.step import make_train_step
 
 __all__ = [
+    "load_ckpt",
+    "read_meta",
+    "restore_for_eval",
+    "save_ckpt",
     "patch2pix_losses",
     "make_ncn_pretrain_step",
     "ncn_weak_loss",

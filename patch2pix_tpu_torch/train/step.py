@@ -49,10 +49,10 @@ def make_train_step(
     The step updates ``model`` (its parameters and its regressors'
     running averages) and ``optimizer`` in place; ``state`` must hold
     them, and the returned state carries the next step count. Metrics
-    are 0-d tensors on the device, not synchronised."""
-    if backbone_train_bn:
-        raise NotImplementedError("backbone_train_bn: batch-statistics BatchNorm in the "
-                                  "backbone is not ported")
+    are 0-d tensors on the device, not synchronised.
+    ``backbone_train_bn``: the backbone's BatchNorms run on batch
+    statistics and their running averages move (its weights stay as
+    ``optimizer`` leaves them)."""
 
     def train_step(state: TrainState, batch, generator=None,
                    rand=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -61,7 +61,8 @@ def make_train_step(
         mode = resolve_remat(remat, batch["im1"].shape[0], ptmax,
                              model.config.regressor.panc)
         outputs = model(batch["im1"], batch["im2"], ksize=ksize, ptmax=ptmax, train=True,
-                        remat=mode, generator=generator, rand=rand)
+                        backbone_train_bn=backbone_train_bn, remat=mode,
+                        generator=generator, rand=rand)
         loss, metrics = patch2pix_losses(outputs, batch["F"], cls_dthres=cls_dthres,
                                          epi_dthres=epi_dthres, weight_cls=weight_cls,
                                          weight_epi=weight_epi)

@@ -17,7 +17,9 @@ The JAX tree has no ``layer4`` (never run) and no
 ``num_batches_tracked``; :func:`load_jax_variables` leaves those keys
 at their initial values. The regressors' ``BNAffine`` ``convbn{i}``
 running ``mean``/``var`` map onto the ``conv.{2i+1}`` BatchNorm
-buffers. A JAX ``TrainState`` (its ``params`` and ``batch_stats``; the
+buffers, for either ``feat_comb`` (a ``post`` conv0 kernel has
+``feat_dim`` input channels, a ``pre`` one twice that). A JAX
+``TrainState`` (its ``params`` and ``batch_stats``; the
 optimizer state is not carried) loads with :func:`load_jax_train_state`.
 """
 
@@ -115,6 +117,14 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         if name in params:
             _regressor(out, name, params, stats)
     return _to_torch(out)
+
+
+def regressor_state_dict_from_jax(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """One JAX ``FeatRegressNet``'s ``params`` and ``batch_stats`` (either
+    ``feat_comb``) -> the state dict of the port's ``FeatRegressNet``."""
+    out: Dict[str, np.ndarray] = {}
+    _regressor(out, "r", {"r": params}, {"r": stats})
+    return _to_torch({k[2:]: v for k, v in out.items()})
 
 
 def ncn_state_dict_from_jax(ncn_params: Mapping) -> Dict[str, torch.Tensor]:

@@ -33,6 +33,8 @@ gradients and an odd M for B3. B5 and B7, which have no backward,
 refuse inputs that require grad while grad mode is on. The whole
 pipeline on the card (f32, TF32 off), and one training step, are held
 against the same model on the CPU, which runs the plain versions.
+``prefetch_to_device`` delivers the host batch on the consumer's stream,
+and a bf16 train step with ``backbone_train_bn`` launches B1-B3.
 """
 
 import json
@@ -570,3 +572,53 @@ def test_pipeline_on_card_matches_cpu(cuda, change_stride):
     for g, w in ((mid, wmid), (fine, wfine)):
         torch.testing.assert_close(g[0][valid], w.coords[valid], rtol=0, atol=1e-3)
         torch.testing.assert_close(g[1][valid], w.scores[valid], rtol=0, atol=1e-4)
+
+
+def test_prefetch_on_card_delivers_the_host_batch(cuda):
+    """``prefetch_to_device`` on the card, consumed on a stream of the
+    test's own: each tensor equals the host array it was staged from,
+    lies on the card, and reads correctly on the consumer's stream
+    (which waited on the side stream's copies)."""
+    from patch2pix_tpu_torch.data.prefetch import prefetch_to_device
+
+    rs = _rs(8)
+    batches = [{"im1": rs.standard_normal((4, 320, 480, 3)).astype(np.float32),
+                "F": rs.standard_normal((4, 3, 3)).astype(np.float32)} for _ in range(5)]
+    consumer = torch.cuda.Stream()
+    with torch.cuda.stream(consumer):
+        got = []
+        for b in prefetch_to_device(iter(batches), size=2, device=cuda):
+            assert all(t.device.type == "cuda" for t in b.values())
+            # work on the consumer's stream, read back after it finishes
+            got.append({k: (t * 1.0).cpu() for k, t in b.items()})
+    assert len(got) == 5
+    for g, want in zip(got, batches):
+        for k in want:
+            assert torch.equal(g[k], torch.from_numpy(want[k])), k
+
+
+def test_train_step_with_backbone_train_bn_launches_b1_to_b3(cuda):
+    """One bf16 train step with ``backbone_train_bn`` (change_stride,
+    128x192, batch 2, seeded weights, 64-wide regressors): B1, B2 and B3
+    launch, the backbone's running averages move and its weights do
+    not, the losses are finite."""
+    reg = RegressorConfig(conv_dims=(64, 64), fc_dims=(64, 32))
+    model = Patch2Pix(ModelConfig(change_stride=True, regressor=reg, dtype="bfloat16")
+                      .resolved(), device=cuda)
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()}, seed=0)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, OptimConfig(lr_init=5e-4))
+    step = make_train_step(model, state.optimizer, ksize=2, ptmax=32, backbone_train_bn=True)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in synthetic_batch(_rs(9), 2, 128, 192).items()}
+    counts = (tap_sum.launches, corr_pool.launches, expand_scale_pair.launches)
+    state, met = step(state, batch, generator=torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(
+        (tap_sum.launches, corr_pool.launches, expand_scale_pair.launches), counts)]
+    assert launched == [2, 1, 2], launched
+    assert all(torch.isfinite(v) for v in met.values())
+    for k, v in model.state_dict().items():
+        if k.startswith("extract.") and ".layer4." not in k and "num_batches" not in k:
+            assert torch.equal(v, before[k]) != ("running" in k), k

@@ -36,6 +36,7 @@ from patch2pix_tpu_torch.ops.conv4d_small import (
     staging_mode,
 )
 from patch2pix_tpu_torch.utils.jax_import import ncn_state_dict_from_jax
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 # the package re-exports a function named conv4d over the module
 jconv = importlib.import_module("patch2pix_tpu.ops.conv4d")

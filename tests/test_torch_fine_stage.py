@@ -37,6 +37,7 @@ from patch2pix_tpu_torch.ops.fine_stage import (
     segment_weights,
 )
 from patch2pix_tpu_torch.ops.patch_expand import expand_scale_pair_plain, output_slice_map
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 LEVELS = ((16, 3), (8, 64), (4, 64), (2, 128))
 CS = tuple(c for _, c in LEVELS)

@@ -53,6 +53,7 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     window_side,
 )
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_plain
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 PSIZE = 16
 LEVELS = ((16, 3), (8, 64), (4, 64), (2, 128))  # (t, C) at feat_idx (0,1,2,3)

@@ -21,6 +21,7 @@ from patch2pix_tpu_torch.ops import conv4d as tconv
 from patch2pix_tpu_torch.ops import correlation as tcorr
 from patch2pix_tpu_torch.ops import match_extract as tme
 from patch2pix_tpu_torch.ops import patch_gather as tpg
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 # the package re-exports a function named conv4d over the module
 jconv = importlib.import_module("patch2pix_tpu.ops.conv4d")

@@ -28,6 +28,7 @@ from patch2pix_tpu_torch.config import ModelConfig, resolve_device
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.utils.jax_import import load_jax_variables, state_dict_from_jax
 from tests.ref_loader import seeded_state_dict
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "patch2pix_tpu"}

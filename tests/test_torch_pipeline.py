@@ -30,6 +30,7 @@ from patch2pix_tpu_torch.evaluation.matcher import Matcher, load_model
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from tests.ref_loader import seeded_state_dict
 from tests.test_pipeline_e2e_parity import assert_match_parity, seeded_images
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -218,3 +219,18 @@ def test_load_model_from_reference_checkpoint(seeded_sd, tmp_path):
     got = model.state_dict()
     for k, v in seeded_sd.items():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(v))
+
+
+def test_model_config_gather_is_auto_only():
+    """The JAX ``ModelConfig.gather`` key: the port's ``to_json`` writes it
+    as ``"auto"`` (so a checkpoint's meta equals JAX's), reads ``"auto"``
+    back, and refuses ``"block"``, a route the port does not have."""
+    from patch2pix_tpu.config import to_json as jax_to_json
+    from patch2pix_tpu_torch.config import from_dict, model_config_from_json, to_json
+
+    got = json.loads(to_json(ModelConfig(change_stride=True).resolved()))
+    assert got == json.loads(jax_to_json(JaxModelConfig(change_stride=True).resolved()))
+    assert got["gather"] == "auto"
+    assert model_config_from_json(json.dumps(got)).change_stride
+    with pytest.raises(ValueError, match="gather='block'"):
+        from_dict(ModelConfig, dict(got, gather="block"))

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from patch2pix_tpu.ops.patch_expand_pallas import _xla_expand_side
 from patch2pix_tpu_torch.ops.patch_expand import expand_level, expand_level_plain, level_plan
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOOLS = os.path.join(os.path.dirname(__file__), "..", "tools")
 PSIZE = 16

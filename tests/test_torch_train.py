@@ -15,7 +15,8 @@ JAX ``make_train_step`` under jit. Tolerances:
   * the regressors' running averages after the step: rtol 1e-4;
   * frozen parameters (backbone, NCN): unchanged, bit for bit.
 
-Also: every ``remat`` mode gives the ``none`` step; one NCN
+Also: ``backbone_train_bn`` against JAX's per-side batch-statistics
+backbone; every ``remat`` mode gives the ``none`` step; one NCN
 pretraining step at ksize 1 and 2 against JAX's (loss and scores rtol
 1e-4, NCN gradients within 1e-3 of the largest of them, parameters as
 above); ``freeze=()`` reaches B3's backward in
@@ -45,6 +46,7 @@ from patch2pix_tpu.utils.torch_import import convert_patch2pix_state_dict
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
 from patch2pix_tpu_torch.data.synthetic import synthetic_batch
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
+from patch2pix_tpu_torch.models.regressor import update_running_stats
 from patch2pix_tpu_torch.ops.corr_pool import corr_pool_backward
 from patch2pix_tpu_torch.ops.patch_expand import expand_scale_pair_backward
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum_backward
@@ -55,6 +57,7 @@ from patch2pix_tpu_torch.utils.jax_import import (
     state_dict_from_jax,
 )
 from tests.ref_loader import seeded_state_dict
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 H, W, BATCH, PTMAX = 64, 96, 2, 8
 REG = dict(conv_dims=(64, 64), fc_dims=(64, 32))
@@ -221,13 +224,50 @@ def test_train_step_without_freezing_reaches_b3_backward():
     assert all(p.grad is None for p in port.ncn.parameters())
 
 
-def test_backbone_train_bn_is_not_ported():
-    port, _, _ = _models(False)
-    state = create_train_state(port, OptimConfig())
-    with pytest.raises(NotImplementedError):
-        make_train_step(port, state.optimizer, backbone_train_bn=True)
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, H, W, 3), torch.zeros(1, H, W, 3), backbone_train_bn=True)
+def test_backbone_train_bn_matches_jax():
+    """``backbone_train_bn``: one backbone call per side on batch
+    statistics, against JAX ``extract_pyramid_pair(train=True,
+    stack=False)`` (what ``backbone_train_bn=True`` runs) under
+    ``mutable=["batch_stats"]``, f32: every pyramid level within 1e-4 of
+    its scale, every backbone running average (both sides' updates, in
+    order) within rtol 1e-4, atol 1e-5. Then a train step with the flag
+    moves the backbone's running averages and leaves its weights alone."""
+    port, jm, variables = _models(True)
+    nb, tb = _batch(2)
+    pair = jax.jit(lambda v, a, b: jm.apply(
+        v, a, b, method=lambda m, x, y: m.extract_pyramid_pair(x, y, train=True, stack=False),
+        mutable=["batch_stats"]))
+    (jf1, jf2), upd = pair(variables, jnp.asarray(nb["im1"]), jnp.asarray(nb["im2"]))
+    load_jax_variables(port, variables)
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    stats = []
+    with torch.no_grad():
+        f1, f2 = port.extract_pyramid_pair(tb["im1"], tb["im2"], stats)
+    for got, want in zip(f1 + f2, jf1 + jf2):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+    assert len(stats) == 2 * 29  # the stem and 28 convs to layer3, per side
+    update_running_stats(stats)
+    moved = _tree_sd(variables["params"], upd["batch_stats"])
+    n = 0
+    for k, v in port.state_dict().items():
+        if k.startswith("extract.") and "running" in k and ".layer4." not in k:
+            np.testing.assert_allclose(v.numpy(), moved[k].numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+            n += 1
+    assert n == 2 * 29
+
+    load_jax_variables(port, variables)
+    state = create_train_state(port, OptimConfig(lr_init=LR))
+    step = make_train_step(port, state.optimizer, ksize=2, ptmax=PTMAX,
+                           backbone_train_bn=True)
+    state, met = step(state, tb, generator=torch.Generator().manual_seed(0))
+    assert all(torch.isfinite(v) for v in met.values())
+    sd = port.state_dict()
+    for k, v in sd.items():
+        if not k.startswith("extract.") or ".layer4." in k or "num_batches" in k:
+            continue
+        assert torch.equal(v, before[k]) != ("running" in k), k
 
 
 @pytest.mark.parametrize("ksize", [1, 2])
@@ -298,3 +338,25 @@ def test_synthetic_pairs_equal_the_jax_packages():
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_fresh_model_pretrains_its_ncn():
+    """A model built with no state dict loaded: its NCN (xavier-uniform
+    kernels, as JAX's ``model.init`` draws them) gives a gradient, and one
+    NCN pretraining step at ksize 2 moves every NCN parameter and nothing
+    else."""
+    torch.manual_seed(1)
+    port = Patch2Pix(ModelConfig(change_stride=True, regressor=RegressorConfig(**REG)).resolved(),
+                     device="cpu")
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    rs = np.random.RandomState(7)
+    batch = {k: torch.from_numpy(rs.standard_normal((1, 64, 64, 3)).astype(np.float32))
+             for k in ("im_src", "im_pos", "im_neg")}
+    step, init = make_ncn_pretrain_step(port, lr=5e-4, ksize=2)
+    met = step(init(), batch)
+    assert all(torch.isfinite(v) for v in met.values())
+    for k, p in port.named_parameters():
+        if k.startswith("ncn."):
+            assert float(p.grad.abs().max()) > 0, k
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, before[k]) != k.startswith("ncn."), k

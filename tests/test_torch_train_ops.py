@@ -61,6 +61,7 @@ from patch2pix_tpu_torch.ops.patch_expand import (
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_backward, tap_sum_plain
 from patch2pix_tpu_torch.train.losses import patch2pix_losses
 from patch2pix_tpu_torch.train.state import lr_schedule, make_optimizer
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 jconv = importlib.import_module("patch2pix_tpu.ops.conv4d")
 
