@@ -10,7 +10,9 @@ Phases, each fatal on failure:
   2. for each kernel (B1 tap_sum, B2 corr_pool, B3 expand_scale_pair, B4
      conv4d_small, B5 fused_fine_head, B7 expand_level), at the shapes of
      its path (change_stride, 1024x768, B=2: the NCN volume, M = 2400
-     proposals, F = 512; B2 also at upsample 16), in bf16 and in float32:
+     proposals, F = 512; B2 also at upsample 16 and at the ResNet101
+     change_stride layer3, (2, 96, 128, 1024), which bf16 runs through the
+     kernel's streamed instance), in bf16 and in float32:
      hold the kernel against its plain PyTorch version on the card, time
      kernel, plain version and library yardstick, and compute the bound
      from the bytes and operations this run's inputs need (B3, B4, B5 and
@@ -88,11 +90,24 @@ Phases, each fatal on failure:
      split into each epoch's first-batch wait, device ms per step and
      metrics flush; the peak memory, the checkpoint's bytes and its save
      and restore ms;
-  11. one JSON line of per-kernel numbers, then the result line.
+  11. the NCNet family's ImMatchNet at the reference default (VGG16 to
+     pool4, NCN (3, 3, 3)/(10, 10, 1), symmetric), seeded weights and
+     images, 1024x768, B = 1, bf16: forward + ``corr_to_matches`` timed
+     (latency, pairs/s, peak memory, the profiler's table and busy share),
+     B1 twice a call and its first call held as in phase 2; relocalisation
+     k = 2 (``maxpool4d``, both extractions, grids in the pre-pool grid);
+     then float32 against ``tests/fixtures/immatch_golden_vgg_1024.npz``;
+  12. the NCNet-only coarse matcher with ResNet101 (``Patch2Pix``,
+     change_stride, no regressor), ``predict_coarse`` at 1024x768, B = 2,
+     ksize 2, bf16: B2 on 1024 bf16 channels once and B1 twice a call,
+     each first call held as in phase 2, timed, its match set held to the
+     same model's float32 run;
+  13. one JSON line of per-kernel numbers (B1's and B2's launches summed
+     over phases 4, 11 and 12), then the result line.
 
 Each path's launches are counted from zero just before it runs: phase 4
 for B1-B3, phase 5 for B4, phase 6 for B5 and B7, phase 10 for B1-B3
-under the CLI.
+under the CLI, phases 11 and 12 for B1 and B2.
 
 Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 """
@@ -119,6 +134,7 @@ from patch2pix_tpu_torch.evaluation.matcher import (
     init_patch2pix_matcher,
 )
 from patch2pix_tpu_torch.models import patch2pix as patch2pix_module
+from patch2pix_tpu_torch.models.immatch_net import ImMatchNet
 from patch2pix_tpu_torch.models.ncn import NeighConsensus
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix, shift_to_anchors
 from patch2pix_tpu_torch.models.regressor import FeatRegressNet
@@ -140,7 +156,7 @@ from patch2pix_tpu_torch.ops.corr_pool import (
     corr_pool_backward,
     corr_pool_plain,
 )
-from patch2pix_tpu_torch.ops.correlation import l2_normalize
+from patch2pix_tpu_torch.ops.correlation import feat_correlation, l2_normalize
 from patch2pix_tpu_torch.ops.fine_stage import _SIGNATURES as FINE_HEAD_SIGNATURES
 from patch2pix_tpu_torch.ops.fine_stage import (
     fused_fine_head,
@@ -150,6 +166,7 @@ from patch2pix_tpu_torch.ops.fine_stage import (
     head_prolog,
     segment_weights,
 )
+from patch2pix_tpu_torch.ops.match_extract import corr_to_matches, corr_to_matches_topk
 from patch2pix_tpu_torch.ops.patch_expand import _SIGNATURES as EXPAND_SIGNATURES
 from patch2pix_tpu_torch.ops.patch_expand import (
     _window_indices,
@@ -174,6 +191,7 @@ from patch2pix_tpu_torch.train import create_train_state, make_ncn_pretrain_step
 from patch2pix_tpu_torch.train.checkpoint import load_ckpt, read_meta, save_ckpt
 from patch2pix_tpu_torch.train.step import resolve_remat
 from patch2pix_tpu_torch.utils import logging as logging_module
+from patch2pix_tpu_torch.utils.torch_import import load_ncnet_checkpoint
 from tests.ref_loader import seeded_state_dict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -341,9 +359,9 @@ def corr_pool_library(f1, f2):
     return (lambda: bmm_amax(f1, f2, torch.float32)), "bmm (f32 out) + amax"
 
 
-def corr_pool_inputs(dtype, gen, dev, h, w):
-    """B2's arguments: 2x (BATCH, h, w, 256) unit-norm features."""
-    return tuple(l2_normalize(torch.randn((BATCH, h, w, 256), generator=gen,
+def corr_pool_inputs(dtype, gen, dev, h, w, c=256):
+    """B2's arguments: 2x (BATCH, h, w, c) unit-norm features."""
+    return tuple(l2_normalize(torch.randn((BATCH, h, w, c), generator=gen,
                                           device=dev)).to(dtype) for _ in range(2))
 
 
@@ -359,12 +377,11 @@ def hold_corr_pool(tag, f1, f2):
     return got, err
 
 
-def corr_pool_case(dtype, gen, dev, h, w):
-    """B2 on 2x (BATCH, h, w, 256) unit-norm features (layer3): held
+def corr_pool_case(dtype, gen, dev, h, w, c=256):
+    """B2 on 2x (BATCH, h, w, c) unit-norm features (layer3): held
     against the plain version (max abs err <= 1e-4), timed beside it and
     the library yardstick."""
-    c = 256
-    f1, f2 = corr_pool_inputs(dtype, gen, dev, h, w)
+    f1, f2 = corr_pool_inputs(dtype, gen, dev, h, w, c)
     got, err = hold_corr_pool(f"corr_pool {dtype} {tuple(f1.shape)}", f1, f2)
     ms = time_ms(lambda: corr_pool(f1, f2))
     plain_ms = time_ms(lambda: corr_pool_plain(f1, f2), iters=5)
@@ -384,12 +401,17 @@ def corr_pool_case(dtype, gen, dev, h, w):
 
 def check_corr_pool(dtype, gen, dev):
     """B2 at the cs main-path shape, layer3 (B, 96, 128, 256); first the
-    upsample-16 shape (B, 48, 64, 256), which runs it too, is checked and
-    its numbers logged."""
-    u = corr_pool_case(dtype, gen, dev, H // 16, W // 16)
-    log(f"kernel corr_pool [{str(dtype)[6:]}] upsample 16, {u['shape']}: max_abs_err "
-        f"{u['max_abs_err']:.3g} ms {u['ms']:.4f} plain_ms {u['plain_ms']:.4f} library_ms "
-        f"{u['library_ms']:.4f} bound_ms {u['bound_ms']:.4f} ({u['bound_by']})")
+    upsample-16 shape (B, 48, 64, 256), which runs it too, and the
+    ResNet101 change_stride layer3 (B, 96, 128, 1024) of phase 12's path
+    (bf16 through the streamed instance) are checked and their numbers
+    logged."""
+    for tag, h, w, c in (("upsample 16", H // 16, W // 16, 256),
+                         ("ResNet101 change_stride", H // 8, W // 8, 1024)):
+        u = corr_pool_case(dtype, gen, dev, h, w, c)
+        log(f"kernel corr_pool [{str(dtype)[6:]}] {tag}, {u['shape']}: max_abs_err "
+            f"{u['max_abs_err']:.3g} ms {u['ms']:.4f} plain_ms {u['plain_ms']:.4f} library_ms "
+            f"{u['library_ms']:.4f} bound_ms {u['bound_ms']:.4f} ({u['bound_by']})")
+        torch.cuda.empty_cache()
     return corr_pool_case(dtype, gen, dev, H // 8, W // 8)
 
 
@@ -1696,6 +1718,238 @@ def cli_path(dev, sd, train_ms):
     return launches
 
 
+# ------------------------------------------------------------ phase 11/12
+
+IMMATCH_GOLDEN = os.path.join(FIXDIR, "immatch_golden_vgg_1024.npz")
+TIE_REL = 1e-4  # a golden row may differ where its top-2 margin is below this x max |volume|
+
+
+def in_grid(grid, h, w):
+    """Grid rows (x, y, x, y) inside an h x w feature grid."""
+    lims = torch.tensor([w, h, w, h], device=grid.device)
+    return bool(((grid >= 0) & (grid < lims)).all())
+
+
+def outside_inference(captured):
+    """Captured calls of an inference-mode run with every tensor cloned
+    outside it, so the backward checks can take their gradients."""
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        return type(a)(x.clone() for x in a) if isinstance(a, (list, tuple)) else a
+    return {k: [tuple(clone(a) for a in args) for args in calls] for k, calls in captured.items()}
+
+
+def immatch_model(meta, sd, dtype, dev, reloc=0):
+    model = ImMatchNet(meta["feature_extraction_cnn"], ncons_kernel_sizes=meta["ncons_kernel_sizes"],
+                       ncons_channels=meta["ncons_channels"], relocalization_k_size=reloc,
+                       dtype=dtype, device=dev)
+    load_ncnet_checkpoint(model, sd)
+    return model
+
+
+def immatch_path(dev):
+    """Phase 11: ImMatchNet, the reference's default (VGG16 to pool4, NCN
+    (3, 3, 3)/(10, 10, 1) symmetric, normalised features), seeded weights
+    (the golden's ``meta``) and images, 1024x768, B = 1. bf16: forward +
+    ``corr_to_matches`` (mutual) timed, B1's launches per call (2) and
+    its first call held against its plain version, the profiler's table;
+    relocalisation k = 2 (``maxpool4d``, ``corr_to_matches`` with the
+    offsets, equal to the pre-pool volume's relocation, and
+    ``corr_to_matches_topk(topk=2)``, grids inside the pre-pool grid).
+    float32: ``immatch_golden_vgg_1024.npz``, grids identical but at rows
+    whose top-2 margin is below ``TIE_REL`` of max |volume| (a score
+    tie), scores within 5e-3."""
+    g = np.load(IMMATCH_GOLDEN, allow_pickle=True)
+    meta = json.loads(str(g["meta"]))
+    sd = seeded_state_dict({k: tuple(v) for k, v in meta["shapes"].items()}, seed=meta["seed"])
+    h, w, b = meta["h"], meta["w"], meta["batch"]
+    ima, imb = (torch.from_numpy(seeded_images(b, h, w, s)).to(dev) for s in meta["im_seeds"])
+    h1, w1 = h // 16, w // 16
+    model = immatch_model(meta, sd, torch.bfloat16, dev)
+
+    @torch.inference_mode()
+    def call():
+        corr, _ = model(ima, imb)
+        return corr_to_matches(corr)
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    reset_counts()
+    with capture_inputs(((conv4d_module, "tap_sum"),), keep=1) as captured:
+        grid, scores, mutual = call()
+        torch.cuda.synchronize()
+    launches = counts()
+    expect = {**{k: 0 for k in launches}, "tap_sum": 2}
+    if launches != expect:
+        fail(f"immatch: launches per call {launches}, expected {expect}")
+    n = 2 * h1 * w1
+    if (grid.shape != (b, n, 4) or not in_grid(grid, h1, w1) or not torch.isfinite(scores).all()
+            or (scores < 0).any() or (scores > 1).any()):
+        fail(f"immatch: grid {tuple(grid.shape)} or scores outside their range")
+    hold_path_calls("immatch", outside_inference(captured),
+                    torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    pairs_s = b * 10 / (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"immatch [VGG16 pool4, NCN (3, 3, 3)/(10, 10, 1), {w}x{h} bf16 B={b}]: forward + "
+        f"corr_to_matches latency median {np.median(times):.2f} ms/call of 10 (min "
+        f"{min(times):.2f}, max {max(times):.2f}); {pairs_s:.2f} pairs/s over 10 calls back to "
+        f"back; peak device memory {peak_gb:.2f} GB; launches per call {launches}; "
+        f"{int(mutual.sum())} mutual rows")
+    profile_main_path("immatch bf16", call)
+
+    # relocalisation k = 2
+    model.relocalization_k_size = 2
+    with torch.inference_mode():
+        corr, delta = model(ima, imb)
+        pre = feat_correlation(model.features(ima), model.features(imb))
+        grid2, scores2, _ = corr_to_matches(corr, delta, ksize=2)
+        grid_pre, _, _ = corr_to_matches(corr, pre, ksize=2)
+        gk, sk = corr_to_matches_topk(corr, delta, topk=2, ksize=2)
+        reloc_ms = time_ms(lambda: model(ima, imb), iters=5)
+    nb2 = (h1 // 2) * (w1 // 2)
+    anchors = torch.arange(nb2, device=dev)
+    inside = (in_grid(grid2, h1, w1) and in_grid(gk, h1, w1)
+              and torch.equal(grid2[0, :nb2, 3] // 2, anchors // (w1 // 2))
+              and torch.equal(grid2[0, :nb2, 2] // 2, anchors % (w1 // 2)))
+    if (corr.shape != (b, h1 // 2, w1 // 2, h1 // 2, w1 // 2) or not inside
+            or not torch.equal(grid2, grid_pre) or gk.shape != (b, 2 * nb2, 4)
+            or not torch.isfinite(sk).all()):
+        fail("immatch relocalisation: grids outside the pre-pool grid, off their pooled "
+             "cell, or unequal to the pre-pool volume's relocation")
+    log(f"immatch relocalisation k=2: pooled volume {tuple(corr.shape)}; corr_to_matches with "
+        f"the offsets equal to the pre-pool volume's relocation, rows inside their pooled "
+        f"cells; topk=2 grid {tuple(gk.shape)}; forward {reloc_ms:.2f} ms/call")
+    del model, corr, delta, pre
+    torch.cuda.empty_cache()
+
+    # float32 golden
+    model = immatch_model(meta, sd, torch.float32, dev)
+    before = tap_sum.launches
+    with torch.inference_mode():
+        corr, _ = model(ima, imb)
+        grid, scores, mutual = (t.cpu().numpy() for t in corr_to_matches(corr))
+    if tap_sum.launches - before != 2:
+        fail("immatch golden: B1 did not launch twice")
+    diff = (grid != g["grid"]).any(axis=-1)
+    ties = g["margin"] <= TIE_REL * meta["corr_max"]
+    if (diff & ~ties).any():
+        fail(f"immatch golden: {int((diff & ~ties).sum())} rows differ away from score ties")
+    serr = float(np.abs(scores - g["scores"])[~diff].max())
+    if not serr <= 5e-3:
+        fail(f"immatch golden: scores err {serr} > 5e-3")
+    mut_diff = int((mutual != g["mutual"]).sum())
+    if mut_diff and not diff.any():
+        fail(f"immatch golden: {mut_diff} mutual flags differ with every grid row equal")
+    log(f"golden immatch_vgg_1024 [{w}x{h} f32]: {int(diff.sum())} of {diff.size} rows differ "
+        f"(all at score ties: {int(ties.sum())} rows have a top-2 margin below "
+        f"{TIE_REL * meta['corr_max']:.3g}); scores max err {serr:.3g} (rel "
+        f"{float((np.abs(scores - g['scores']) / g['scores'])[~diff].max()):.3g}); "
+        f"{mut_diff} mutual flags differ")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet101_coarse_path(dev):
+    """Phase 12: the NCNet-only coarse matcher with ResNet101,
+    ``Patch2Pix(backbone="ResNet101", change_stride=True, regressor=None)``,
+    ``predict_coarse`` at 1024x768, B = 2, ksize 2, mutual, seeded
+    weights and images: bf16 launches B2 at C = 1024 once and B1 twice a
+    call (each first call held as in phase 2), timed; then the same
+    model in float32. Rules: phase 4's output checks (shapes, finite
+    values, matches inside the images, scores in [0, 1]); then the same
+    bf16 features through both models' coarse stages (B2 + NCN, bf16
+    against f32): the volumes differ by at most ``eps`` <= 2^-4 of max
+    |volume| (the bf16 NCN stores its 16-channel volume and its fold-out
+    taps in bf16), and every direction-1 row whose f32 top-2 margin
+    exceeds 2 ``eps`` picks the same cell in bf16. The end-to-end match
+    sets (the backbone in bf16 too) are compared and printed: with
+    seeded weights on noise images most rows' top-2 margins lie far
+    below bf16's rounding, so they may pick another cell."""
+    cfg = dict(backbone="ResNet101", change_stride=True, regressor=None)
+    models = {dt: Patch2Pix(ModelConfig(**cfg, dtype=dt).resolved(), device=dev)
+              for dt in ("bfloat16", "float32")}
+    shapes = {k: tuple(v.shape) for k, v in models["float32"].state_dict().items()}
+    sd = {k: torch.from_numpy(v) for k, v in seeded_state_dict(shapes, seed=0).items()}
+    for model in models.values():
+        model.load_state_dict(sd)
+    ima, imb = (torch.from_numpy(seeded_images(BATCH, H, W, s)).to(dev) for s in (31, 32))
+    model = models["bfloat16"]
+
+    def call():
+        return model.predict_coarse(ima, imb, ksize=2, mutual=True)
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    reset_counts()
+    sites = ((conv4d_module, "tap_sum"), (patch2pix_module, "corr_pool"))
+    with capture_inputs(sites, keep=1) as captured:
+        cm = call()
+        torch.cuda.synchronize()
+    launches = counts()
+    expect = {**{k: 0 for k in launches}, "tap_sum": 2, "corr_pool": 1}
+    f1 = captured["corr_pool"][0][0]
+    if launches != expect or f1.shape[-1] != 1024 or f1.dtype != torch.bfloat16:
+        fail(f"resnet101 coarse: launches {launches} (expected {expect}), B2 on "
+             f"{tuple(f1.shape)} {f1.dtype} (expected 1024 bf16 channels)")
+    check_outputs("resnet101 coarse", cm, cm, cm, BATCH, H, W)
+    hold_path_calls("resnet101 coarse", outside_inference(captured),
+                    torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        fa, fb = model.extract(ima), model.extract(imb)
+        c16, _ = model.coarse_corr(fa, fb, 2)
+        c32, _ = models["float32"].coarse_corr(fa.float(), fb.float(), 2)
+        eps = float((c16 - c32).abs().max())
+        scale = float(c32.abs().max())
+        nb = c32.shape[3] * c32.shape[4]
+        top = c32.reshape(BATCH, -1, nb).topk(2, dim=1)
+        decided = (top.values[:, 0] - top.values[:, 1]) > 2 * eps
+        same = top.indices[:, 0] == c16.reshape(BATCH, -1, nb).argmax(dim=1)
+    if not eps <= 2 ** -4 * scale or not bool(same[decided].all()):
+        fail(f"resnet101 coarse: bf16 volume off by {eps} (max |volume| {scale}), or "
+             f"{int((decided & ~same).sum())} rows decided in f32 by more than 2 eps differ")
+    cm32 = models["float32"].predict_coarse(ima, imb, ksize=2, mutual=True)
+    agree = []
+    for i in range(BATCH):
+        want = {row_key(r) for r in cm32.coords[i][cm32.valid[i]].cpu().numpy()}
+        got = {row_key(r) for r in cm.coords[i][cm.valid[i]].cpu().numpy()}
+        agree.append((len(want & got), len(want), len(got)))
+    log(f"resnet101 coarse [change_stride {W}x{H} bf16 B={BATCH} ksize 2, mutual]: latency "
+        f"median {np.median(times):.2f} ms/call of 10 (min {min(times):.2f}, max "
+        f"{max(times):.2f}); peak device memory {peak_gb:.2f} GB; launches per call "
+        f"{launches} (B2 on {tuple(f1.shape)} bf16); the coarse stage on the same bf16 "
+        f"features, bf16 against f32: max volume err {eps:.4g} ({eps / scale:.4g} of max "
+        f"|volume|), {int(decided.sum())} of {decided.numel()} rows decided by more than "
+        f"2 eps, all equal; {int(same.sum())} rows equal in all; end to end (common, f32, "
+        f"bf16) valid mutual matches per pair {agree}")
+    profile_main_path("resnet101 coarse bf16", call)
+    del models, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -1858,7 +2112,13 @@ def main():
     ncn_pretrain_path(dev, sd)
     cli_path(dev, sd, train_ms["bfloat16"])
 
-    # phase 11: report
+    # phase 11: ImMatchNet; phase 12: the ResNet101 NCNet-only coarse matcher
+    for path in (immatch_path, resnet101_coarse_path):
+        for k, v in path(dev).items():
+            if k in ("tap_sum", "corr_pool"):
+                path_counts[k] += v
+
+    # phase 13: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

@@ -51,6 +51,21 @@
 // distinct pooled cells, stored as 32-byte runs. Products of bf16 values
 // are exact in f32; sums are in another order than a matmul library's,
 // so results agree with the plain version to rounding.
+//
+// bf16 wider than 384 channels (ResNet50/101's layer3: C = 1024): the
+// resident panel would need C / 64 x 32 KB (512 KB at C = 1024), beyond
+// an SM's 227 KB. The streamed instance of the same kernel (kStream)
+// runs the ordinary GEMM main loop instead: per (panel, image-2 tile)
+// it walks the K blocks, and each ring stage carries the panel's K
+// block (32 KB) beside the image-2 tile's (8 KB), five stages deep. The
+// accumulators sum over all C in registers and the pooled epilogue
+// runs once, as in the resident kernel: pooling partial sums would be
+// wrong. The panel is read again for every image-2 tile (from L2:
+// consecutive work items share it), 2 x 48 x 192 x 640 KB = 11.8 GB of
+// L2 -> SM traffic at change_stride's 2 x (96, 128, 1024) against 618.5
+// GFLOP (0.625 ms at the bf16 peak), so this instance is bound by that
+// traffic, not by the tensor cores (3.04 ms on an H100 80GB HBM3 at 700 W,
+// 3.9 TB/s from L2; PERF.md). C <= 384 keeps the resident kernel.
 
 #include "sm90.cuh"
 
@@ -158,11 +173,14 @@ constexpr int H_MAX_CP = 384;   // the resident panel's limit
 constexpr int H_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr uint32_t H_ABLOCK_BYTES = H_BM * H_KB * 2;  // 32 KB per K block
 constexpr uint32_t H_BTILE_BYTES = H_BN * H_KB * 2;   // 8 KB per stage
+constexpr int S_STAGES = 5;     // the streamed ring: panel + image-2 K blocks
+constexpr uint32_t S_STAGE_BYTES = H_ABLOCK_BYTES + H_BTILE_BYTES;  // 40 KB
 
+// 1 KB of slack to align the base to the swizzle's 1024 bytes
 size_t h_smem_bytes(int cp) {
-  // 1 KB of slack to align the base to the swizzle's 1024 bytes
   return 1024 + (size_t)(cp / H_KB) * H_ABLOCK_BYTES + (size_t)H_STAGES * H_BTILE_BYTES;
 }
+constexpr size_t S_SMEM_BYTES = 1024 + (size_t)S_STAGES * S_STAGE_BYTES;
 
 // d (+)= A (64 x 16, K-major) * B (64 x 16, K-major)^T; scale_d 0
 // starts the sum.
@@ -185,21 +203,28 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
 
 // map1 over (B * rp1 rows, cp) with (H_KB, H_BM) boxes, map2 over
 // (B * rp2, cp) with (H_KB, H_BN) boxes; rp1 % H_BM == rp2 % H_BN ==
-// cp % H_KB == 0, cp <= H_MAX_CP.
+// cp % H_KB == 0; cp <= H_MAX_CP unless kStream. kStream: the panel's K
+// blocks stream through the ring with the image-2 tile's (no resident
+// panel, any cp).
+template <bool kStream>
 __global__ void __launch_bounds__(H_THREADS, 1)
 corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
                       const __grid_constant__ CUtensorMap map2, float* __restrict__ out,
                       int batch, int np1, int np2, int rp1, int rp2, int cp) {
+  constexpr int NST = kStream ? S_STAGES : H_STAGES;
+  // ring stage bytes and the image-2 tile's offset in a stage
+  constexpr uint32_t STAGE = kStream ? S_STAGE_BYTES : H_BTILE_BYTES;
+  constexpr uint32_t B_OFF = kStream ? H_ABLOCK_BYTES : 0;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 + 2 * H_STAGES];
+  __shared__ __align__(8) uint64_t bars[2 + 2 * NST];
   uint8_t* a_panel = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   const int nkb = cp / H_KB;
-  uint8_t* ring = a_panel + nkb * H_ABLOCK_BYTES;
+  uint8_t* ring = kStream ? a_panel : a_panel + nkb * H_ABLOCK_BYTES;
   uint64_t* a_full = &bars[0];
   uint64_t* a_empty = &bars[1];
   uint64_t* full = &bars[2];
-  uint64_t* empty = &bars[2 + H_STAGES];
+  uint64_t* empty = &bars[2 + NST];
 
   const int nap = rp1 / H_BM, nt2 = rp2 / H_BN;
   const int64_t total = (int64_t)batch * nap * nt2;
@@ -209,7 +234,7 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
   if (threadIdx.x == 0) {
     mbar_init(a_full, 1);
     mbar_init(a_empty, 256);
-    for (int s = 0; s < H_STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
     }
@@ -227,7 +252,7 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
     for (int64_t t = t_begin; t < t_end; ++t) {
       const int64_t pan = t / nt2;
       const int tile = (int)(t % nt2), b = (int)(pan / nap), ap = (int)(pan % nap);
-      if (pan != panel) {
+      if (!kStream && pan != panel) {
         // a new panel: wait until both consumers are done with the old one
         if (a_loads > 0) mbar_wait(a_empty, (a_loads - 1) & 1);
         mbar_expect_tx(a_full, nkb * H_ABLOCK_BYTES);
@@ -239,10 +264,13 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
       }
       for (int kb = 0; kb < nkb; ++kb) {
         mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], H_BTILE_BYTES);
-        tma_load_2d(ring + stage * H_BTILE_BYTES, &map2, &full[stage], kb * H_KB,
+        mbar_expect_tx(&full[stage], STAGE);
+        if (kStream)
+          tma_load_2d(ring + stage * STAGE, &map1, &full[stage], kb * H_KB,
+                      b * rp1 + ap * H_BM);
+        tma_load_2d(ring + stage * STAGE + B_OFF, &map2, &full[stage], kb * H_KB,
                     b * rp2 + tile * H_BN);
-        if (++stage == H_STAGES) {
+        if (++stage == NST) {
           stage = 0;
           phase ^= 1;
         }
@@ -264,7 +292,7 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
   for (int64_t t = t_begin; t < t_end; ++t) {
     const int64_t pan = t / nt2;
     const int tile = (int)(t % nt2), b = (int)(pan / nap), ap = (int)(pan % nap);
-    if (pan != panel) {
+    if (!kStream && pan != panel) {
       if (a_loads > 0) mbar_arrive(a_empty);
       mbar_wait(a_full, a_loads & 1);
       ++a_loads;
@@ -275,12 +303,15 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
       fence_acc(d[0]);
       fence_acc(d[1]);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      // this K block of the panel: resident, or in the ring stage
+      const uint32_t a_blk = kStream ? r_base + stage * STAGE + wg * 128 * 128
+                                     : a_base + kb * H_ABLOCK_BYTES;
 #pragma unroll
       for (int kk = 0; kk < H_KB / 16; ++kk) {
-        const uint64_t db = sw128_desc(r_base + stage * H_BTILE_BYTES + kk * 32);
+        const uint64_t db = sw128_desc(r_base + stage * STAGE + B_OFF + kk * 32);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const uint64_t da = sw128_desc(a_base + kb * H_ABLOCK_BYTES + h * 64 * 128 + kk * 32);
+          const uint64_t da = sw128_desc(a_blk + h * 64 * 128 + kk * 32);
           wgmma_m64n64k16(d[h], da, db, (kb | kk) != 0);
         }
       }
@@ -289,7 +320,7 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
       fence_acc(d[0]);
       fence_acc(d[1]);
       mbar_arrive(&empty[stage]);
-      if (++stage == H_STAGES) {
+      if (++stage == NST) {
         stage = 0;
         phase ^= 1;
       }
@@ -338,6 +369,17 @@ corr_pool_bf16_kernel(const __grid_constant__ CUtensorMap map1,
   }
 }
 
+// Dynamic shared memory above 48 KB, set once per process and instance.
+template <bool kStream>
+cudaError_t set_smem_once(size_t bytes) {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t rc = cudaFuncSetAttribute(corr_pool_bf16_kernel<kStream>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = rc == cudaSuccess;
+  return rc;
+}
+
 }  // namespace
 
 // f1, f2: the wrapper's layouts (float32 (B, cp, rp), K-major; bf16
@@ -355,28 +397,27 @@ extern "C" int p2p_corr_pool(const void* f1, const void* f2, void* out, int batc
     corr_pool_f32_kernel<<<grid, 256, 0, s>>>((const float*)f1, (const float*)f2, (float*)out,
                                               np1, np2, rp1, rp2, cp);
   } else if (dtype == 1) {
-    if (rp1 % H_BM || rp2 % H_BN || cp <= 0 || cp % H_KB || cp > H_MAX_CP)
-      return (int)cudaErrorInvalidValue;
-    static bool attr_set = false;
-    if (!attr_set) {
-      cudaError_t rc = cudaFuncSetAttribute(corr_pool_bf16_kernel,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                            (int)h_smem_bytes(H_MAX_CP));
-      if (rc != cudaSuccess) return (int)rc;
-      attr_set = true;
-    }
+    if (rp1 % H_BM || rp2 % H_BN || cp <= 0 || cp % H_KB) return (int)cudaErrorInvalidValue;
+    const bool stream_k = cp > H_MAX_CP;
+    cudaError_t rc = stream_k ? set_smem_once<true>(S_SMEM_BYTES)
+                              : set_smem_once<false>(h_smem_bytes(H_MAX_CP));
+    if (rc != cudaSuccess) return (int)rc;
     CUtensorMap map1, map2;
     if (!make_map(&map1, f1, (int64_t)batch * rp1, cp, H_BM) ||
         !make_map(&map2, f2, (int64_t)batch * rp2, cp, H_BN))
       return (int)cudaErrorInvalidValue;
     int dev = 0, sms = 0;
-    cudaError_t rc = cudaGetDevice(&dev);
+    rc = cudaGetDevice(&dev);
     if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc != cudaSuccess) return (int)rc;
     const int64_t total = (int64_t)batch * (rp1 / H_BM) * (rp2 / H_BN);
     const int grid = (int)(total < sms ? total : sms);
-    corr_pool_bf16_kernel<<<grid, H_THREADS, h_smem_bytes(cp), s>>>(map1, map2, (float*)out,
-                                                                     batch, np1, np2, rp1, rp2, cp);
+    if (stream_k)
+      corr_pool_bf16_kernel<true><<<grid, H_THREADS, S_SMEM_BYTES, s>>>(
+          map1, map2, (float*)out, batch, np1, np2, rp1, rp2, cp);
+    else
+      corr_pool_bf16_kernel<false><<<grid, H_THREADS, h_smem_bytes(cp), s>>>(
+          map1, map2, (float*)out, batch, np1, np2, rp1, rp2, cp);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -10,8 +10,11 @@ forward over every proposal. Behaviour kept from the reference:
   * eval uses panc=1 (anchors are the coarse matches),
   * match coords are clamped to ``[0, W]`` (inclusive W).
 
-Kernels on this path: B2 (``corr_pool``) whenever ksize == 2 and the
-feature maps have even sides, B1 (``tap_sum``) in both NCN branches,
+The backbone is ResNet34, ResNet50 or ResNet101 (``config.backbone``;
+a regressor over a Bottleneck pyramid needs ``config.feat_dims`` set by
+the caller, as in JAX). Kernels on this path: B2 (``corr_pool``, any
+channel count) whenever ksize == 2 and the feature maps have even
+sides, B1 (``tap_sum``) in both NCN branches,
 B3 (``expand_scale_pair``) in every regression stage that is not
 grid-aligned.
 
@@ -102,8 +105,8 @@ class Patch2Pix(nn.Module):
         self.config = config
         dtype = config.compute_dtype
         if config.backbone not in BACKBONES:
-            raise NotImplementedError(f"backbone {config.backbone!r}: only "
-                                      f"{list(BACKBONES)} is ported")
+            raise ValueError(f"unknown backbone {config.backbone!r}; available: "
+                             f"{list(BACKBONES)}")
         self.extract = BACKBONES[config.backbone](config.change_stride, dtype, device)
         self.ncn = NeighConsensus((3, 3), (16, 1), dtype=dtype, device=device)
         r = config.regressor

@@ -1,10 +1,11 @@
-"""ResNet34 feature pyramid (channels-last at the interface).
+"""ResNet34/50/101 feature pyramids (channels-last at the interface).
 
-Port of ``patch2pix_tpu.models.resnet``: a torchvision-layout ResNet34
-whose forward stops at layer3, returning the hypercolumn levels [im,
-relu(bn1(conv1)), layer1, layer2, layer3]. ``change_stride`` makes
-layer3's first block stride 1 (matching grid stride 8). ``layer4`` is
-held, as in the reference checkpoint, but never run.
+Port of ``patch2pix_tpu.models.resnet``: a torchvision-layout ResNet
+(``BasicBlock`` for ResNet34, the expansion-4 ``Bottleneck`` for
+ResNet50/101) whose forward stops at layer3, returning the hypercolumn
+levels [im, relu(bn1(conv1)), layer1, layer2, layer3]. ``change_stride``
+makes layer3's first block stride 1 (matching grid stride 8). ``layer4``
+is held, as in the torchvision checkpoints, but never run.
 
 By default every BatchNorm runs on its running averages and is folded
 into the preceding convolution: the per-channel scale ``s`` multiplies
@@ -35,6 +36,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from patch2pix_tpu_torch.config import resolve_device
 
 
 def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
@@ -91,6 +94,8 @@ def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype, stats=None):
 class BasicBlock(nn.Module):
     """Two 3x3 convs + identity/projection shortcut (ResNet-18/34)."""
 
+    expansion = 1
+
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, device=None):
         super().__init__()
         kw = dict(bias=False, device=device)
@@ -118,13 +123,53 @@ class BasicBlock(nn.Module):
         return torch.relu(y + x)
 
 
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 with expansion 4, plus a projection
+    where the stride or the width changes (ResNet-50/101)."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, filters: int, stride: int = 1, device=None):
+        super().__init__()
+        kw = dict(bias=False, device=device)
+        out_ch = filters * self.expansion
+        self.conv1 = nn.Conv2d(in_ch, filters, 1, 1, 0, **kw)
+        self.bn1 = nn.BatchNorm2d(filters, device=device)
+        self.conv2 = nn.Conv2d(filters, filters, 3, stride, 1, **kw)
+        self.bn2 = nn.BatchNorm2d(filters, device=device)
+        self.conv3 = nn.Conv2d(filters, out_ch, 1, 1, 0, **kw)
+        self.bn3 = nn.BatchNorm2d(out_ch, device=device)
+        self.downsample = None
+        if stride != 1 or in_ch != out_ch:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_ch, out_ch, 1, stride, 0, **kw),
+                nn.BatchNorm2d(out_ch, device=device),
+            )
+
+    def set_stride(self, stride: int) -> None:
+        self.conv2.stride = (stride, stride)
+        if self.downsample is not None:
+            self.downsample[0].stride = (stride, stride)
+
+    def forward(self, x, dtype, stats=None):
+        y = torch.relu(conv_bn(x, self.conv1, self.bn1, dtype, stats))
+        y = torch.relu(conv_bn(y, self.conv2, self.bn2, dtype, stats))
+        y = conv_bn(y, self.conv3, self.bn3, dtype, stats)
+        if self.downsample is not None:
+            x = conv_bn(x, self.downsample[0], self.downsample[1], dtype, stats)
+        return torch.relu(y + x)
+
+
 class ResNetFeatures(nn.Module):
-    """ResNet34 trunk; ``forward`` returns the pyramid (or layer3)."""
+    """ResNet trunk of ``block`` (BasicBlock or Bottleneck); ``forward``
+    returns the pyramid (or layer3)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  change_stride: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 block: type = BasicBlock):
         super().__init__()
+        device = resolve_device(device)
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
         self.bn1 = nn.BatchNorm2d(64, device=device)
@@ -133,9 +178,8 @@ class ResNetFeatures(nn.Module):
             stride = 1 if si == 0 else 2
             blocks = []
             for bi in range(n_blocks):
-                blocks.append(BasicBlock(in_ch, filters, stride if bi == 0 else 1,
-                                         device=device))
-                in_ch = filters
+                blocks.append(block(in_ch, filters, stride if bi == 0 else 1, device=device))
+                in_ch = filters * block.expansion
             self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
         if change_stride:
             self.layer3[0].set_stride(1)
@@ -164,4 +208,12 @@ def resnet34(change_stride: bool = False, dtype=torch.float32, device=None):
     return ResNetFeatures((3, 4, 6, 3), change_stride, dtype, device)
 
 
-BACKBONES = {"ResNet34": resnet34}
+def resnet50(change_stride: bool = False, dtype=torch.float32, device=None):
+    return ResNetFeatures((3, 4, 6, 3), change_stride, dtype, device, Bottleneck)
+
+
+def resnet101(change_stride: bool = False, dtype=torch.float32, device=None):
+    return ResNetFeatures((3, 4, 23, 3), change_stride, dtype, device, Bottleneck)
+
+
+BACKBONES = {"ResNet34": resnet34, "ResNet50": resnet50, "ResNet101": resnet101}

@@ -33,18 +33,16 @@ _SIGNATURES = {"p2p_corr_pool": "pppiiiiiiip"}
 # the kernels' operand layouts: (image-1 row multiple, image-2 row
 # multiple, channel multiple, K-major); see csrc/corr_pool.cu
 LAYOUTS = {torch.float32: (128, 128, 16, True), torch.bfloat16: (256, 64, 64, False)}
-BF16_MAX_C = 384  # the bf16 kernel keeps a 256-row panel of all channels in shared memory
 
 
 def corr_pool_supported(feat1: torch.Tensor, feat2: torch.Tensor, ksize: int) -> bool:
-    """Condition of the fused path: ksize 2, even spatial dims, equal
-    channel counts, and at most ``BF16_MAX_C`` channels in bf16 (wider
-    bf16 features take the correlation and the pool apart)."""
+    """Condition of the fused path: ksize 2, even spatial dims and equal
+    channel counts, any width (bf16 features wider than 384 channels run
+    the kernel's streamed instance, ``csrc/corr_pool.cu``)."""
     _, h1, w1, c1 = feat1.shape
     _, h2, w2, c2 = feat2.shape
     return (ksize == KSIZE and c1 == c2
-            and h1 % 2 == 0 and w1 % 2 == 0 and h2 % 2 == 0 and w2 % 2 == 0
-            and not (feat1.dtype == torch.bfloat16 and c1 > BF16_MAX_C))
+            and h1 % 2 == 0 and w1 % 2 == 0 and h2 % 2 == 0 and w2 % 2 == 0)
 
 
 def corr_pool_plain(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
@@ -104,8 +102,7 @@ def _launch(feat1, feat2):
     if feat1.dtype != feat2.dtype or feat1.dtype not in _DTYPES:
         raise TypeError(f"corr_pool: dtypes {feat1.dtype}, {feat2.dtype}")
     if not corr_pool_supported(feat1, feat2, KSIZE) or feat2.shape[0] != b:
-        raise ValueError(f"corr_pool: shapes {tuple(feat1.shape)}, {tuple(feat2.shape)} "
-                         f"(bf16 takes at most {BF16_MAX_C} channels)")
+        raise ValueError(f"corr_pool: shapes {tuple(feat1.shape)}, {tuple(feat2.shape)}")
     rows1, rows2, chans, k_major = LAYOUTS[feat1.dtype]
     a = cell_parity_rows(feat1, rows1, chans, k_major)
     m = cell_parity_rows(feat2, rows2, chans, k_major)

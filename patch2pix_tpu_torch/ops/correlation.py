@@ -57,6 +57,48 @@ def maxpool4d_values(corr: torch.Tensor, ksize: int = 2) -> torch.Tensor:
     return x
 
 
+def maxpool4d(corr: torch.Tensor, ksize: int = 2):
+    """4D max-pool with the within-window offsets: ``(pooled, (di, dj,
+    dk, dl))``, each offset an int32 volume of ``pooled``'s shape in
+    ``[0, ksize)``. The axes are pooled from minor to major (w2, h2, w1,
+    h1) with a strict ``>``, so the first maximum in row-major (di, dj,
+    dk, dl) order wins, and the offsets already decoded are carried
+    along (``patch2pix_tpu.ops.correlation.maxpool4d``); every spatial
+    side must be a multiple of ``ksize``. The values
+    equal :func:`maxpool4d_values`'s, the offsets :func:`decode_delta_at`'s
+    at every cell. ``ksize == 1`` returns the volume and zero offsets."""
+    if ksize == 1:
+        z = torch.zeros(corr.shape, dtype=torch.int32, device=corr.device)
+        return corr, (z, z, z, z)
+    k = ksize
+
+    def views(x, axis):
+        return [x.unflatten(axis, (-1, k)).select(axis + 1, i) for i in range(k)]
+
+    def pool_axis(x, carried, axis):
+        vs = views(x, axis)
+        best = vs[0]
+        arg = torch.zeros(best.shape, dtype=torch.int32, device=x.device)
+        for i in range(1, k):
+            gt = vs[i] > best
+            best = torch.where(gt, vs[i], best)
+            arg = arg.masked_fill(gt, i)
+        out = []
+        for d in carried:
+            dv = views(d, axis)
+            cur = dv[0]
+            for i in range(1, k):
+                cur = torch.where(arg == i, dv[i], cur)
+            out.append(cur)
+        return best, arg, out
+
+    x, dl, _ = pool_axis(corr, [], 4)
+    x, dk, (dl,) = pool_axis(x, [dl], 3)
+    x, dj, (dl, dk) = pool_axis(x, [dl, dk], 2)
+    x, di, (dl, dk, dj) = pool_axis(x, [dl, dk, dj], 1)
+    return x, (di, dj, dk, dl)
+
+
 def window_argmax(vals: torch.Tensor, k: int):
     """Flat first-max argmax over the last axis of ``k^4`` row-major
     (di, dj, dk, dl) window values -> the four int32 offsets."""

@@ -1,9 +1,10 @@
 """Fixed-shape match extraction from correlation volumes.
 
-Port of ``patch2pix_tpu.ops.match_extract`` (inference subset, and the
-training step's :func:`select_ptmax`): both matching directions in one
-pass, mutual filtering as an argmax round-trip test, ``N = h2*w2 +
-h1*w1`` rows with a validity mask.
+Port of ``patch2pix_tpu.ops.match_extract`` (inference, the NCNet
+family's :func:`corr_to_matches_topk`, and the training step's
+:func:`select_ptmax`): both matching directions in one pass, mutual
+filtering as an argmax round-trip test, ``N = h2*w2 + h1*w1`` rows with
+a validity mask.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ def corr_to_matches(corr, delta4d=None, ksize: int = 1, do_softmax: bool = True)
 
     Rows: first the B->A direction (one per target cell, ``h2*w2``),
     then A->B (one per source cell, ``h1*w1``). ``delta4d``: None, the
-    PRE-POOL volume, or ``("feats", f1, f2)`` from the fused corr+pool
-    path; with one, indices are relocated to the pre-pool grid
-    (``i*ksize + di``). Returns grid ``(B, N, 4)`` int32 (xA, yA, xB,
+    PRE-POOL volume, the 4-tuple of offset volumes from
+    :func:`..correlation.maxpool4d`, or ``("feats", f1, f2)`` from the
+    fused corr+pool path; with one, indices are relocated to the
+    pre-pool grid (``i*ksize + di``). Returns grid ``(B, N, 4)`` int32 (xA, yA, xB,
     yB), scores ``(B, N)`` and the mutual flags ``(B, N)``.
     """
     b, h1, w1, h2, w2 = corr.shape
@@ -71,11 +73,16 @@ def corr_to_matches(corr, delta4d=None, ksize: int = 1, do_softmax: bool = True)
 
 def _relocate(delta4d, ia, ja, ib, jb, ksize):
     """Relocate pooled-grid indices to the pre-pool grid."""
-    if isinstance(delta4d, tuple) and len(delta4d) == 3 and delta4d[0] == "feats":
+    if isinstance(delta4d, (tuple, list)) and len(delta4d) == 3 and delta4d[0] == "feats":
         from patch2pix_tpu_torch.ops.corr_pool import decode_delta_from_feats
 
         di, dj, dk, dl = decode_delta_from_feats(
             delta4d[1], delta4d[2], ia, ja, ib, jb, ksize)
+    elif isinstance(delta4d, (tuple, list)) and len(delta4d) == 4:
+        # maxpool4d's offset volumes, gathered at the selected cells
+        b, _, w1, h2, w2 = delta4d[0].shape
+        lin = (((ia * w1 + ja) * h2 + ib) * w2 + jb).long()
+        di, dj, dk, dl = (torch.gather(d.reshape(b, -1), 1, lin) for d in delta4d)
     elif isinstance(delta4d, torch.Tensor):
         di, dj, dk, dl = decode_delta_at(delta4d, ia, ja, ib, jb, ksize)
     elif delta4d is None:
@@ -83,6 +90,44 @@ def _relocate(delta4d, ia, ja, ib, jb, ksize):
     else:
         raise ValueError(f"unsupported delta4d {type(delta4d)}")
     return ia * ksize + di, ja * ksize + dj, ib * ksize + dk, jb * ksize + dl
+
+
+def _topk_lower_index_first(vals, k: int):
+    """Top ``k`` along the last axis, equal values in index order (the
+    order ``lax.top_k`` gives; ``torch.topk`` promises none): a stable
+    descending sort, cut at ``k``."""
+    v, i = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def corr_to_matches_topk(corr, delta4d=None, topk: int = 1, ksize: int = 1,
+                         do_softmax: bool = True, invert_matching_direction: bool = False):
+    """The ``topk`` best cells per anchor, one direction: per target
+    cell the best source cells (default; rows k-major, ``N = topk *
+    h2*w2``) or, inverted, per source cell the best target cells (rows
+    anchor-major, ``N = h1*w1 * topk``). Scores are softmax values over
+    the reduced axis when ``do_softmax``. ``delta4d`` relocates as in
+    :func:`corr_to_matches`. Returns grid ``(B, N, 4)`` int32 (xA, yA,
+    xB, yB) and scores ``(B, N)`` float32."""
+    b, h1, w1, h2, w2 = corr.shape
+    na, nb = h1 * w1, h2 * w2
+    flat = corr.reshape(b, na, nb)
+    if invert_matching_direction:
+        vals = torch.softmax(flat, dim=2) if do_softmax else flat
+        top_v, top_i = _topk_lower_index_first(vals, topk)  # (B, na, k)
+        ib, jb = _fdiv(top_i, w2).reshape(b, -1), (top_i % w2).reshape(b, -1)
+        ids_a = torch.arange(na, device=corr.device)[None, :, None].expand(b, na, topk)
+        ia, ja = (ids_a // w1).reshape(b, -1), (ids_a % w1).reshape(b, -1)
+    else:
+        vals = torch.softmax(flat, dim=1) if do_softmax else flat
+        top_v, top_i = _topk_lower_index_first(vals.transpose(1, 2), topk)  # (B, nb, k)
+        top_v, top_i = top_v.transpose(1, 2), top_i.transpose(1, 2)  # (B, k, nb)
+        ia, ja = _fdiv(top_i, w1).reshape(b, -1), (top_i % w1).reshape(b, -1)
+        ids_b = torch.arange(nb, device=corr.device)[None, None, :].expand(b, topk, nb)
+        ib, jb = (ids_b // w2).reshape(b, -1), (ids_b % w2).reshape(b, -1)
+    scores = top_v.reshape(b, -1).float()
+    ia, ja, ib, jb = _relocate(delta4d, ia, ja, ib, jb, ksize)
+    return torch.stack([ja, ia, jb, ib], dim=-1).to(torch.int32), scores
 
 
 def mutual_consistency_mask(mutual, nb: int, keep_mutual_only: bool):

@@ -21,6 +21,14 @@ buffers, for either ``feat_comb`` (a ``post`` conv0 kernel has
 ``feat_dim`` input channels, a ``pre`` one twice that). A JAX
 ``TrainState`` (its ``params`` and ``batch_stats``; the
 optimizer state is not carried) loads with :func:`load_jax_train_state`.
+
+A JAX ``ImMatchNet`` tree maps onto the port's ``ImMatchNet`` with
+:func:`immatch_state_dict_from_jax`: its ``FeatureExtraction`` (VGG16
+``conv{s}_{i}`` kernels and biases at torchvision's sequential indices;
+DenseNet convs and BatchNorms at torchvision's child names) under
+``FeatureExtraction.model``, its ``extract`` (ResNet, Bottleneck's
+``conv3``/``bn3`` included) under ``extract``, its ``NeighConsensus``
+under ``NeighConsensus.conv``.
 """
 
 from __future__ import annotations
@@ -140,8 +148,64 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Load a JAX variable tree into a port ``Patch2Pix``. Only the
     keys the JAX tree cannot hold (``layer4``, ``num_batches_tracked``)
     may stay at their initial values."""
-    missing, unexpected = model.load_state_dict(
-        state_dict_from_jax(variables), strict=False)
+    _load_checked(model, state_dict_from_jax(variables))
+
+
+def _vgg(out, p, prefix):
+    from patch2pix_tpu_torch.models.vgg import VGG16_LAYERS
+
+    for idx, (name, kind, _) in enumerate(VGG16_LAYERS):
+        if kind == "conv" and name in p:
+            out[f"{prefix}{idx}.weight"] = _conv2d(p[name]["kernel"])
+            out[f"{prefix}{idx}.bias"] = np.asarray(p[name]["bias"])
+
+
+def _densenet(out, p, s, prefix):
+    out[f"{prefix}conv0.weight"] = _conv2d(p["conv0"]["kernel"])
+    _put_bn(out, f"{prefix}norm0", p["norm0"], s["norm0"])
+    for name in sorted(p):
+        if name.startswith("denseblock"):
+            block, layer = name.split("_")
+            pre = f"{prefix}{block}.{layer}"
+            for conv in ("conv1", "conv2"):
+                out[f"{pre}.{conv}.weight"] = _conv2d(p[name][conv]["kernel"])
+            for norm in ("norm1", "norm2"):
+                _put_bn(out, f"{pre}.{norm}", p[name][norm], s[name][norm])
+        elif name.startswith("transition"):
+            trans, leaf = name.split("_")
+            if leaf == "conv":
+                out[f"{prefix}{trans}.conv.weight"] = _conv2d(p[name]["kernel"])
+            else:
+                _put_bn(out, f"{prefix}{trans}.norm", p[name], s[name])
+
+
+def immatch_state_dict_from_jax(variables: Mapping,
+                                feature_extraction_cnn: str) -> Dict[str, torch.Tensor]:
+    """A JAX ``ImMatchNet``'s ``{"params", "batch_stats"}`` tree -> the
+    state dict of the port's ``ImMatchNet`` with the same trunk."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    if feature_extraction_cnn == "vgg":
+        _vgg(out, params["FeatureExtraction"], "FeatureExtraction.model.")
+    elif feature_extraction_cnn == "densenet201":
+        _densenet(out, params["FeatureExtraction"], stats["FeatureExtraction"],
+                  "FeatureExtraction.model.")
+    else:
+        _resnet(out, params, stats)
+    _ncn(out, params["NeighConsensus"], prefix="NeighConsensus.")
+    return _to_torch(out)
+
+
+def load_jax_immatch_variables(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load a JAX ``ImMatchNet`` variable tree into the port's
+    ``ImMatchNet``; only ``layer4`` and ``num_batches_tracked`` (which
+    the JAX tree does not hold) may stay at their initial values."""
+    _load_checked(model, immatch_state_dict_from_jax(variables, model.feature_extraction_cnn))
+
+
+def _load_checked(model, sd) -> None:
+    missing, unexpected = model.load_state_dict(sd, strict=False)
     bad = [k for k in missing
            if ".layer4." not in k and not k.endswith("num_batches_tracked")]
     if bad or unexpected:

@@ -10,7 +10,8 @@ JAX):
 Each kernel is held against its plain version on the card, at small
 and ragged shapes (partial tiles, channel counts that are not a
 multiple of 8, a t=1 pyramid level), to its kernel's tolerance: tap_sum
-bit-identical, corr_pool atol 1e-4 on unit-norm features,
+bit-identical, corr_pool atol 1e-4 on unit-norm features (bf16 up to
+1024 channels, through the streamed instance beyond 384),
 expand_scale_pair f32 rtol 1e-6 / bf16 bit for bit, except at patch
 pixels whose inverse norm rounds to the neighbouring bf16 value (one in
 10^4 at most; chip_smoke's ``expand_bf16_mismatch``), with corners
@@ -34,7 +35,10 @@ refuse inputs that require grad while grad mode is on. The whole
 pipeline on the card (f32, TF32 off), and one training step, are held
 against the same model on the CPU, which runs the plain versions.
 ``prefetch_to_device`` delivers the host batch on the consumer's stream,
-and a bf16 train step with ``backbone_train_bn`` launches B1-B3.
+and a bf16 train step with ``backbone_train_bn`` launches B1-B3. The
+NCNet family's paths (ImMatchNet with VGG16, relocalisation 0 and 2;
+the ResNet101 coarse matcher through B2 at 1024 channels) on the card
+are held against the CPU in f32.
 """
 
 import json
@@ -47,6 +51,7 @@ import torch
 from chip_smoke import bf16_ulps, expand_bf16_mismatch
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
 from patch2pix_tpu_torch.data.synthetic import synthetic_batch
+from patch2pix_tpu_torch.models.immatch_net import ImMatchNet
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small, conv4d_small_plain
 from patch2pix_tpu_torch.ops.corr_pool import corr_pool, corr_pool_backward, corr_pool_plain
@@ -65,6 +70,7 @@ from patch2pix_tpu_torch.ops.patch_expand import (
 )
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_backward, tap_sum_plain
 from patch2pix_tpu_torch.train import create_train_state, make_train_step
+from patch2pix_tpu_torch.utils.torch_import import load_ncnet_checkpoint
 from tests.ref_loader import seeded_state_dict
 
 PSIZE = 16
@@ -107,6 +113,9 @@ def test_tap_sum_bit_identical(cuda, dtype, bs, h1, w1, hw, cout):
     (2, 8, 12, 10, 6, 96), (1, 6, 70, 4, 36, 20),
     (2, 18, 26, 22, 30, 256),  # C of the main path, pooled grids ragged against every tile
     (2, 48, 64, 48, 64, 256),  # the upsample-16 main-path shape
+    # bf16 beyond 384 channels: the streamed instance (panel K blocks
+    # through the ring), ragged and at ResNet50/101's layer3 width
+    (2, 18, 26, 22, 30, 512), (1, 10, 14, 6, 70, 448), (2, 24, 32, 24, 32, 1024),
 ])
 def test_corr_pool_matches_plain(cuda, dtype, b, h1, w1, h2, w2, c):
     f1 = _unit_feats(1, b, h1, w1, c).to(cuda, dtype)
@@ -536,9 +545,8 @@ def test_wrappers_reject_bad_inputs(cuda):
         corr_pool(f, f.cpu())
     with pytest.raises(ValueError):
         corr_pool(f[:, :3], f)
-    wide = torch.zeros((1, 4, 4, 392), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # beyond the bf16 kernel's resident panel
-        corr_pool(wide, wide)
+    with pytest.raises(ValueError):  # unequal channel counts
+        corr_pool(f, f[..., :4])
     x = torch.zeros((1, 2, 2, 3, 3, 4), device=cuda)
     with pytest.raises(ValueError):  # cin * cout > 16: not B4's range
         conv4d_small(x, torch.zeros((3, 3, 3, 3, 4, 5), device=cuda))
@@ -622,3 +630,51 @@ def test_train_step_with_backbone_train_bn_launches_b1_to_b3(cuda):
     for k, v in model.state_dict().items():
         if k.startswith("extract.") and ".layer4." not in k and "num_batches" not in k:
             assert torch.equal(v, before[k]) != ("running" in k), k
+
+
+@pytest.mark.parametrize("reloc", [0, 2])
+def test_immatch_on_card_matches_cpu(cuda, reloc):
+    """ImMatchNet (VGG16 pool4, NCN (3, 3, 3)/(10, 10, 1)) at 128x192,
+    f32 (TF32 off), seeded weights: the card's volume within 1e-4 of its
+    scale of the CPU's, the offsets equal; B1 twice a call."""
+    models = [ImMatchNet(relocalization_k_size=reloc, device=d) for d in ("cpu", cuda)]
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in models[0].state_dict().items()},
+                           seed=1)
+    for m in models:
+        load_ncnet_checkpoint(m, sd)
+    rs = _rs(5)
+    ims = [torch.from_numpy((rs.rand(1, 128, 192, 3).astype(np.float32) - 0.45) / 0.25)
+           for _ in range(2)]
+    with torch.no_grad():
+        want, wdelta = models[0](*ims)
+        n0 = tap_sum.launches
+        got, delta = models[1](*(im.to(cuda) for im in ims))
+        torch.cuda.synchronize()
+    assert tap_sum.launches == n0 + 2
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * scale)
+    if reloc:
+        for g, w in zip(delta, wdelta):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_resnet101_coarse_on_card_matches_cpu(cuda):
+    """``Patch2Pix(backbone="ResNet101", change_stride=True,
+    regressor=None).predict_coarse`` at 128x192, f32 (TF32 off): B2 on
+    1024 channels and B1 twice; the match set equal to the CPU's,
+    scores within 1e-4."""
+    cfg = ModelConfig(backbone="ResNet101", change_stride=True, regressor=None).resolved()
+    cpu, card = Patch2Pix(cfg, device="cpu"), Patch2Pix(cfg, device=cuda)
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in cpu.state_dict().items()}, seed=2)
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+    cpu.load_state_dict(sd)
+    card.load_state_dict(sd)
+    rs = _rs(6)
+    ims = [torch.from_numpy((rs.rand(2, 128, 192, 3).astype(np.float32) - 0.45) / 0.25)
+           for _ in range(2)]
+    want = cpu.predict_coarse(*ims, ksize=2)
+    n0 = (tap_sum.launches, corr_pool.launches)
+    got = card.predict_coarse(*(im.to(cuda) for im in ims), ksize=2)
+    assert (tap_sum.launches - n0[0], corr_pool.launches - n0[1]) == (2, 1)
+    assert torch.equal(got.coords.cpu(), want.coords) and torch.equal(got.valid.cpu(), want.valid)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, rtol=0, atol=1e-4)

@@ -205,22 +205,26 @@ def test_block_gather_matches_jax(rng):
 
 
 def test_corr_pool_guard_sends_wide_bf16_to_plain_route(rng):
-    """bf16 features wider than the B2 kernel's panel take the correlation
-    and the pool apart; f32 keeps B2 at any width."""
+    """bf16 features of any width satisfy ``corr_pool_supported`` (B2's
+    streamed instance takes C > 384, as the JAX kernel takes any C %
+    128 == 0); ``coarse_corr`` on the CPU still equals the plain
+    composition bit for bit. Odd sides, unequal channels and ksize != 2
+    are refused."""
     from patch2pix_tpu_torch.config import ModelConfig
     from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
-    from patch2pix_tpu_torch.ops.corr_pool import BF16_MAX_C, corr_pool_supported
+    from patch2pix_tpu_torch.ops.corr_pool import corr_pool_supported
 
-    f = [T(rng.standard_normal((1, 6, 8, 512)).astype(np.float32)) for _ in range(2)]
+    f = [T(rng.standard_normal((1, 6, 8, 1024)).astype(np.float32)) for _ in range(2)]
     bf = [x.bfloat16() for x in f]
-    assert 512 > BF16_MAX_C
-    assert not corr_pool_supported(*bf, 2)
-    assert corr_pool_supported(*f, 2)
-    assert corr_pool_supported(*(x[..., :256] for x in bf), 2)
+    assert corr_pool_supported(*bf, 2) and corr_pool_supported(*f, 2)
+    assert corr_pool_supported(*(x[..., :512] for x in bf), 2)
+    assert not corr_pool_supported(bf[0], bf[1][..., :512], 2)
+    assert not corr_pool_supported(bf[0][:, :5], bf[1], 2)
+    assert not corr_pool_supported(*bf, 3)
     torch.manual_seed(0)
     model = Patch2Pix(ModelConfig(dtype="bfloat16").resolved(), device="cpu")
     corr, delta4d = model.coarse_corr(*bf, ksize=2)
-    assert isinstance(delta4d, torch.Tensor)  # the plain route's pre-pool volume
+    assert delta4d[0] == "feats"  # the fused route
     n1, n2 = (tcorr.l2_normalize(x) for x in bf)
     want = tcorr.maxpool4d_values(tcorr.feat_correlation(n1, n2), 2)
     want = tcorr.mutual_matching(model.ncn(tcorr.mutual_matching(want)))

@@ -118,11 +118,22 @@ def _c_prototypes():
     return out
 
 
-@pytest.mark.parametrize("module", ["tap_sum", "corr_pool", "patch_expand", "conv4d_small",
-                                    "fine_stage"])
+SIGNATURE_MODULES = ("tap_sum", "corr_pool", "patch_expand", "conv4d_small", "fine_stage")
+
+
+@pytest.mark.parametrize("module", SIGNATURE_MODULES)
 def test_ctypes_signatures_match_the_c_prototypes(module):
     protos = _c_prototypes()
     sigs = importlib.import_module(f"patch2pix_tpu_torch.ops.{module}")._SIGNATURES
     assert sigs
     for fn, codes in sigs.items():
         assert protos.get(fn) == codes, fn
+
+
+def test_every_c_entry_point_is_bound_once():
+    """Every ``extern "C"`` function in ``csrc/`` (a new entry point
+    included) is named by exactly one module's ``_SIGNATURES``, so the
+    check above covers it."""
+    bound = [fn for m in SIGNATURE_MODULES
+             for fn in importlib.import_module(f"patch2pix_tpu_torch.ops.{m}")._SIGNATURES]
+    assert sorted(bound) == sorted(_c_prototypes())
