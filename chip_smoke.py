@@ -86,10 +86,13 @@ Phases, each fatal on failure:
      ``init_patch2pix_matcher`` on the run directory (its parameters
      ``torch.equal`` to ``load_ckpt``'s) and the functional
      ``estimate_matches(model, ...)`` on two fixture PNGs (equal to the
-     matcher's method). Prints the CLI's ms per step beside phase 7's,
-     split into each epoch's first-batch wait, device ms per step and
-     metrics flush; the peak memory, the checkpoint's bytes and its save
-     and restore ms;
+     matcher's method); one epoch of 2 steps without ``--no_eval``, whose
+     immatch validation on a 2-pair ``val_dense`` fixture at 1024x768
+     must log ``Pose err:`` with no failed pair and no ``Failed to eval
+     immatch``, and write ``immatch_best``. Prints the CLI's ms per step
+     beside phase 7's, split into each epoch's first-batch wait, device
+     ms per step and metrics flush; the peak memory, the checkpoint's
+     bytes and its save and restore ms;
   11. the NCNet family's ImMatchNet at the reference default (VGG16 to
      pool4, NCN (3, 3, 3)/(10, 10, 1), symmetric), seeded weights and
      images, 1024x768, B = 1, bf16: forward + ``corr_to_matches`` timed
@@ -102,12 +105,30 @@ Phases, each fatal on failure:
      ksize 2, bf16: B2 on 1024 bf16 channels once and B1 twice a call,
      each first call held as in phase 2, timed, its match set held to the
      same model's float32 run;
-  13. one JSON line of per-kernel numbers (B1's and B2's launches summed
-     over phases 4, 11 and 12), then the result line.
+  13. evaluation: (a) the 5-point, 8-point and PnP RANSACs on a
+     ``make_posed_pair`` pose at 1024x768 (1200 correspondences of
+     off-plane points, 0.3 px noise, 25% outliers), on the card against
+     the CPU on the same sample ids (inlier masks within 0.5% of rows, R
+     within 0.05 deg, t within 0.1 deg), then with the card's generator
+     within 0.5 deg of the true pose (the 8-point's t within 2 deg),
+     host ms per call (median of 10) and
+     device ms and ops per call (profiler); (b) ``eval_immatch_val_sets``
+     on a 4-scene PhotoTourism-layout fixture (``write_val_dense_fixture``,
+     1024x768): the oracle matcher under 1 deg at every pair, then the
+     Matcher at the JAX CLI's validation setting (ResNet34 change_stride,
+     seeded, bf16, ksize 2, io_thres 0.5, imsize 1024) twice with no
+     failed pair, B1-B3 launched, ms per pair split into matching and
+     geometry; (c) ``eval_hpatches`` on one synthetic sequence (a
+     reference and 5 warps) with the same Matcher: no failed pair,
+     MMA@1..10 printed; the phase's seconds;
+  14. one JSON line of per-kernel numbers (B1's and B2's launches summed
+     over phases 4, 11, 12 and 13, B3's over 4 and 13), then the result
+     line.
 
 Each path's launches are counted from zero just before it runs: phase 4
 for B1-B3, phase 5 for B4, phase 6 for B5 and B7, phase 10 for B1-B3
-under the CLI, phases 11 and 12 for B1 and B2.
+under the CLI, phases 11 and 12 for B1 and B2, phase 13 for B1-B3
+under the protocols' Matcher.
 
 Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 """
@@ -127,7 +148,18 @@ import numpy as np
 import torch
 
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, model_config_from_json
-from patch2pix_tpu_torch.data.synthetic import synthetic_batch, write_megadepth_fixture
+from patch2pix_tpu_torch.data.synthetic import (
+    make_pair,
+    make_posed_pair,
+    oracle_matcher,
+    synthetic_batch,
+    warp_homography,
+    write_megadepth_fixture,
+    write_val_dense_fixture,
+)
+from patch2pix_tpu_torch.evaluation import immatch as immatch_module
+from patch2pix_tpu_torch.evaluation.hpatches import eval_hpatches
+from patch2pix_tpu_torch.evaluation.immatch import eval_immatch_val_sets
 from patch2pix_tpu_torch.evaluation.matcher import (
     Matcher,
     estimate_matches,
@@ -186,6 +218,9 @@ from patch2pix_tpu_torch.ops.tap_sum import (
     tap_sum_backward,
     tap_sum_plain,
 )
+from patch2pix_tpu_torch.sfm.fivepoint import ransac_essential_5pt
+from patch2pix_tpu_torch.sfm.pnp import ransac_pnp
+from patch2pix_tpu_torch.sfm.twoview import draw_sample_ids, ransac_essential
 from patch2pix_tpu_torch.train import cli as train_cli
 from patch2pix_tpu_torch.train import create_train_state, make_ncn_pretrain_step, make_train_step
 from patch2pix_tpu_torch.train.checkpoint import load_ckpt, read_meta, save_ckpt
@@ -1714,6 +1749,31 @@ def cli_path(dev, sd, train_ms):
         f"ms/step {post_ms:.2f} (epoch time / steps); launches {post_launches}; "
         f"{sum('running' in k for k in backbone)} backbone running averages moved, "
         f"{sum('running' not in k for k in backbone)} backbone weights bit-identical")
+
+    # one epoch with the per-epoch immatch validation, on 2 fixture pairs at 1024x768
+    write_val_dense_fixture(os.path.join(fixture[0], "immatch_benchmark", "val_dense"), 2, H,
+                            W, seed=1)
+    argv = cli_argv(fixture, os.path.join(CLI_DIR, "out_eval"), 1, "--pretrain", pth,
+                    "--steps_per_epoch", "2")
+    argv.remove("--no_eval")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_eval = train_cli.main(argv)
+    eval_s = time.perf_counter() - t0
+    eval_launches = {k: v for k, v in counts().items() if v}
+    with open(os.path.join(run_eval, "log.txt")) as f:
+        text = f.read()
+    pairs = re.search(r"Pairs 2 match_failed=0 geo_failed=0 .* time:([0-9.]+)s", text)
+    if ("Failed to eval immatch" in text or "Pose err: qt_mean=" not in text or pairs is None
+            or not os.path.exists(os.path.join(run_eval, "immatch_best.pt"))):
+        fail("cli with validation: no 'Pose err:' line, a failed pair, 'Failed to eval "
+             "immatch', or no immatch_best checkpoint:\n" + text[-2000:])
+    log(f"cli with the per-epoch validation [1 epoch x 2 steps as above, then the immatch "
+        f"protocol on 2 pairs at {W}x{H}]: {eval_s:.1f} s in all, the protocol "
+        f"{float(pairs.group(1)):.2f} s; no failed pair, no 'Failed to eval immatch', "
+        f"immatch_best written (best_vals {read_meta(run_eval, 'immatch_best')['best_vals']}); "
+        f"launches {eval_launches}")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     return launches
 
@@ -1950,6 +2010,223 @@ def resnet101_coarse_path(dev):
     return launches
 
 
+# ------------------------------------------------------------ phase 13
+
+EVAL_DIR = os.path.join(ROOT, "build", "chip_smoke_eval")
+# (a)'s scene: fine_cap's match set at B=1, 0.3 px noise, a quarter outliers
+N_CORR, NOISE_PX, OUTLIERS = 1200, 0.3, 0.25
+RANSACS = {  # name: (function, sample size, hypotheses (JAX's defaults), bound on R
+    # and t from the truth with the card's generator, deg)
+    "ransac_essential_5pt": (ransac_essential_5pt, 5, 256, (0.5, 0.5)),
+    # one linear 8-point refit of the best minimal hypothesis' inliers, no
+    # Gauss-Newton: its t does not reach 0.5 deg at this scene's noise and
+    # baseline
+    "ransac_essential": (ransac_essential, 8, 512, (0.5, 2.0)),
+    "ransac_pnp": (ransac_pnp, 6, 256, (0.5, 0.5)),
+}
+
+
+def rot_deg(Ra, Rb):
+    """Angle (deg) of Ra^T Rb, by atan2 (accurate at small angles)."""
+    M = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    s = np.linalg.norm([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]]) / 2
+    return float(np.degrees(np.arctan2(s, (np.trace(M) - 1) / 2)))
+
+
+def dir_deg(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b)), np.dot(a, b))))
+
+
+def device_ops(fn):
+    """(device ms, device ops) of one call of fn, from torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3, len(evs)
+
+
+def ransac_scene(seed):
+    """(a)'s scene: the pose and intrinsics of a ``make_posed_pair`` at
+    1024x768, N_CORR correspondences of 3D points at depths 1.5 to 3 in
+    view 1 (off the pair's plane: plane-only matches fit two essential
+    matrices equally well and leave the 8-point refit and the DLT
+    degenerate), NOISE_PX px of noise, the first OUTLIERS of view 2's
+    points replaced by uniform pixels. Normalized coordinates, float32."""
+    rs = np.random.RandomState(seed)
+    *_, K, R, t = make_posed_pair(rs, H, W)
+    t = -t  # the images' motion (write_val_dense_fixture's convention)
+    Kinv = np.linalg.inv(K)
+    uv = rs.uniform((0, 0), (W, H), (4 * N_CORR, 2))
+    X = rs.uniform(1.5, 3.0, (4 * N_CORR, 1)) * (np.c_[uv, np.ones(4 * N_CORR)] @ Kinv.T)
+    xc = X @ R.T + t
+    x2 = (xc[:, :2] / xc[:, 2:]) @ K[:2, :2].T + K[:2, 2]
+    keep = np.flatnonzero((xc[:, 2] > 0) & (x2[:, 0] >= 0) & (x2[:, 0] < W) & (x2[:, 1] >= 0)
+                          & (x2[:, 1] < H))[:N_CORR]
+    x1 = uv[keep] + rs.normal(0, NOISE_PX, (N_CORR, 2))
+    x2 = x2[keep] + rs.normal(0, NOISE_PX, (N_CORR, 2))
+    n_out = int(OUTLIERS * N_CORR)
+    x2[:n_out] = rs.uniform((0, 0), (W, H), (n_out, 2))
+    norm = lambda x: torch.from_numpy(((x - K[:2, 2]) / K[0, 0]).astype(np.float32))
+    return {"p1": norm(x1), "p2": norm(x2), "X": torch.from_numpy(X[keep].astype(np.float32)),
+            "R": R, "t": t, "thres": float((1.0 / K[0, 0]) ** 2)}
+
+
+def ransac_path(dev):
+    """Phase 13 (a): the three RANSACs on the card against the CPU on the
+    same sample ids, then with the card's own generator against the true
+    pose (``RANSACS``' bounds); host and device ms per call."""
+    scene = ransac_scene(13)
+    valid = torch.ones(N_CORR, dtype=torch.bool)
+    for i, (name, (fn, k, n, (r_max, t_max))) in enumerate(RANSACS.items()):
+        a, b = (scene["X"], scene["p2"]) if name == "ransac_pnp" else (scene["p1"], scene["p2"])
+        ids = draw_sample_ids(torch.Generator().manual_seed(i), valid, n, k)
+        want = fn(None, a, b, n, scene["thres"], ids=ids)
+        a, b = a.to(dev), b.to(dev)
+        got = fn(None, a, b, n, scene["thres"], ids=ids.to(dev))
+        differ = int((got.inliers.cpu() != want.inliers).sum())
+        r_err, t_err = rot_deg(got.R.cpu(), want.R), dir_deg(got.t.cpu(), want.t)
+        if differ > N_CORR // 200 or r_err > 0.05 or t_err > 0.1:
+            fail(f"{name}: the card's result on the CPU's sample ids differs: {differ} inlier "
+                 f"rows, R {r_err:.4g} deg, t {t_err:.4g} deg")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        own = fn(gen, a, b, n, scene["thres"])
+        r_true, t_true = rot_deg(own.R.cpu(), scene["R"]), dir_deg(own.t.cpu(), scene["t"])
+        if not (r_true < r_max and t_true < t_max):
+            fail(f"{name} with the card's generator: R {r_true:.4g} deg, t {t_true:.4g} deg "
+                 f"from the true pose")
+        times = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            fn(gen, a, b, n, scene["thres"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        dev_ms, ops = device_ops(lambda: fn(gen, a, b, n, scene["thres"]))
+        log(f"eval {name} [N={N_CORR}, {n} samples of {k}, {OUTLIERS:.0%} outliers, "
+            f"{NOISE_PX} px]: card vs CPU on the same ids: {differ} inlier rows differ, R "
+            f"{r_err:.2e} deg, t {t_err:.2e} deg; card's generator: {int(own.num_inliers)} "
+            f"inliers, R {r_true:.4f} deg and t {t_true:.4f} deg from the truth; host ms per "
+            f"call median {np.median(times[1:]):.2f} of 10 (min {min(times[1:]):.2f}, max "
+            f"{max(times[1:]):.2f}); device {dev_ms:.3f} ms in {ops} device ops per call")
+
+
+class time_geometry:
+    """Within the block, ``eval_immatch_val_sets``' relative-pose calls are
+    timed (host clock; each ends in a device-to-host copy); ``as`` gives
+    the list of ms."""
+
+    def __enter__(self):
+        self.saved = immatch_module.eval_matches_relapose
+        times = self.times = []
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.saved(*args, **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        immatch_module.eval_matches_relapose = timed
+        return times
+
+    def __exit__(self, *exc):
+        immatch_module.eval_matches_relapose = self.saved
+
+
+def timed_matcher(matcher, times):
+    def call(p1, p2):
+        t0 = time.perf_counter()
+        out = matcher(p1, p2)  # numpy out: the card's work is done
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def hpatches_sequence(root, seed=1):
+    """(c)'s sequence: a reference view and five warps of it by
+    ``make_pair``'s plane homographies, as ``{root}/v_synthetic/{1..6}.png``
+    and ``H_1_{2..6}``."""
+    from PIL import Image
+
+    seq = os.path.join(root, "v_synthetic")
+    os.makedirs(seq, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    ref = make_pair(rs, H, W)[0]
+    for k in range(1, 7):
+        im = ref
+        if k > 1:
+            Hk = make_pair(rs, H, W)[3].astype(np.float64)
+            im = warp_homography(ref, Hk)
+            np.savetxt(os.path.join(seq, f"H_1_{k}"), Hk)
+        u8 = np.clip(np.round(im * 255), 0, 255).astype(np.uint8)
+        Image.fromarray(u8).save(os.path.join(seq, f"{k}.png"))
+
+
+def eval_path(dev, sd):
+    """Phase 13: (a) the RANSACs, (b) the immatch protocol on a
+    PhotoTourism-layout fixture with the oracle and with the Matcher, (c)
+    HPatches. Returns B1-B3's launches in (b) and (c)."""
+    t_phase = time.perf_counter()
+    ransac_path(dev)
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    root = os.path.join(EVAL_DIR, "val_dense")
+    scenes = write_val_dense_fixture(root, 4, H, W, seed=0)
+    quiet = []
+
+    qt, rates, res = eval_immatch_val_sets(oracle_matcher(scenes, n=N_CORR, noise=0.2),
+                                           data_root=root, log=quiet.append, device=dev)
+    if res.match_failed or res.geo_failed or len(res.qt) != 4 or not (
+            max(res.qt) < 1.0 and rates[0] == 100.0):
+        fail(f"eval oracle: qt {res.qt}, pass rates {rates}, failed "
+             f"{res.match_failed + res.geo_failed}")
+    log(f"eval immatch oracle [4 scenes x 1 pair {W}x{H}, {N_CORR} off-plane matches, 0.2 "
+        f"px]: qt per pair " + " ".join(f"{q:.4f}" for q in res.qt)
+        + f" deg, pass rate at 1 deg {rates[0]:.0f}%")
+
+    model = build_model(True, sd, "bfloat16", dev)
+    matcher = Matcher(model, ksize=2, io_thres=0.5, imsize=1024, eval_type="fine")
+    reset_counts()
+    for run in (1, 2):
+        match_ms = []
+        quiet.clear()
+        with time_geometry() as geo_ms:
+            t0 = time.perf_counter()
+            qt, rates, res = eval_immatch_val_sets(timed_matcher(matcher, match_ms),
+                                                   data_root=root, log=quiet.append)
+            wall = (time.perf_counter() - t0) * 1e3
+        if res.match_failed or res.geo_failed or len(res.qt) != 4:
+            fail(f"eval Matcher run {run}: failed pairs {res.match_failed + res.geo_failed}")
+        log(f"eval immatch Matcher run {run} [ResNet34 change_stride, seeded, bf16, ksize 2, "
+            f"io_thres 0.5, imsize 1024]: no failed pair; matches per pair {res.num_matches}; "
+            f"qt per pair " + " ".join(f"{q:.2f}" for q in res.qt) + " deg (seeded weights: "
+            f"no bound); ms per pair: matching " + " ".join(f"{t:.2f}" for t in match_ms)
+            + ", geometry " + " ".join(f"{t:.2f}" for t in geo_ms)
+            + f"; protocol {wall / 4:.2f} ms per pair; its log: {quiet[-1]}")
+    launches = {k: v for k, v in counts().items() if v}
+    if not all(launches.get(k, 0) > 0 for k in ("tap_sum", "corr_pool", "expand_scale_pair")):
+        fail(f"eval: B1-B3 must launch under the protocol's Matcher: {launches}")
+    log(f"eval immatch Matcher launches over 2 x 4 pairs: {launches}")
+
+    hp_root = os.path.join(EVAL_DIR, "hpatches")
+    hpatches_sequence(hp_root)
+    quiet.clear()
+    before = counts()
+    hp = eval_hpatches(matcher, hp_root, log=quiet.append)
+    if hp.failed or len(hp.errors["v"]) != 5:
+        fail(f"eval hpatches: failed {hp.failed}, pairs {len(hp.errors['v'])}")
+    hp_launches = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+    log(f"eval hpatches [1 sequence, 5 warps, {W}x{H}, the same Matcher]: no failed pair; "
+        f"matches per pair {hp.num_matches}; MMA@1..10 "
+        + " ".join(f"{v:.3f}" for v in hp.mma()) + f" (seeded weights); launches "
+        f"{hp_launches}")
+    del matcher, model
+    torch.cuda.empty_cache()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    log(f"eval phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts()
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -2118,7 +2395,12 @@ def main():
             if k in ("tap_sum", "corr_pool"):
                 path_counts[k] += v
 
-    # phase 13: report
+    # phase 13: evaluation (the RANSACs, immatch, HPatches)
+    for k, v in eval_path(dev, sd).items():
+        if k in ("tap_sum", "corr_pool", "expand_scale_pair"):
+            path_counts[k] += v
+
+    # phase 14: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

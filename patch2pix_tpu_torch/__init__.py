@@ -11,7 +11,12 @@ function by function:
     the fused fine-stage head, each kernel (``tap_sum``, ``corr_pool``,
     ``patch_expand``, ``conv4d_small``, ``fine_stage``) beside its plain
     PyTorch version,
-  * ``evaluation.Matcher``: the inference façade.
+  * ``evaluation``: the inference façade ``Matcher`` and the evaluation
+    protocols (immatch validation, HPatches, localisation),
+  * ``sfm``: the 5-point, 8-point and PnP RANSACs, batched
+    ``torch.linalg`` work on the card,
+  * ``data``: image loading, the MegaDepth loader, the COLMAP and NVM
+    readers, synthetic scenes.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain version.

@@ -192,6 +192,107 @@ def write_megadepth_fixture(root: str, n_pairs: int, h: int, w: int, seed: int =
     return data_root, pair_root, match_npy, np.stack(Fs)
 
 
+def write_val_dense_fixture(root: str, n_scenes: int, h: int, w: int, seed: int = 0,
+                            grid: Tuple[int, int] = (16, 12)) -> Dict[str, dict]:
+    """A PhotoTourism-layout validation set of :func:`make_posed_pair`
+    scenes on disk, for ``evaluation/immatch.eval_immatch_val_sets``:
+    ``{root}/{scene}/dense/images/im{1,2}.png`` and a COLMAP model in
+    ``{root}/{scene}/dense/sparse`` (one PINHOLE camera; world frame =
+    view 1; a ``grid`` of 3D points on the pair's plane z = 2, view 1
+    observing all, view 2 those inside its frame but every fifth, so the
+    overlap lies in [0.3, 1)), with its ``ov_pairs.npy`` for overlap
+    0.3. Returns ``{scene: {"H", "K", "R", "t"}}``: H maps view-1 pixels
+    to view 2, and view 2's camera coordinates are ``R X + t``."""
+    import os
+
+    from PIL import Image
+
+    from patch2pix_tpu_torch.data.colmap_model import (
+        Camera,
+        ImagePose,
+        Point3D,
+        rotmat2qvec,
+        write_model,
+    )
+    from patch2pix_tpu_torch.data.overlap import model_multi_ov_pairs
+
+    rs = np.random.RandomState(seed)
+    out = {}
+    for i in range(n_scenes):
+        scene = f"scene{i:02d}"
+        im_dir = os.path.join(root, scene, "dense", "images")
+        model_dir = os.path.join(root, scene, "dense", "sparse")
+        os.makedirs(im_dir, exist_ok=True)
+        im1, im2, _, H, K, R, t = make_posed_pair(rs, h, w)
+        # H = K (R - t n^T / d) K^-1 warps view 1 by the motion X2 = R X1 - t
+        # of the plane's points (F is the same for either sign of t)
+        t = -t
+        for name, im in (("im1.png", im1), ("im2.png", im2)):
+            u8 = np.clip(np.round(im * 255), 0, 255).astype(np.uint8)
+            Image.fromarray(u8).save(os.path.join(im_dir, name))
+        gx, gy = grid
+        u, v = np.meshgrid((np.arange(gx) + 0.5) * w / gx, (np.arange(gy) + 0.5) * h / gy)
+        x1 = np.stack([u.ravel(), v.ravel()], axis=1)
+        X = 2.0 * (np.concatenate([x1, np.ones((len(x1), 1))], axis=1) @ np.linalg.inv(K).T)
+        xc = X @ R.T + t
+        x2 = (xc[:, :2] / xc[:, 2:]) @ K[:2, :2].T + K[:2, 2]
+        ids = np.arange(1, len(X) + 1)
+        seen2 = ((x2[:, 0] >= 0) & (x2[:, 0] < w) & (x2[:, 1] >= 0) & (x2[:, 1] < h)
+                 & (ids % 5 != 0))
+        cams = {1: Camera(1, "PINHOLE", w, h, np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
+        ims = {1: ImagePose(1, np.array([1.0, 0, 0, 0]), np.zeros(3), 1, "im1.png", x1, ids),
+               2: ImagePose(2, rotmat2qvec(R), np.asarray(t, np.float64), 1, "im2.png",
+                            x2[seen2], ids[seen2])}
+        pts = {}
+        for k, pid in enumerate(ids):
+            img_ids = np.array([1, 2] if seen2[k] else [1], np.int32)
+            p2d = np.array([k, int(np.sum(seen2[:k]))] if seen2[k] else [k], np.int32)
+            pts[int(pid)] = Point3D(int(pid), X[k], np.zeros(3, np.uint8), 0.0, img_ids, p2d)
+        write_model(cams, ims, pts, model_dir)
+        model_multi_ov_pairs(model_dir, [0.3])
+        out[scene] = {"H": H.astype(np.float64), "K": K, "R": R, "t": t}
+    return out
+
+
+def oracle_matcher(scenes: Dict[str, dict], n: int = 1200, noise: float = 0.2,
+                   seed: int = 0):
+    """An oracle ``matcher(path1, path2) -> (matches, scores, coarse)``
+    over a :func:`write_val_dense_fixture` set: the projections into both
+    views of ``n`` 3D points at depths 1.5 to 3 in view 1 that both views
+    see, with ``noise`` px of Gaussian noise on each end; in the order of
+    the paths given (the protocol pairs ``im2.png`` with ``im1.png``).
+    The points leave the plane: matches on the plane alone fit two
+    essential matrices equally well (the planar twin), so no RANSAC
+    could tell the true pose from them."""
+    import os
+
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+
+    def matcher(path1, path2):
+        scene = scenes[os.path.basename(os.path.dirname(os.path.dirname(os.path.dirname(
+            path1))))]
+        K, R, t = scene["K"], scene["R"], scene["t"]
+        w, h = Image.open(path1).size
+        rows = np.empty((0, 4))
+        while len(rows) < n:
+            uv = rs.uniform((0, 0), (w, h), (2 * n, 2))
+            X = rs.uniform(1.5, 3.0, (2 * n, 1)) * (
+                np.concatenate([uv, np.ones((2 * n, 1))], axis=1) @ np.linalg.inv(K).T)
+            xc = X @ R.T + t
+            x2 = (xc[:, :2] / xc[:, 2:]) @ K[:2, :2].T + K[:2, 2]
+            inside = ((xc[:, 2] > 0) & (x2[:, 0] >= 0) & (x2[:, 0] < w) & (x2[:, 1] >= 0)
+                      & (x2[:, 1] < h))
+            rows = np.concatenate([rows, np.concatenate([uv, x2], axis=1)[inside]])[:n]
+        m = rows + rs.normal(0, noise, (n, 4))
+        if os.path.basename(path1) == "im2.png":
+            m = m[:, [2, 3, 0, 1]]
+        return m, np.ones(n), m
+
+    return matcher
+
+
 def imagenet_normalize(im: np.ndarray) -> np.ndarray:
     mean = np.array([0.485, 0.456, 0.406], np.float32)
     std = np.array([0.229, 0.224, 0.225], np.float32)

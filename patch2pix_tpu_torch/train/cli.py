@@ -10,11 +10,17 @@ Each epoch's data order is seeded with ``seed + epoch`` (as in JAX) and
 its proposal draws with a generator seeded from ``(seed, epoch)``, so a
 run resumed at an epoch boundary repeats the uninterrupted one.
 
-Two things of the JAX CLI are not ported and raise at start-up, before
-any step: a data-parallel ``--mesh`` above 1 (the sharded step), and the
-per-epoch immatch validation, which a run without ``--no_eval`` needs
-(``evaluation/immatch.py`` and the RANSAC of ``evaluation/geometry.py``
-are not in the port).
+After each epoch, unless ``--no_eval``, the JAX CLI's validation: the
+PhotoTourism immatch protocol on ``{data_root}/immatch_benchmark/val_dense``
+(150 pairs a scene at most) through a ``Matcher`` at ksize 2, io_thres
+0.5, imsize 1024 over the training model itself, in ``eval()`` and
+under ``torch.inference_mode()``; an ``immatch_best`` checkpoint when the
+mean pose error or the 0.34/0.33/0.33 pass-rate mix improves. A raise
+there is logged (``Failed to eval immatch``) and training goes on, as in
+JAX.
+
+A data-parallel ``--mesh`` above 1 (the sharded step) is not ported and
+raises at start-up, before any step.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -93,9 +100,7 @@ def parse_args(argv=None):
                    "is not ported")
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="cap batches per epoch (0 = full dataset)")
-    p.add_argument("--no_eval", action="store_true",
-                   help="skip the per-epoch immatch validation (required: it is not "
-                   "ported)")
+    p.add_argument("--no_eval", action="store_true")
     p.add_argument("--wt", type=int, default=480, help="train image width")
     p.add_argument("--ht", type=int, default=320, help="train image height")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
@@ -171,11 +176,29 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the data-parallel (sharded) train step is not ported; "
             "train on one device (--mesh 1)")
-    if not args.no_eval:
-        raise NotImplementedError(
-            "the per-epoch immatch validation is not ported (evaluation/immatch.py's "
-            "eval_immatch_val_sets and the RANSAC of evaluation/geometry.py); pass "
-            "--no_eval")
+
+
+def validate(model, data_root: str, device, log):
+    """The per-epoch immatch validation of the training ``model``: its
+    matches at the JAX CLI's evaluation setting, on running BatchNorm
+    statistics and without autograd. Every module's train/eval flag is
+    restored afterwards, whatever happens. Returns (qt_mean, pass
+    rates)."""
+    from patch2pix_tpu_torch.evaluation.immatch import eval_immatch_val_sets
+    from patch2pix_tpu_torch.evaluation.matcher import Matcher
+
+    modes = [(m, m.training) for m in model.modules()]
+    try:
+        with torch.inference_mode():
+            matcher = Matcher(model, ksize=2, io_thres=0.5, imsize=1024, eval_type="fine",
+                              device=device)
+            qt_err, pass_rate, _ = eval_immatch_val_sets(
+                matcher, data_root=os.path.join(data_root, "immatch_benchmark/val_dense"),
+                sample_max=150, log=log, device=device)
+    finally:
+        for m, training in modes:
+            m.train(training)
+    return qt_err, pass_rate
 
 
 def epoch_generator(seed: int, epoch: int, device):
@@ -278,6 +301,19 @@ def main(argv=None) -> str:
         save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag="last")
         if (epoch + 1) % args.save_step == 0:
             save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag=f"ep{epoch + 1}")
+
+        if not args.no_eval:
+            try:
+                qt_err, pass_rate = validate(model, args.data_root, device, log)
+                rate = 0.34 * pass_rate[0] + 0.33 * pass_rate[4] + 0.33 * pass_rate[9]
+                if qt_err < best_vals[2] or rate > best_vals[3]:
+                    best_vals[2] = min(qt_err, best_vals[2])
+                    best_vals[3] = max(rate, best_vals[3])
+                    save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag="immatch_best")
+                    log(f">>Save best immatch model: epoch={epoch + 1} "
+                        f"qt={qt_err:.3f} rate={rate:.2f}%")
+            except Exception as e:  # a failed validation never stops training, as in JAX
+                log(f"Failed to eval immatch: {e}\n{traceback.format_exc()}")
 
     log(f"Finished, time:{time.time() - t0:.1f}s")
     log.close()

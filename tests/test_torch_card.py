@@ -38,7 +38,11 @@ against the same model on the CPU, which runs the plain versions.
 and a bf16 train step with ``backbone_train_bn`` launches B1-B3. The
 NCNet family's paths (ImMatchNet with VGG16, relocalisation 0 and 2;
 the ResNet101 coarse matcher through B2 at 1024 channels) on the card
-are held against the CPU in f32.
+are held against the CPU in f32. The 5-point, 8-point and PnP RANSACs on
+the card agree with the CPU's on the same sample ids (chip_smoke's
+phase 13 scene at 1200 correspondences: inlier masks within 0.5% of
+rows, R within 0.05 deg, t within 0.1 deg), and degenerate inputs (0, 3
+or 5 valid rows, a point set on one line) do not raise there.
 """
 
 import json
@@ -48,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bf16_ulps, expand_bf16_mismatch
+from chip_smoke import RANSACS, bf16_ulps, dir_deg, expand_bf16_mismatch, ransac_scene, rot_deg
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
 from patch2pix_tpu_torch.data.synthetic import synthetic_batch
 from patch2pix_tpu_torch.models.immatch_net import ImMatchNet
@@ -69,6 +73,8 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_scale_pair_plain,
 )
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_backward, tap_sum_plain
+from patch2pix_tpu_torch.sfm.fivepoint import ransac_essential_5pt
+from patch2pix_tpu_torch.sfm.twoview import draw_sample_ids
 from patch2pix_tpu_torch.train import create_train_state, make_train_step
 from patch2pix_tpu_torch.utils.torch_import import load_ncnet_checkpoint
 from tests.ref_loader import seeded_state_dict
@@ -678,3 +684,41 @@ def test_resnet101_coarse_on_card_matches_cpu(cuda):
     assert (tap_sum.launches - n0[0], corr_pool.launches - n0[1]) == (2, 1)
     assert torch.equal(got.coords.cpu(), want.coords) and torch.equal(got.valid.cpu(), want.valid)
     torch.testing.assert_close(got.scores.cpu(), want.scores, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(RANSACS))
+def test_ransac_on_card_matches_cpu(cuda, name):
+    fn, k, n, _ = RANSACS[name]
+    scene = ransac_scene(7)
+    a, b = (scene["X"], scene["p2"]) if name == "ransac_pnp" else (scene["p1"], scene["p2"])
+    ids = draw_sample_ids(torch.Generator().manual_seed(1), torch.ones(len(a), dtype=torch.bool),
+                          n, k)
+    want = fn(None, a, b, n, scene["thres"], ids=ids)
+    got = fn(None, a.to(cuda), b.to(cuda), n, scene["thres"], ids=ids.to(cuda))
+    assert int((got.inliers.cpu() != want.inliers).sum()) <= len(a) // 200
+    assert rot_deg(got.R.cpu(), want.R) < 0.05 and dir_deg(got.t.cpu(), want.t) < 0.1
+
+
+@pytest.mark.parametrize("n_valid,collinear", [(0, False), (3, False), (5, False),
+                                               (12, True)],
+                         ids=["n0", "n3", "n5", "collinear"])
+def test_ransac_5pt_degenerate_inputs_on_card_do_not_raise(cuda, n_valid, collinear):
+    scene = ransac_scene(8)
+    q1, q2 = torch.zeros(64, 2), torch.zeros(64, 2)
+    if collinear:  # points on one 3D line: collinear in both views
+        s = torch.linspace(-1, 1, n_valid)[:, None]
+        X = torch.tensor([0.1, -0.2, 4.0]) + s * torch.tensor([0.5, 0.3, 1.0])
+        Xc = X + torch.tensor([0.3, 0.1, 0.05])
+        q1[:n_valid], q2[:n_valid] = X[:, :2] / X[:, 2:], Xc[:, :2] / Xc[:, 2:]
+    else:
+        q1[:n_valid], q2[:n_valid] = scene["p1"][:n_valid], scene["p2"][:n_valid]
+    valid = torch.arange(64) < n_valid
+    ids = draw_sample_ids(torch.Generator().manual_seed(2), valid, 256, 5)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    for res in (ransac_essential_5pt(None, q1.to(cuda), q2.to(cuda), 256, scene["thres"],
+                                     valid.to(cuda), ids=ids.to(cuda)),
+                ransac_essential_5pt(gen, q1.to(cuda), q2.to(cuda), 256, scene["thres"],
+                                     valid.to(cuda))):
+        torch.cuda.synchronize()
+        assert res.R.shape == (3, 3) and not res.inliers.cpu()[~valid].any()

@@ -2,8 +2,8 @@
 
   * ``parse_args([])`` gives JAX's namespace plus ``--device``;
     ``run_dir_tags`` gives JAX's directory for six flag sets;
-  * the options that are not ported (``--mesh`` above 1, a run without
-    ``--no_eval``) raise before any step;
+  * the option that is not ported (``--mesh`` above 1) raises before any
+    step;
   * checkpoints: a save/load round trip restores the model, the
     optimizer and the step exactly; ``restore_for_eval`` (and
     ``load_model`` on the directory) rebuilds a model with ``panc = 1``
@@ -16,7 +16,12 @@
     directory; ``--pretrain`` loads a partial state dict and refuses
     unknown keys; a zero fine epi weight freezes ``regress_mid``, and
     ``--feat_comb``, ``--backbone_train_bn`` and ``--remat`` reach the
-    step.
+    step;
+  * without ``--no_eval``, each epoch ends with the immatch validation on
+    a ``val_dense`` fixture beside the training data (the model's own
+    matches): its ``Pose err:`` line, no ``Failed to eval immatch``, an
+    ``immatch_best`` checkpoint whose meta holds the best qt and rate,
+    and training that equals a ``--no_eval`` run's exactly.
 """
 
 import json
@@ -29,7 +34,11 @@ import torch
 from patch2pix_tpu.config import to_json as jax_to_json
 from patch2pix_tpu.train import cli as jax_cli
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
-from patch2pix_tpu_torch.data.synthetic import synthetic_batch, write_megadepth_fixture
+from patch2pix_tpu_torch.data.synthetic import (
+    synthetic_batch,
+    write_megadepth_fixture,
+    write_val_dense_fixture,
+)
 from patch2pix_tpu_torch.evaluation.matcher import Matcher, init_patch2pix_matcher, load_model
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.train import cli, create_train_state, make_train_step
@@ -63,8 +72,8 @@ def test_run_dir_tags_equal_jax(flags):
         jax_cli.parse_args(flags))
 
 
-@pytest.mark.parametrize("flags,match", [(["--mesh", "2", "--no_eval"], "mesh"),
-                                         ([], "immatch validation")], ids=["mesh", "eval"])
+@pytest.mark.parametrize("flags,match", [(["--mesh", "2", "--no_eval"], "mesh")],
+                         ids=["mesh"])
 def test_unported_options_raise_at_start(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(flags + ["--device", "cpu", "--out_dir", str(tmp_path / "out"),
@@ -197,3 +206,33 @@ def test_cli_passes_its_training_flags(tmp_path):
             assert torch.equal(got[k], v), k
         elif k.startswith("regress_fine.") and k.endswith("weight"):
             assert not torch.equal(got[k], v), k
+
+
+def test_cli_validates_each_epoch(tmp_path):
+    fixture = write_megadepth_fixture(str(tmp_path / "fx"), 4, 64, 96, seed=5)
+    write_val_dense_fixture(os.path.join(fixture[0], "immatch_benchmark", "val_dense"), 2,
+                            96, 128, seed=6, grid=(8, 6))
+    args = _cli_args(fixture, str(tmp_path / "eval"), 2)
+    args.remove("--no_eval")
+    run = cli.main(args)
+    plain = cli.main(_cli_args(fixture, str(tmp_path / "plain"), 2))
+    log = open(os.path.join(run, "log.txt")).read()
+    assert log.count("Pose err: qt_mean=") == 2 and "match_failed=0 geo_failed=0" in log
+    assert "Failed to eval immatch" not in log and ">>Save best immatch model" in log
+    assert {"immatch_best.pt", "immatch_best.meta.json"} <= set(os.listdir(run))
+    best = read_meta(run, "immatch_best")["best_vals"]
+    assert np.isfinite(best[2]) and best[2] < np.inf and 0 <= best[3] <= 100
+    # ``last`` of epoch 2 is written before its validation: epoch 1's result
+    assert np.isfinite(read_meta(run)["best_vals"][2])
+    # the validation leaves the training untouched: weights, running
+    # averages, optimizer state and metrics equal the --no_eval run's
+    got = torch.load(os.path.join(run, "last.pt"), weights_only=True)
+    want = torch.load(os.path.join(plain, "last.pt"), weights_only=True)
+    assert got["step"] == want["step"] == 4
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    for i, st in want["optimizer"]["state"].items():
+        for k in st:
+            assert torch.equal(got["optimizer"]["state"][i][k], st[k])
+    assert (open(os.path.join(run, "metrics.jsonl")).read()
+            == open(os.path.join(plain, "metrics.jsonl")).read())
