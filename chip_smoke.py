@@ -121,7 +121,27 @@ Phases, each fatal on failure:
      geometry; (c) ``eval_hpatches`` on one synthetic sequence (a
      reference and 5 warps) with the same Matcher: no failed pair,
      MMA@1..10 printed; the phase's seconds;
-  14. one JSON line of per-kernel numbers (B1's and B2's launches summed
+  14. the SfM backend, which has no kernel (TF32 off): (a) one
+     ``ba_step`` (lambda 1e-3, no Huber) on ``tools/bench_ba.py``'s
+     (200, 20000, 9) scene with its perturbed points, on the card against
+     the CPU (old cost rtol 1e-5, new cost rtol 1e-3, R and t atol 1e-5)
+     and a second step from the same problem bit for bit equal to the
+     first, then ms per LM iteration by bench_ba's marginal method (k = 6 minus
+     k = 2 iterations, best of 3) at (200, 20000, 9) and (500, 100000, 6),
+     with the peak memory, the profiler's top kernels of one iteration and
+     the bound (Bt^T Bt's operations at the f32 peak or Bt's bytes, the
+     larger); (b) the point-sharded BA at world size 1 over NCCL on (a)'s
+     problem: the first step against ``ba_step`` by (a)'s rules, and
+     ``run_dist_ba(max_iters=10, debug_checks=True)`` below 1e-2 of the
+     initial cost and within 0.5 relative of ``run_ba``'s; (c) the scale
+     demo (``python -m patch2pix_tpu_torch.sfm.scale_demo``) at its
+     defaults, 50 cameras, 5000 points, ``--mesh 1``: every camera
+     registered, more than 3000 points, ATE under 1% of the scene radius
+     after the incremental run and after the dist BA, the C++ track
+     builder used, the COLMAP export read back; the stage attribution,
+     the RANSAC, PnP and BA calls, the LM iterations and the dist BA's
+     host synchronisations per iteration; the phase's seconds;
+  15. one JSON line of per-kernel numbers (B1's and B2's launches summed
      over phases 4, 11, 12 and 13, B3's over 4 and 13), then the result
      line.
 
@@ -218,8 +238,27 @@ from patch2pix_tpu_torch.ops.tap_sum import (
     tap_sum_backward,
     tap_sum_plain,
 )
+from patch2pix_tpu_torch import native as native_module
+from patch2pix_tpu_torch.data.colmap_model import read_model
+from patch2pix_tpu_torch.sfm import ba as ba_module
+from patch2pix_tpu_torch.sfm import incremental as incremental_module
+from patch2pix_tpu_torch.sfm import scale_demo
+from patch2pix_tpu_torch.sfm.ba import build_problem, cost, run_ba
+from patch2pix_tpu_torch.sfm.dist_ba import (
+    local_problem,
+    make_dist_ba_step,
+    process_group,
+    run_dist_ba,
+    shard_problem,
+)
 from patch2pix_tpu_torch.sfm.fivepoint import ransac_essential_5pt
 from patch2pix_tpu_torch.sfm.pnp import ransac_pnp
+from patch2pix_tpu_torch.sfm.scale_demo import (
+    lm_iteration_ms,
+    lm_iterations,
+    make_ba_scene,
+    perturb_points,
+)
 from patch2pix_tpu_torch.sfm.twoview import draw_sample_ids, ransac_essential
 from patch2pix_tpu_torch.train import cli as train_cli
 from patch2pix_tpu_torch.train import create_train_state, make_ncn_pretrain_step, make_train_step
@@ -2227,6 +2266,189 @@ def eval_path(dev, sd):
     return counts()
 
 
+# ------------------------------------------------------------ phase 14
+
+SFM_DIR = os.path.join(ROOT, "build", "chip_smoke_sfm")
+# tools/bench_ba.py's first two scales (cameras, points, observations a
+# point); its third, (1000, 200000, 5), is left to the demo's --ba_scales
+BA_SCALES = ((200, 20000, 9), (500, 100000, 6))
+
+
+class counting:
+    """Within the block each named function of ``module`` counts its calls
+    (``.calls``) and keeps its results (``.results``)."""
+
+    def __init__(self, module, *names):
+        self.module, self.names = module, names
+
+    def __enter__(self):
+        self.calls = {n: 0 for n in self.names}
+        self.results = {n: [] for n in self.names}
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            def wrapped(*args, _n=n, **kw):
+                self.calls[_n] += 1
+                out = self.saved[_n](*args, **kw)
+                self.results[_n].append(out)
+                return out
+            setattr(self.module, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def hold_ba_step(tag, got, want):
+    """Phase 14's rules for one LM step against another (those of
+    ``tests/test_sfm_dist.py::test_dist_ba_first_iteration_exact_parity``):
+    old cost rtol 1e-5, new cost rtol 1e-3, R and t atol 1e-5. ``got`` and
+    ``want`` are (Rs, ts, new cost, old cost)."""
+    (gR, gt, gc, go), (wR, wt, wc, wo) = [
+        [np.asarray(torch.as_tensor(x).cpu(), np.float64) for x in v] for v in (got, want)]
+    errs = {"old cost rel": float(abs(go - wo) / abs(wo)), "new cost rel": float(abs(gc - wc) / abs(wc)),
+            "R": float(np.abs(gR - wR).max()), "t": float(np.abs(gt - wt).max())}
+    if not (errs["old cost rel"] <= 1e-5 and errs["new cost rel"] <= 1e-3 and errs["R"] <= 1e-5
+            and errs["t"] <= 1e-5):
+        fail(f"{tag}: {errs}")
+    return errs
+
+
+def ba_iteration_profile(prob, top=8):
+    """(device ms, [(kernel, ms, calls)] of the ``top`` kernels) of one LM
+    iteration, from torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lm_iterations(prob, 1)
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in per.items()), key=lambda r: -r[1])
+    return sum(ms for _, ms, _ in rows), rows[:top]
+
+
+def ba_path(dev):
+    """Phase 14 (a) and (b): one ``ba_step`` on the card against the CPU at
+    ``tools/bench_ba.py``'s (200, 20000, 9) scene, ms per LM iteration at
+    ``BA_SCALES``; then the point-sharded BA at world size 1 over NCCL."""
+    log(f"sfm: TF32 off (torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32})")
+    c0, p0, o0 = BA_SCALES[0]
+    Rs, ts, X, ci, pi, uv = make_ba_scene(c0, p0, o0)
+    args = (Rs, ts, perturb_points(X), ci, pi, uv)
+    card = build_problem(*args, device=dev)
+    new_g, cn_g, co_g = ba_module.ba_step(card, 1e-3, 1e9, False)
+    again, cn_a, _ = ba_module.ba_step(card, 1e-3, 1e9, False)
+    if not all(torch.equal(a, b) for a, b in ((new_g.Rs, again.Rs), (new_g.ts, again.ts),
+                                                (new_g.X, again.X), (cn_g, cn_a))):
+        fail("sfm ba_step: a second step from the same problem differs from the first")
+    new_c, cn_c, co_c = ba_module.ba_step(build_problem(*args, device="cpu"), 1e-3, 1e9, False)
+    errs = hold_ba_step("sfm ba_step card vs CPU", (new_g.Rs, new_g.ts, cn_g, co_g),
+                        (new_c.Rs, new_c.ts, cn_c, co_c))
+    log(f"sfm ba_step [{c0} cams, {p0} pts, {len(ci)} obs, lambda 1e-3, no Huber]: card vs CPU "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; cost {float(co_g):.6g} -> {float(cn_g):.6g}; a second step repeats it bit for bit")
+
+    for c, p, o in BA_SCALES:
+        if (c, p, o) != BA_SCALES[0]:
+            Rs_, ts_, X_, ci_, pi_, uv_ = make_ba_scene(c, p, o)
+            prob = build_problem(Rs_, ts_, perturb_points(X_), ci_, pi_, uv_, device=dev)
+        else:
+            prob, ci_ = card, ci
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = lm_iteration_ms(prob)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dev_ms, rows = ba_iteration_profile(prob)
+        t_ops = 2 * (6 * c) ** 2 * (3 * p) / PEAK_FLOPS[torch.float32] * 1e3
+        bt_bytes = 3 * p * 6 * c * 4
+        t_bytes = bt_bytes / HBM_BPS * 1e3
+        bound_ms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        log(f"sfm LM iteration [{c} cams, {p} pts, {len(ci_)} obs, f32]: {ms:.3f} ms per "
+            f"iteration (marginal, k = 6 - 2, best of 3); bound {bound_ms:.3f} ms ({by}: Bt^T Bt "
+            f"{2 * (6 * c) ** 2 * (3 * p) / 1e12:.3f} TFLOP at f32 67 TFLOP/s, Bt {bt_bytes / 1e9:.3f} "
+            f"GB at 3.35 TB/s; {bound_ms / ms:.1%} of it); peak device memory {peak:.2f} GB; "
+            f"one iteration {dev_ms:.3f} device ms, top kernels: "
+            + "; ".join(f"{k[:70]} {m:.3f} ms x{n}" for k, m, n in rows))
+        del prob
+        torch.cuda.empty_cache()
+
+    # (b) the point-sharded solver at world size 1 over NCCL
+    sp = shard_problem(*args, n_shards=1)
+    stats = {}
+    with process_group(1, 0, "nccl") as group:
+        step = make_dist_ba_step(c0, use_huber=False, group=group)
+        nR, nt, nX, nc, oc = step(local_problem(sp, 0, dev), 1e-3, 1e9)
+        step_errs = hold_ba_step("sfm dist step vs ba_step", (nR, nt, nc, oc),
+                                 (new_g.Rs, new_g.ts, cn_g, co_g))
+        t0 = time.perf_counter()
+        _, _, X_d, c_dist = run_dist_ba(sp, group, max_iters=10, debug_checks=True,
+                                        device=dev, stats=stats)
+        t_dist = time.perf_counter() - t0
+    cost0 = float(cost(card))
+    t0 = time.perf_counter()
+    _, c_single = run_ba(card, max_iters=10, device=dev)
+    t_single = time.perf_counter() - t0
+    rel = abs(c_dist - c_single) / max(c_single, 1e-12)
+    if not (c_dist < cost0 * 1e-2 and rel < 0.5 and np.isfinite(X_d).all()):
+        fail(f"sfm run_dist_ba: cost {cost0:.6g} -> {c_dist:.6g}, run_ba {c_single:.6g}")
+    log(f"sfm dist BA [NCCL, world size 1, {c0} cams]: first step vs ba_step "
+        + ", ".join(f"{k} {v:.3g}" for k, v in step_errs.items())
+        + f"; run_dist_ba(max_iters 10, debug_checks) cost {cost0:.6g} -> {c_dist:.6g} in "
+        f"{stats['iterations']} iterations, {stats['host_syncs']} stop-flag reads (host "
+        f"synchronisations), {t_dist:.2f} s; run_ba {c_single:.6g} in {t_single:.2f} s "
+        f"(relative difference {rel:.3g}); no divergence raised")
+
+
+def sfm_demo_path(cams=50, pts=5000):
+    """Phase 14 (c): the scale demo at its defaults (``cams``, ``pts``)
+    through its ``main``, ``--mesh 1`` on the card."""
+    shutil.rmtree(SFM_DIR, ignore_errors=True)
+    with counting(incremental_module, "ransac_essential", "ransac_pnp", "run_ba") as inc, \
+            counting(ba_module, "ba_step") as steps, \
+            counting(native_module, "build_tracks_native") as nat, \
+            counting(scale_demo, "make_scale_scene", "run_dist_ba_ranks") as demo:
+        summary = scale_demo.main(["--cams", str(cams), "--pts", str(pts), "--mesh", "1",
+                                   "--out", SFM_DIR])
+    Rs_gt, ts_gt = demo.results["make_scale_scene"][0][:2]
+    radius = float(np.linalg.norm([-R.T @ t for R, t in zip(Rs_gt, ts_gt)], axis=1).mean())
+    _, ims, points = read_model(os.path.join(SFM_DIR, "colmap"), ext=".bin")
+    dstats = demo.results["run_dist_ba_ranks"][0][4]
+    ate = {k: summary[k] / radius for k in ("ate_incremental", "ate_after_dist_ba")}
+    if not (summary["points"] > 0.6 * pts and max(ate.values()) < 0.01
+            and nat.calls["build_tracks_native"] == 1 and len(ims) == cams
+            and len(points) == summary["points"]):
+        fail(f"sfm demo: {summary}; ATE / radius {ate}; native track builds "
+             f"{nat.calls['build_tracks_native']}; COLMAP read back {len(ims)} images, "
+             f"{len(points)} points")
+    log(f"sfm demo [{cams} cams, {pts} pts, 0.4 px, 5% outliers, pair gap 5, ba_every 10, mesh 1, "
+        f"{summary['device']}, {summary['power_limit']}]: {summary['points']} points, ATE "
+        f"{100 * ate['ate_incremental']:.4f}% of the radius after the incremental run, "
+        f"{100 * ate['ate_after_dist_ba']:.4f}% after dist BA; native track builder "
+        f"(C++) used; COLMAP export read back: {len(ims)} images, {len(points)} points; "
+        f"{summary['s_per_image']} s/image (incremental {summary['t_incremental_s']} s, "
+        f"tracks {summary['t_tracks_s']} s, dist BA {summary['t_dist_ba_s']} s); stage "
+        f"attribution {summary['stage_attribution']}; calls: RANSAC "
+        f"{inc.calls['ransac_essential']}, PnP {inc.calls['ransac_pnp']}, BA "
+        f"{inc.calls['run_ba']} ({steps.calls['ba_step']} run_ba iterations); dist BA "
+        f"{dstats['iterations']} iterations, {dstats['host_syncs']} host synchronisations "
+        f"({dstats['host_syncs'] / max(dstats['iterations'], 1):.2f} per iteration)")
+    shutil.rmtree(SFM_DIR, ignore_errors=True)
+
+
+def sfm_path(dev):
+    """Phase 14: the SfM backend (no kernel on its path)."""
+    t_phase = time.perf_counter()
+    ba_path(dev)
+    torch.cuda.empty_cache()
+    sfm_demo_path()
+    torch.cuda.empty_cache()
+    log(f"sfm phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -2400,7 +2622,10 @@ def main():
         if k in ("tap_sum", "corr_pool", "expand_scale_pair"):
             path_counts[k] += v
 
-    # phase 14: report
+    # phase 14: the SfM backend (BA, dist BA at world size 1, the scale demo)
+    sfm_path(dev)
+
+    # phase 15: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

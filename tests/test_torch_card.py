@@ -42,7 +42,10 @@ are held against the CPU in f32. The 5-point, 8-point and PnP RANSACs on
 the card agree with the CPU's on the same sample ids (chip_smoke's
 phase 13 scene at 1200 correspondences: inlier masks within 0.5% of
 rows, R within 0.05 deg, t within 0.1 deg), and degenerate inputs (0, 3
-or 5 valid rows, a point set on one line) do not raise there.
+or 5 valid rows, a point set on one line) do not raise there. One
+Schur BA step (``sfm/ba.py``, padded and not) on the card agrees with
+the CPU's by chip_smoke's phase 14 rules (old cost rtol 1e-5, new cost
+rtol 1e-3, R and t atol 1e-5; points atol 1e-4).
 """
 
 import json
@@ -52,7 +55,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RANSACS, bf16_ulps, dir_deg, expand_bf16_mismatch, ransac_scene, rot_deg
+from chip_smoke import (
+    RANSACS,
+    bf16_ulps,
+    dir_deg,
+    expand_bf16_mismatch,
+    hold_ba_step,
+    ransac_scene,
+    rot_deg,
+)
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
 from patch2pix_tpu_torch.data.synthetic import synthetic_batch
 from patch2pix_tpu_torch.models.immatch_net import ImMatchNet
@@ -73,7 +84,9 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_scale_pair_plain,
 )
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_backward, tap_sum_plain
+from patch2pix_tpu_torch.sfm.ba import ba_step, build_problem
 from patch2pix_tpu_torch.sfm.fivepoint import ransac_essential_5pt
+from patch2pix_tpu_torch.sfm.scale_demo import make_ba_scene, perturb_points
 from patch2pix_tpu_torch.sfm.twoview import draw_sample_ids
 from patch2pix_tpu_torch.train import create_train_state, make_train_step
 from patch2pix_tpu_torch.utils.torch_import import load_ncnet_checkpoint
@@ -722,3 +735,33 @@ def test_ransac_5pt_degenerate_inputs_on_card_do_not_raise(cuda, n_valid, collin
                                      valid.to(cuda))):
         torch.cuda.synchronize()
         assert res.R.shape == (3, 3) and not res.inliers.cpu()[~valid].any()
+
+
+@pytest.mark.parametrize("bucket", [False, True])
+def test_ba_step_on_card_matches_cpu(cuda, bucket):
+    """One LM step of the Schur BA on a small bench_ba scene (40 cameras,
+    2000 points, 6 observations a point, the points perturbed), on the card
+    against the CPU: chip_smoke's phase 14 rules."""
+    Rs, ts, X, ci, pi, uv = make_ba_scene(40, 2000, 6)
+    args = (Rs, ts, perturb_points(X), ci, pi, uv)
+    new_c, cn_c, co_c = ba_step(build_problem(*args, bucket=bucket, device="cpu"), 1e-3, 1e9,
+                                False)
+    new_g, cn_g, co_g = ba_step(build_problem(*args, bucket=bucket, device=cuda), 1e-3, 1e9,
+                                False)
+    hold_ba_step("ba_step", (new_g.Rs, new_g.ts, cn_g, co_g), (new_c.Rs, new_c.ts, cn_c, co_c))
+    np.testing.assert_allclose(new_g.X.cpu().numpy(), new_c.X.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("bucket", [False, True])
+def test_ba_step_repeats_bit_for_bit_on_card(cuda, bucket):
+    """The segment sums add each segment's rows in one order on the card,
+    so two LM steps from the same problem are equal bit for bit (the padded
+    problem repeats its pad camera and pad point in every pad row)."""
+    Rs, ts, X, ci, pi, uv = make_ba_scene(40, 2000, 6)
+    prob = build_problem(Rs, ts, perturb_points(X), ci, pi, uv, bucket=bucket, device=cuda)
+    first, cn1, co1 = ba_step(prob, 1e-3, 1e9, False)
+    for _ in range(3):
+        again, cn2, co2 = ba_step(prob, 1e-3, 1e9, False)
+        for a, b in ((first.Rs, again.Rs), (first.ts, again.ts), (first.X, again.X),
+                     (cn1, cn2), (co1, co2)):
+            assert torch.equal(a, b)

@@ -1,16 +1,18 @@
 """Package-level properties of the port (``patch2pix_tpu_torch``).
 
-  * no module of the port, and not ``chip_smoke.py``, imports JAX, its
-    libraries or the JAX package (an AST scan);
+  * no module of the port, and not ``chip_smoke.py`` or the tests' gloo
+    rank worker, imports JAX, its libraries or the JAX package (an AST
+    scan);
   * the port's parameter keys are the reference's (the 276-key shape
     map stored in the golden fixtures), and ``state_dict_from_jax``
     inverts ``convert_patch2pix_state_dict`` exactly;
   * config-derived fields and device resolution;
-  * each kernel module's ctypes signatures name, for every C function
-    it binds, one type code per parameter of that function's prototype
-    in ``csrc/`` (a pointer ``p``, an int ``i``, a 64-bit int ``l``):
-    ctypes passes a missing or extra code silently until the card
-    calls it.
+  * each kernel module's ctypes signatures, and the native track
+    builder's, name, for every C function it binds, one type code per
+    parameter of that function's prototype in ``csrc/`` or ``native/``
+    (a pointer ``p``, an int ``i``, a 64-bit int ``l``, a double ``d``):
+    ctypes passes a missing or extra code silently until the function
+    is called.
 """
 
 import ast
@@ -45,7 +47,8 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "patch2pix_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "patch2pix_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
     assert len(files) > 15
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -105,35 +108,54 @@ def test_resolve_device():
             resolve_device()
 
 
+def _codes(params):
+    """ctypes type codes of a C parameter list."""
+    params = [a for a in params.split(",") if a.strip()]
+    return "".join(
+        "p" if "*" in a else "d" if "double" in a
+        else "l" if "long long" in a or "int64_t" in a else "i"
+        for a in params)
+
+
 def _c_prototypes():
     """{C function: type codes} of every ``extern "C"`` function in
-    ``csrc/*.cu``."""
+    ``csrc/*.cu`` and in the ``extern "C"`` block of ``native/*.cpp``."""
+    port = ROOT / "patch2pix_tpu_torch"
     out = {}
-    for src in sorted((ROOT / "patch2pix_tpu_torch" / "csrc").glob("*.cu")):
+    for src in sorted((port / "csrc").glob("*.cu")):
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
-            params = [a for a in m.group(2).split(",") if a.strip()]
-            out[m.group(1)] = "".join(
-                "p" if "*" in a else "l" if "long long" in a or "int64_t" in a else "i"
-                for a in params)
+            out[m.group(1)] = _codes(m.group(2))
+    for src in sorted((port / "native").glob("*.cpp")):
+        block = src.read_text().split('extern "C" {', 1)[1]
+        for m in re.finditer(r"^\w+ (\w+)\(([^)]*)\)\s*\{", block, re.M):
+            out[m.group(1)] = _codes(m.group(2))
     return out
 
 
-SIGNATURE_MODULES = ("tap_sum", "corr_pool", "patch_expand", "conv4d_small", "fine_stage")
+SIGNATURE_MODULES = ("tap_sum", "corr_pool", "patch_expand", "conv4d_small", "fine_stage",
+                     "native")
+
+
+def _signature_module(name):
+    """The module binding ``name``'s C functions: ``ops.<name>``, or the
+    native track builder's ``patch2pix_tpu_torch.native``."""
+    if name == "native":
+        return importlib.import_module("patch2pix_tpu_torch.native")
+    return importlib.import_module(f"patch2pix_tpu_torch.ops.{name}")
 
 
 @pytest.mark.parametrize("module", SIGNATURE_MODULES)
 def test_ctypes_signatures_match_the_c_prototypes(module):
     protos = _c_prototypes()
-    sigs = importlib.import_module(f"patch2pix_tpu_torch.ops.{module}")._SIGNATURES
+    sigs = _signature_module(module)._SIGNATURES
     assert sigs
     for fn, codes in sigs.items():
         assert protos.get(fn) == codes, fn
 
 
 def test_every_c_entry_point_is_bound_once():
-    """Every ``extern "C"`` function in ``csrc/`` (a new entry point
-    included) is named by exactly one module's ``_SIGNATURES``, so the
-    check above covers it."""
-    bound = [fn for m in SIGNATURE_MODULES
-             for fn in importlib.import_module(f"patch2pix_tpu_torch.ops.{m}")._SIGNATURES]
+    """Every ``extern "C"`` function in ``csrc/`` and ``native/`` (a new
+    entry point included) is named by exactly one module's
+    ``_SIGNATURES``, so the check above covers it."""
+    bound = [fn for m in SIGNATURE_MODULES for fn in _signature_module(m)._SIGNATURES]
     assert sorted(bound) == sorted(_c_prototypes())
