@@ -141,14 +141,37 @@ Phases, each fatal on failure:
      builder used, the COLMAP export read back; the stage attribution,
      the RANSAC, PnP and BA calls, the LM iterations and the dist BA's
      host synchronisations per iteration; the phase's seconds;
-  15. one JSON line of per-kernel numbers (B1's and B2's launches summed
-     over phases 4, 11, 12 and 13, B3's over 4 and 13), then the result
-     line.
+  15. the sharded paths at world size 1 over NCCL from a ``file://``
+     store (``parallel.mesh.process_group``), each part's seconds
+     printed: (a) ``BatchedMatcher`` (seeded ResNet34, imsize 1024, both
+     strides) on 10 seeded PNG pairs, 8 at 1024x768 and 2 at 640x480 (two
+     buckets; change_stride's per_chip_batch 4 pads the second): in f32
+     each pair equals ``Matcher.estimate_matches`` by the goldens' rules
+     (the same coarse row set, coords 0.05 px, scores 5e-3); in bf16 the
+     pairs/s at per_chip_batch 1, 2 and 4 beside phase 4's; B1-B3
+     launches counted from zero, each first call held as in phase 2, and
+     no collective recorded while matching; (b) one train step over the
+     mesh (phase 7's setting) from the seeded state and a fixed proposal
+     draw against ``make_train_step``'s without a mesh, under cuDNN's
+     deterministic algorithms: parameters and running averages
+     ``torch.equal`` (in f32, or within rtol 1e-5 / atol 1e-6), the same
+     metrics (rtol 1e-5), and beside them the control, the step without
+     a mesh run twice, with the deterministic and the default
+     algorithms; ms per step beside phase 7's, bf16 and f32; the
+     collectives of a step (all-reduces only) with the gradient buffer's
+     bytes; B1 and B3 launch, each first call held as in phase 7; (c) the
+     h1-sharded coarse matcher on phase 4's change_stride features
+     (2, 96, 128, 256), bf16 and f32: coords and valid flags equal
+     ``coarse_matches``', scores rtol 2e-5 / atol 1e-6; B2 and B1 launch
+     and are held; ms per call beside the single-device coarse stage;
+  16. one JSON line of per-kernel numbers (B1's and B2's launches summed
+     over phases 4, 11, 12, 13 and 15, B3's over 4, 13 and 15), then the
+     result line.
 
 Each path's launches are counted from zero just before it runs: phase 4
 for B1-B3, phase 5 for B4, phase 6 for B5 and B7, phase 10 for B1-B3
 under the CLI, phases 11 and 12 for B1 and B2, phase 13 for B1-B3
-under the protocols' Matcher.
+under the protocols' Matcher, phase 15 for B1-B3 on each sharded path.
 
 Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 """
@@ -180,6 +203,7 @@ from patch2pix_tpu_torch.data.synthetic import (
 from patch2pix_tpu_torch.evaluation import immatch as immatch_module
 from patch2pix_tpu_torch.evaluation.hpatches import eval_hpatches
 from patch2pix_tpu_torch.evaluation.immatch import eval_immatch_val_sets
+from patch2pix_tpu_torch.evaluation.batched import BatchedMatcher
 from patch2pix_tpu_torch.evaluation.matcher import (
     Matcher,
     estimate_matches,
@@ -239,6 +263,10 @@ from patch2pix_tpu_torch.ops.tap_sum import (
     tap_sum_plain,
 )
 from patch2pix_tpu_torch import native as native_module
+from patch2pix_tpu_torch.parallel import volume_sharding as volume_sharding_module
+from patch2pix_tpu_torch.parallel.comm_stats import format_comm_table, record_collectives
+from patch2pix_tpu_torch.parallel.mesh import make_mesh, process_group, shard_batch
+from patch2pix_tpu_torch.parallel.volume_sharding import make_sharded_coarse_matcher
 from patch2pix_tpu_torch.data.colmap_model import read_model
 from patch2pix_tpu_torch.sfm import ba as ba_module
 from patch2pix_tpu_torch.sfm import incremental as incremental_module
@@ -247,7 +275,6 @@ from patch2pix_tpu_torch.sfm.ba import build_problem, cost, run_ba
 from patch2pix_tpu_torch.sfm.dist_ba import (
     local_problem,
     make_dist_ba_step,
-    process_group,
     run_dist_ba,
     shard_problem,
 )
@@ -2449,6 +2476,263 @@ def sfm_path(dev):
     log(f"sfm phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 15
+
+BATCHED_DIR = os.path.join(ROOT, "build", "chip_smoke_batched")
+# (a)'s pairs: 8 at the main path's size and 2 smaller (a second bucket)
+BATCHED_PAIRS = ((W, H, 8), (640, 480, 2))
+
+
+def write_batched_pairs(root):
+    """Seeded noise PNG pairs, as ``BATCHED_PAIRS`` sizes them."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    pairs, seed = [], 100
+    for w, h, n in BATCHED_PAIRS:
+        for _ in range(n):
+            paths = []
+            for _ in range(2):
+                im = seeded_images(1, h, w, seed)[0]
+                seed += 1
+                paths.append(os.path.join(root, f"{seed}.png"))
+                Image.fromarray(np.clip((im * 0.25 + 0.45) * 255, 0, 255).astype(np.uint8)
+                                ).save(paths[-1])
+            pairs.append(tuple(paths))
+    return pairs
+
+
+def hold_pair_parity(tag, got, want):
+    """The goldens' rules on one pair's (matches, scores, coarse): the
+    same coarse row set, matches within 0.05 px and scores within 5e-3.
+    Returns (rows, max coord err, max score err)."""
+    order = [np.lexsort(np.asarray(o[2]).T[::-1]) for o in (got, want)]
+    g, w = ([np.asarray(a)[i] for a in o] for o, i in zip((got, want), order))
+    if len(g[0]) != len(w[0]) or not np.array_equal(g[2], w[2]):
+        fail(f"{tag}: coarse row sets differ ({len(g[0])} vs {len(w[0])} rows)")
+    ce = float(np.abs(g[0] - w[0]).max()) if len(g[0]) else 0.0
+    se = float(np.abs(g[1] - w[1]).max()) if len(g[0]) else 0.0
+    if ce > 0.05 or se > 5e-3:
+        fail(f"{tag}: coords err {ce:.3g} px, scores err {se:.3g}")
+    return len(g[0]), ce, se
+
+
+def batched_path(dev, sd, mesh, main_pairs_s):
+    """Phase 15 (a): ``BatchedMatcher`` on 10 PNG pairs in two buckets."""
+    pairs = write_batched_pairs(BATCHED_DIR)
+    kw = dict(ksize=2, io_thres=0.25, imsize=1024, fine_cap=FINE_CAP)
+    total = {}
+    for cs in (True, False):
+        tag = "change_stride" if cs else "upsample 16"
+        model = build_model(cs, sd, "float32", dev)
+        bm = BatchedMatcher(model, mesh=mesh, **kw)
+        with record_collectives() as comm:
+            out = bm.match_pairs(pairs)
+        if comm:
+            fail(f"batched {tag}: collectives recorded while matching: {comm}")
+        matcher = Matcher(model, **kw)
+        errs = [hold_pair_parity(f"batched {tag} f32 pair {i}", got,
+                                 matcher.estimate_matches(*pair))
+                for i, (got, pair) in enumerate(zip(out, pairs))]
+        log(f"batched {tag} [f32, TF32 off, imsize 1024, per_chip_batch "
+            f"{bm.per_chip_batch}, {len(pairs)} pairs in buckets of "
+            + " and ".join(f"{n} ({w}x{h})" for w, h, n in BATCHED_PAIRS) + "]: "
+            f"every pair equals Matcher.estimate_matches (rows " + " ".join(
+                str(e[0]) for e in errs) + f"; max coord err {max(e[1] for e in errs):.3g} "
+            f"px, max score err {max(e[2] for e in errs):.3g}); collectives: none")
+        del model, bm, matcher
+        torch.cuda.empty_cache()
+
+        model = build_model(cs, sd, "bfloat16", dev)
+        rates = {}
+        for pcb in (1, 2, 4):
+            bm = BatchedMatcher(model, mesh=mesh, per_chip_batch=pcb, **kw)
+            bm.match_pairs(pairs[:1])  # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bm.match_pairs(pairs)
+            rates[pcb] = len(pairs) / (time.perf_counter() - t0)
+        reset_counts()
+        with capture_inputs(keep=1) as captured, record_collectives() as comm:
+            BatchedMatcher(model, mesh=mesh, **kw).match_pairs(pairs)
+        launches = {k: v for k, v in counts().items() if v}
+        if comm or not all(launches.get(k, 0) > 0
+                           for k in ("tap_sum", "corr_pool", "expand_scale_pair")):
+            fail(f"batched {tag} bf16: launches {launches}, collectives {comm}")
+        hold_path_calls(f"batched {tag} bf16", outside_inference(captured),
+                        torch.Generator(device=dev).manual_seed(5))
+        log(f"batched {tag} [bf16]: pairs/s over the {len(pairs)} pairs (PNG decode and resize "
+            f"included) at per_chip_batch 1 / 2 / 4: " + " / ".join(
+                f"{rates[k]:.2f}" for k in (1, 2, 4)) + f"; phase 4's predict_fine at B=2 "
+            f"{main_pairs_s[cs]:.2f} pairs/s; launches over the pairs {launches}; "
+            f"collectives: none")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del model
+        torch.cuda.empty_cache()
+    shutil.rmtree(BATCHED_DIR, ignore_errors=True)
+    return total
+
+
+def state_gap(got, want):
+    """Max abs difference over matching tensors of two dicts (0.0 when
+    every one is torch.equal)."""
+    return max(float((got[k].float() - v.float()).abs().max()) for k, v in want.items())
+
+
+def sharded_train_path(dev, sd, mesh, train_ms):
+    """Phase 15 (b): one step over the mesh against ``make_train_step``
+    without one, from a copy of the same state and rand, then ms per
+    step, f32 then bf16. The control is ``make_train_step`` twice
+    without a mesh: how far the step differs from itself, with cuDNN's
+    default algorithms (some f32 backward ones are not deterministic) and
+    with its deterministic ones, under which the comparison runs."""
+    batches = train_batches(dev, n=1)
+    cells = (TRAIN_H // 8 // 2) * (TRAIN_W // 8 // 2)
+    rand = torch.rand((TRAIN_BATCH, 2 * cells), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(7))
+    kw = dict(ksize=2, ptmax=PTMAX, remat="auto")
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        tag = f"sharded train [{dtype}]"
+        runs = {}
+        for name in ("default", "default control", "single", "control", "sharded"):
+            torch.backends.cudnn.deterministic = not name.startswith("default")
+            model = seeded_model(sd, dtype, dev)
+            state = create_train_state(model, OptimConfig(lr_init=5e-4))
+            step = (make_train_step(model, state.optimizer, mesh=mesh, debug_checks=True, **kw)
+                    if name == "sharded" else make_train_step(model, state.optimizer, **kw))
+            batch = shard_batch(batches[0], mesh) if name == "sharded" else batches[0]
+            reset_counts()
+            with capture_inputs(keep=1) as captured, record_collectives() as comm:
+                state, met = step(state, batch, rand=rand)
+                torch.cuda.synchronize()
+            torch.backends.cudnn.deterministic = False
+            runs[name] = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                          {k: float(v) for k, v in met.items()}, comm,
+                          {k: v for k, v in counts().items() if v},
+                          {k: p.grad.clone() for k, p in model.named_parameters()
+                           if p.grad is not None})
+            if name == "sharded":
+                launches = runs[name][3]
+                if not (launches.get("tap_sum", 0) > 0
+                        and launches.get("expand_scale_pair", 0) > 0):
+                    fail(f"{tag}: B1 and B3 must launch in a step: {launches}")
+                hold_path_calls(tag, captured, torch.Generator(device=dev).manual_seed(6))
+                n_grad = sum(p.numel() for p in model.parameters() if p.requires_grad)
+                # timed with cuDNN's default algorithms, as phase 7 is
+                times = []
+                for _ in range(6):
+                    t0 = time.perf_counter()
+                    state, _ = step(state, batch, rand=rand)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms = float(np.median(times[1:]))
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            del captured, model, state, step
+            torch.cuda.empty_cache()
+        (sd_s, met_s, comm, _, g_s), (sd_1, met_1, _, _, g_1) = runs["sharded"], runs["single"]
+        sd_c, g_c = runs["control"][0], runs["control"][4]
+        (sd_d, g_d), (sd_dc, g_dc) = ((runs[k][0], runs[k][4])
+                                      for k in ("default", "default control"))
+        if set(comm) != {"all-reduce"}:
+            fail(f"{tag}: collectives other than all-reduce: {comm}")
+        if met_s.keys() != met_1.keys() or any(
+                abs(met_s[k] - v) > 1e-6 + 1e-5 * abs(v) for k, v in met_1.items()):
+            fail(f"{tag}: metrics differ from make_train_step's: {met_s} vs {met_1}")
+        if g_s.keys() != g_1.keys():
+            fail(f"{tag}: other parameters have gradients")
+        equal = all(torch.equal(sd_s[k], v) for k, v in sd_1.items())
+        # parameters and running averages: torch.equal, or in f32 within
+        # rtol 1e-5 / atol 1e-6
+        close = all(torch.allclose(sd_s[k].float(), v.float(), rtol=1e-5, atol=1e-6)
+                    for k, v in sd_1.items())
+        control = (f"the control, make_train_step twice: state max abs diff "
+                   f"{state_gap(sd_c, sd_1):.3g}, gradients {state_gap(g_c, g_1):.3g}; with "
+                   f"cuDNN's default algorithms {state_gap(sd_dc, sd_d):.3g} and "
+                   f"{state_gap(g_dc, g_d):.3g}")
+        if not (equal or dtype == "float32" and close):
+            fail(f"{tag}: against make_train_step without a mesh: state max abs diff "
+                 f"{state_gap(sd_s, sd_1):.3g}, gradients {state_gap(g_s, g_1):.3g}; "
+                 + control)
+        log(f"{tag} [ResNet34 change_stride {TRAIN_W}x{TRAIN_H} B={TRAIN_BATCH} ptmax={PTMAX} "
+            f"panc 8, world size 1 over NCCL]: one step over the mesh against make_train_step "
+            f"without one, from the same state and rand, cuDNN deterministic: parameters and "
+            f"running averages "
+            + ("torch.equal" if equal else
+               f"within rtol 1e-5 / atol 1e-6 (max abs diff {state_gap(sd_s, sd_1):.3g}, "
+               f"gradients {state_gap(g_s, g_1):.3g})")
+            + f"; {control}; metrics equal within rtol 1e-5; ms/step median {ms:.2f} of 5 "
+            f"(phase 7's make_train_step {train_ms[dtype]:.2f}); collectives per step: "
+            + ", ".join(f"{k} x{v['count']} {v['bytes']} bytes" for k, v in comm.items())
+            + f", of which the gradient buffer {4 * n_grad} bytes ({n_grad} trainable "
+            f"values); launches per step {runs['sharded'][3]}")
+    return total
+
+
+def sharded_coarse_path(dev, sd, mesh, ims):
+    """Phase 15 (c): the h1-sharded coarse matcher on phase 4's
+    change_stride features, bf16 and f32."""
+    total = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(True, sd, dtype, dev)
+        with torch.inference_mode():
+            f1, f2 = (f[-1] for f in model.extract_pyramid_pair(ims[0], ims[1]))
+        fn = make_sharded_coarse_matcher(model, mesh, ksize=2)
+
+        def single():
+            with torch.inference_mode():
+                return model.coarse_matches(*model.coarse_corr(f1, f2, 2), 2)
+
+        want = single()
+        reset_counts()
+        with capture_inputs(sites=((conv4d_module, "tap_sum"),
+                                   (volume_sharding_module, "corr_pool")),
+                            keep=1) as captured, record_collectives() as comm:
+            got = fn(f1, f2)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in counts().items() if v}
+        tag = f"sharded coarse [{dtype}]"
+        if not (launches.get("tap_sum", 0) > 0 and launches.get("corr_pool", 0) > 0):
+            fail(f"{tag}: B1 and B2 must launch: {launches}")
+        hold_path_calls(tag, outside_inference(captured),
+                        torch.Generator(device=dev).manual_seed(8))
+        if not (torch.equal(got.coords, want.coords) and torch.equal(got.valid, want.valid)):
+            fail(f"{tag}: coords or valid flags differ from coarse_matches'")
+        serr = float((got.scores - want.scores).abs().max())
+        if not torch.allclose(got.scores, want.scores, rtol=2e-5, atol=1e-6):
+            fail(f"{tag}: scores differ from coarse_matches' by {serr:.3g}")
+        ms, single_ms = time_ms(lambda: fn(f1, f2), iters=5), time_ms(single, iters=5)
+        log(f"{tag} [features {tuple(f1.shape)}, ksize 2, world size 1 over NCCL]: coords "
+            f"and valid flags equal coarse_matches', scores max err {serr:.3g}; "
+            f"{ms:.3f} ms per call (single-device coarse stage {single_ms:.3f}); "
+            f"launches per call {launches}; per call {format_comm_table(comm)}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del model, f1, f2, fn
+        torch.cuda.empty_cache()
+    return total
+
+
+def parallel_path(dev, sd, main_pairs_s, train_ms, ims):
+    """Phase 15: the sharded paths at world size 1 over NCCL. Returns
+    B1-B3's launches summed over (a)-(c)."""
+    t_phase = time.perf_counter()
+    total = {}
+    with process_group(1, 0, "nccl") as group:
+        mesh = make_mesh(group=group, device=dev)
+        for part in (lambda: batched_path(dev, sd, mesh, main_pairs_s),
+                     lambda: sharded_train_path(dev, sd, mesh, train_ms),
+                     lambda: sharded_coarse_path(dev, sd, mesh, ims)):
+            t0 = time.perf_counter()
+            for k, v in part().items():
+                total[k] = total.get(k, 0) + v
+            log(f"parallel part: {time.perf_counter() - t0:.1f} s")
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -2536,7 +2820,7 @@ def main():
     models = {cs: build_model(cs, sd, "bfloat16", dev) for cs in (True, False)}
     torch.cuda.synchronize()
     reset_counts()
-    per_call = {}
+    per_call, main_pairs_s = {}, {}
     for cs, model in models.items():
         tag = "change_stride (upsample 8)" if cs else "upsample 16"
         matcher = Matcher(model, ksize=2, fine_cap=FINE_CAP)
@@ -2570,6 +2854,7 @@ def main():
             call()
         torch.cuda.synchronize()
         pairs_s = BATCH * 10 / (time.perf_counter() - t0)
+        main_pairs_s[cs] = pairs_s
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         log(f"main {tag} [{H}x{W} bf16 B={BATCH} fine_cap={FINE_CAP}]: "
             f"{pairs_s:.2f} pairs/s over 10 calls back to back; latency median "
@@ -2625,7 +2910,13 @@ def main():
     # phase 14: the SfM backend (BA, dist BA at world size 1, the scale demo)
     sfm_path(dev)
 
-    # phase 15: report
+    # phase 15: the sharded paths at world size 1 (BatchedMatcher, the
+    # sharded train step, the h1-sharded coarse matcher)
+    for k, v in parallel_path(dev, sd, main_pairs_s, train_ms, ims).items():
+        if k in ("tap_sum", "corr_pool", "expand_scale_pair"):
+            path_counts[k] += v
+
+    # phase 16: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

@@ -1,9 +1,10 @@
-"""patch2pix_tpu_torch.evaluation: the matcher façade and the
-evaluation protocols (PhotoTourism immatch validation, HPatches MMA,
-localisation against a COLMAP map) with their geometry and measures;
-the JAX package's names but ``BatchedMatcher`` (pairs sharded over a
-mesh, not ported)."""
+"""patch2pix_tpu_torch.evaluation: the matcher façade, the batched
+matcher (pairs sharded over a mesh, ``batched.py``) and the evaluation
+protocols (PhotoTourism immatch validation, HPatches MMA, localisation
+against a COLMAP map) with their geometry and measures; the JAX
+package's names."""
 
+from patch2pix_tpu_torch.evaluation.batched import BatchedMatcher
 from patch2pix_tpu_torch.evaluation.geometry import (
     abs2relapose,
     ess2fund,
@@ -40,6 +41,7 @@ from patch2pix_tpu_torch.evaluation.measure import (
 )
 
 __all__ = [
+    "BatchedMatcher",
     "abs2relapose",
     "ess2fund",
     "fund2ess",

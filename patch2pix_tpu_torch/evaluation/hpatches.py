@@ -77,9 +77,9 @@ def eval_hpatches(
 
     ``matcher(p1, p2)`` is called per pair; alternatively pass
     ``batch_matcher``, any object with a ``match_pairs(list[(p1, p2)])``
-    method returning one (matches, scores, coarse) a pair (the JAX
-    package's ``BatchedMatcher`` shards the pairs over a mesh; the port
-    has no such matcher yet).
+    method returning one (matches, scores, coarse) a pair, such as
+    ``evaluation.batched.BatchedMatcher``, which shards the pairs over a
+    mesh.
     """
     sequences = sequences or sorted(
         s for s in os.listdir(data_root)

@@ -122,12 +122,14 @@ class Patch2Pix(nn.Module):
 
     # ---------------- coarse stage ----------------
 
-    def extract_pyramid_pair(self, im1, im2, stats=None):
+    def extract_pyramid_pair(self, im1, im2, stats=None, stack: bool = True):
         """Both images' pyramids; one stacked backbone call when the
         shapes match (exact: BN runs on running averages). ``stats``: a
         list to run the backbone's BatchNorms on batch statistics, one
-        call per side (``ResNetFeatures.forward``)."""
-        if stats is not None or im1.shape != im2.shape:
+        call per side (``ResNetFeatures.forward``). ``stack=False`` also
+        takes one call per side, as the JAX package does on a sharded
+        batch."""
+        if stats is not None or not stack or im1.shape != im2.shape:
             return (self.extract(im1, pyramid=True, stats=stats),
                     self.extract(im2, pyramid=True, stats=stats))
         b = im1.shape[0]
@@ -218,10 +220,12 @@ class Patch2Pix(nn.Module):
 
     def forward(self, im1, im2, ksize: int = 2, ptmax: int = 400, train: bool = True,
                 backbone_train_bn: bool = False, remat: str = "none", generator=None,
-                rand=None):
+                rand=None, rand_rows=None):
         """Training forward on NHWC images ``(B, H, W, 3)``: coarse
         matches -> ``ptmax`` proposals per pair (:func:`select_ptmax` with
-        ``generator``, or the explicit ``(B, N)`` uniform draw ``rand``)
+        ``generator``, or the explicit ``(B, N)`` uniform draw ``rand``;
+        ``rand_rows`` ``(offset, global batch)``: ``generator`` draws the
+        global batch's rows and this batch takes its own)
         -> ``panc`` anchors -> mid stage -> fine stage. Returns the dict
         of the JAX ``__call__``: ``coarse`` (the anchors), ``mid``,
         ``mid_probs``, ``fine``, ``fine_probs``, ``corr``.
@@ -242,7 +246,7 @@ class Patch2Pix(nn.Module):
         feats1, feats2 = self.extract_pyramid_pair(im1, im2, st_backbone)
         corr, delta4d = self.coarse_corr(feats1[-1], feats2[-1], ksize)
         cm = self.coarse_matches(corr, delta4d, ksize, mutual=True, ncn_thres=0.0)
-        sel = select_ptmax(cm.coords, cm.scores, cm.valid, ptmax, generator, rand)
+        sel = select_ptmax(cm.coords, cm.scores, cm.valid, ptmax, generator, rand, rand_rows)
         anchors = shift_to_anchors(sel.coords, r.pshift, r.panc)
         tiles1, tiles2 = self._shared_tiles(feats1, feats2)
 
@@ -282,16 +286,20 @@ class Patch2Pix(nn.Module):
 
     @torch.inference_mode()
     def predict_fine(self, im1, im2, ksize: int = 2, ncn_thres: float = 0.0,
-                     mutual: bool = True, fine_cap: Optional[int] = None
-                     ) -> Tuple[Matches, Matches, Matches]:
+                     mutual: bool = True, fine_cap: Optional[int] = None,
+                     stack_backbone: bool = True) -> Tuple[Matches, Matches, Matches]:
         """Full inference on NHWC images ``(B, H, W, 3)``. Returns
         (fine, mid, coarse) Matches, all carrying the coarse validity.
 
         ``fine_cap``: bound on the rows entering the regression stages.
         Valid rows are compacted to the front, highest score first
         (a stable sort), so the result is exactly the uncapped one when a
-        pair has <= fine_cap valid coarse matches."""
-        feats1, feats2 = self.extract_pyramid_pair(im1, im2)
+        pair has <= fine_cap valid coarse matches.
+
+        ``stack_backbone=False``: one backbone call per side, the JAX
+        package's choice on a sharded batch (its API; a rank of the port
+        holds whole pairs, and its callers stack); the same output."""
+        feats1, feats2 = self.extract_pyramid_pair(im1, im2, stack=stack_backbone)
         corr, delta4d = self.coarse_corr(feats1[-1], feats2[-1], ksize)
         cm = self.coarse_matches(corr, delta4d, ksize, mutual, ncn_thres)
         if mutual:

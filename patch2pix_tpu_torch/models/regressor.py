@@ -38,6 +38,8 @@ averages, ``0.9 * old + 0.1 * batch``. The caller applies the update, so
 a stage recomputed under activation checkpointing counts once. In
 ``'post'`` the shared conv BatchNorms see each side's batch in turn, and
 their running averages take both updates in that order, as flax's do.
+Under ``resnet.global_batch_moments`` (the sharded train step) the
+moments are the global batch's.
 
 A fresh regressor draws its conv and Linear weights with flax's
 ``lecun_normal`` (the JAX ``nn.Conv`` and ``nn.Dense`` default); Linear
@@ -52,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from patch2pix_tpu_torch.models.resnet import bn_fold, conv2d_nhwc, lecun_normal_
+from patch2pix_tpu_torch.models.resnet import batch_moments, bn_fold, conv2d_nhwc, lecun_normal_
 
 
 def _as_tuple(x):
@@ -76,17 +78,6 @@ def segmented_conv(xs, weight, stride: int, dtype, slice_map=None):
         y = conv2d_nhwc(x.to(dtype), ks.to(dtype), stride, 1).float()
         acc = y if acc is None else acc + y
     return acc.to(dtype)
-
-
-def batch_moments(x):
-    """Float32 mean and biased variance over every axis but the last,
-    from one sum / sum-of-squares pass: ``E[x^2] - mean^2`` clamped at 0
-    (``BNAffine``'s and flax ``nn.BatchNorm``'s fast variance)."""
-    xf = x.float().reshape(-1, x.shape[-1])
-    n = xf.shape[0]
-    mean = xf.sum(dim=0) / n
-    var = torch.clamp(xf.square().sum(dim=0) / n - mean.square(), min=0.0)
-    return mean, var
 
 
 def bn_affine(bn, mean, var):

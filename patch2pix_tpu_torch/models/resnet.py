@@ -20,9 +20,12 @@ no transposes.
 
 ``backbone_train_bn`` (``forward(..., stats=[])``): every conv runs
 unfolded in the compute dtype and its BatchNorm normalises with the
-batch's float32 statistics, mean and biased variance ``E[y^2] - mean^2``
-(the JAX ``FoldableBatchNorm`` train path), appending ``(module, mean,
-var)`` to ``stats`` for the caller to fold into the running averages.
+batch's float32 statistics from :func:`batch_moments`, mean and biased
+variance ``E[y^2] - mean^2`` (the JAX ``FoldableBatchNorm`` train path;
+clamped at 0), appending ``(module, mean, var)`` to ``stats`` for the
+caller to fold into the running averages. Under
+:func:`global_batch_moments` (the sharded train step) the statistics are
+the global batch's.
 
 A fresh model draws its conv kernels as flax's ``lecun_normal`` does
 (:func:`lecun_normal_`); BatchNorms start at scale 1, bias 0, running
@@ -31,6 +34,7 @@ mean 0 and variance 1.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -59,6 +63,49 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
         return weight.mul_(std)
 
 
+# the sharded train step's differentiable sum over every rank's rows
+# (``parallel.comm_stats.all_reduce_sum``) and the rank count; None: the
+# batch is whole
+_MOMENT_SUM = None
+_MOMENT_RANKS = 1
+
+
+@contextlib.contextmanager
+def global_batch_moments(sum_fn, ranks: int):
+    """Within the block, every batch-statistics BatchNorm (the
+    regressors', and the backbone's under ``backbone_train_bn``) takes
+    the moments of the GLOBAL batch of ``ranks`` equal shards:
+    ``sum_fn`` sums a float32 tensor over the ranks, differentiably, and
+    :func:`batch_moments` feeds it this rank's per-channel sums and sums
+    of squares."""
+    global _MOMENT_SUM, _MOMENT_RANKS
+    prev = _MOMENT_SUM, _MOMENT_RANKS
+    _MOMENT_SUM, _MOMENT_RANKS = sum_fn, ranks
+    try:
+        yield
+    finally:
+        _MOMENT_SUM, _MOMENT_RANKS = prev
+
+
+def batch_moments(x):
+    """Float32 mean and biased variance over every axis but the last,
+    from one sum / sum-of-squares pass: ``E[x^2] - mean^2`` clamped at 0
+    (``BNAffine``'s and flax ``nn.BatchNorm``'s fast variance). Under
+    :func:`global_batch_moments` the sums and the count are the global
+    batch's."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    n = xf.shape[0]
+    sums, sq = xf.sum(dim=0), xf.square().sum(dim=0)
+    if _MOMENT_SUM is not None:
+        # the count is a Python number, as on one device: CUDA divides by
+        # a host scalar as a multiplication by its reciprocal
+        n *= _MOMENT_RANKS
+        sums, sq = _MOMENT_SUM(torch.cat([sums, sq])).split(xf.shape[1])
+    mean = sums / n
+    var = torch.clamp(sq / n - mean.square(), min=0.0)
+    return mean, var
+
+
 def conv2d_nhwc(x, weight, stride: int = 1, padding: int = 0):
     """2D conv of NHWC ``x`` with OIHW ``weight`` -> NHWC, in x's dtype."""
     w = weight.contiguous(memory_format=torch.channels_last)
@@ -80,8 +127,7 @@ def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype, stats=None):
     if stats is not None:
         y = conv2d_nhwc(x.to(dtype), conv.weight.to(dtype), conv.stride[0], conv.padding[0])
         yf = y.float()
-        mean = yf.mean(dim=(0, 1, 2))
-        var = yf.square().mean(dim=(0, 1, 2)) - mean.square()
+        mean, var = batch_moments(yf)
         stats.append((bn, mean.detach(), var.detach()))
         inv = torch.rsqrt(var + bn.eps) * bn.weight.float()
         return ((yf - mean) * inv + bn.bias.float()).to(y.dtype)

@@ -155,15 +155,21 @@ def grid_to_pixel(grid, upsample: int, center: bool = True):
     return pix
 
 
-def select_ptmax(coords, scores, valid, ptmax: int, generator=None, rand=None) -> Matches:
+def select_ptmax(coords, scores, valid, ptmax: int, generator=None, rand=None,
+                 rand_rows=None) -> Matches:
     """Resample the valid rows to exactly ``ptmax`` proposals per pair:
     valid rows in a random order, cycled until ``ptmax`` slots are
     filled; a pair with no valid row repeats row 0. The order comes from
     ``rand``, a ``(B, N)`` uniform draw, or else one drawn with
-    ``generator`` (``torch.rand`` on the scores' device). Returns
-    :class:`Matches` with an all-True valid mask."""
+    ``generator`` (``torch.rand`` on the scores' device); with
+    ``rand_rows`` ``(offset, total)`` the draw is the global batch's
+    ``(total, N)`` and these pairs take rows ``offset:offset + B``.
+    Returns :class:`Matches` with an all-True valid mask."""
     b, n = scores.shape
-    if rand is None:
+    if rand is None and rand_rows is not None:
+        lo, total = rand_rows
+        rand = torch.rand((total, n), generator=generator, device=scores.device)[lo:lo + b]
+    elif rand is None:
         rand = torch.rand((b, n), generator=generator, device=scores.device)
     # invalid rows sort to the back; valid rows in the draw's order
     order = torch.argsort(torch.where(valid, rand, torch.full_like(rand, 2.0)),

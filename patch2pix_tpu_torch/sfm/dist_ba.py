@@ -17,13 +17,14 @@ the host reads one stop flag per iteration (JAX's ``while_loop``
 condition), so the solver runs exactly JAX's iterations.
 
 Backends: NCCL for CUDA tensors (one rank per card), gloo for the CPU;
-:func:`process_group` initialises one from a ``file://`` store in a
-temporary directory (no network).
+``parallel.mesh.process_group`` initialises one from a ``file://`` store
+in a temporary directory (no network). Every collective goes through
+``parallel.comm_stats``' wrappers, so ``record_collectives`` reads the
+per-iteration volume.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import tempfile
 from typing import NamedTuple, Optional, Tuple
@@ -33,6 +34,8 @@ import torch
 import torch.distributed as dist
 
 from patch2pix_tpu_torch.config import resolve_device
+from patch2pix_tpu_torch.parallel import comm_stats
+from patch2pix_tpu_torch.parallel.mesh import process_group, replicated_divergence
 from patch2pix_tpu_torch.sfm.ba import (
     BAProblem,
     apply_updates,
@@ -129,23 +132,6 @@ def shard_problem(
     )
 
 
-@contextlib.contextmanager
-def process_group(world_size: int, rank: int, backend: str, store_dir: Optional[str] = None):
-    """Initialise the default process group from a ``file://`` store in
-    ``store_dir`` (a fresh temporary directory when None, which only a
-    group of one rank can use), and destroy it on exit. Yields the
-    group."""
-    with contextlib.ExitStack() as stack:
-        if store_dir is None:
-            store_dir = stack.enter_context(tempfile.TemporaryDirectory())
-        dist.init_process_group(backend, init_method=f"file://{os.path.join(store_dir, 'store')}",
-                                world_size=world_size, rank=rank)
-        try:
-            yield dist.group.WORLD
-        finally:
-            dist.destroy_process_group()
-
-
 def local_problem(sp: ShardedBA, rank: int, device) -> BAProblem:
     """Rank ``rank``'s shard of ``sp`` as a :class:`BAProblem` on
     ``device`` (local point indices)."""
@@ -158,7 +144,7 @@ def _reduced_system(p: BAProblem, lam, hd, use_huber: bool, C: int, group):
     over the group in one ``all_reduce`` of one flat buffer."""
     S_cross_neg, U, b_red, W, Vinv, bp = schur_blocks(p, lam, hd, use_huber, C)
     flat = torch.cat([S_cross_neg.reshape(-1), U.reshape(-1), b_red.reshape(-1)])
-    dist.all_reduce(flat, group=group)
+    comm_stats.all_reduce(flat, group=group)
     nS, nU = S_cross_neg.numel(), U.numel()
     return (flat[:nS].view(C, C, 6, 6), flat[nS:nS + nU].view(C, 6, 6),
             flat[nS + nU:].view(C, 6), W, Vinv, bp)
@@ -166,8 +152,14 @@ def _reduced_system(p: BAProblem, lam, hd, use_huber: bool, C: int, group):
 
 def _group_cost(p: BAProblem, hd, group) -> torch.Tensor:
     c = cost(p, hd).reshape(1)
-    dist.all_reduce(c, group=group)
+    comm_stats.all_reduce(c, group=group)
     return c[0]
+
+
+def _default_group(group):
+    """``group``, or the default group when None (None again without an
+    initialised one: then nothing is summed)."""
+    return dist.group.WORLD if group is None else group
 
 
 def make_dist_ba_step(C: int, use_huber: bool = True, group=None):
@@ -175,7 +167,8 @@ def make_dist_ba_step(C: int, use_huber: bool = True, group=None):
 
     ``step(p, lam, hd)`` takes this rank's shard (:func:`local_problem`)
     and returns (new Rs, new ts, new local X, new cost, old cost), the
-    costs summed over the group."""
+    costs summed over ``group`` (the default group when None)."""
+    group = _default_group(group)
 
     def step(p: BAProblem, lam, hd):
         S_cross_neg, U, b_red, W, Vinv, bp = _reduced_system(p, lam, hd, use_huber, C, group)
@@ -185,22 +178,10 @@ def make_dist_ba_step(C: int, use_huber: bool = True, group=None):
         hd_or_none = hd if use_huber else None
         costs = torch.stack([cost(p._replace(Rs=new_Rs, ts=new_ts, X=new_X), hd_or_none),
                              cost(p, hd_or_none)])
-        dist.all_reduce(costs, group=group)
+        comm_stats.all_reduce(costs, group=group)
         return new_Rs, new_ts, new_X, costs[0], costs[1]
 
     return step
-
-
-def _replicated_divergence(blocks, group) -> torch.Tensor:
-    """Max RELATIVE cross-rank deviation of a checksum of state that must
-    be replicated after the all_reduce (two scalar collectives)."""
-    chk = sum(torch.sum(torch.abs(b).float()) for b in blocks).reshape(1)
-    mean = chk.clone()
-    dist.all_reduce(mean, group=group)
-    mean = mean / dist.get_world_size(group)
-    dev = torch.abs(chk - mean)
-    dist.all_reduce(dev, op=dist.ReduceOp.MAX, group=group)
-    return (dev / torch.clamp(torch.abs(mean), min=1e-30))[0]
 
 
 def make_dist_ba_solver(C: int, use_huber: bool, max_iters: int, tol: float,
@@ -214,7 +195,8 @@ def make_dist_ba_solver(C: int, use_huber: bool, max_iters: int, tol: float,
     the first (JAX's ``lm_cond``). With ``debug_checks`` the replicated
     reduced system, cost and λ are checksummed across ranks every
     iteration (two more scalar collectives) and the maximum relative
-    divergence is returned."""
+    divergence is returned. ``group``: the default group when None."""
+    group = _default_group(group)
 
     def solve(p0: BAProblem, lam0: float, hd):
         hd_or_none = hd if use_huber else None
@@ -246,7 +228,7 @@ def make_dist_ba_solver(C: int, use_huber: bool, max_iters: int, tol: float,
                               torch.clamp(lam * 4.0, max=1e6))
             done = accept & (rel < tol)
             if debug_checks:
-                maxdiv = torch.maximum(maxdiv, _replicated_divergence(
+                maxdiv = torch.maximum(maxdiv, replicated_divergence(
                     (S_cross_neg, U, b_red, new_cost, lam), group))
             it += 1
         return Rs, ts, Xl, cur, maxdiv, {"iterations": it, "host_syncs": reads}
@@ -280,7 +262,8 @@ def run_dist_ba(
         dev = torch.device("cuda", torch.cuda.current_device())
     if not dist.is_initialized():
         raise RuntimeError("run_dist_ba needs an initialised process group "
-                           "(dist_ba.process_group)")
+                           "(parallel.mesh.process_group)")
+    group = _default_group(group)
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     if sp.X.shape[0] != world:
         raise ValueError(f"{sp.X.shape[0]} shards for a group of {world} ranks")
@@ -304,9 +287,7 @@ def run_dist_ba(
             )
 
     # gather the local points and scatter them back to global order
-    parts = [torch.empty_like(Xl) for _ in range(world)]
-    dist.all_gather(parts, Xl.contiguous(), group=group)
-    Xs = torch.stack(parts).cpu().numpy()
+    Xs = torch.stack(comm_stats.all_gather(Xl.contiguous(), group)).cpu().numpy()
     Xg = np.zeros((int(sp.X_map.max()) + 1, 3), np.float32)
     for s in range(world):
         m = sp.X_map[s] >= 0

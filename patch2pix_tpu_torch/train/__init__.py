@@ -1,5 +1,5 @@
-"""patch2pix_tpu_torch.train: the single-device training step, NCN
-pretraining, checkpoints (``checkpoint.py``) and the training entry
+"""patch2pix_tpu_torch.train: the training step (single-device and
+data-parallel over a mesh), NCN pretraining, checkpoints (``checkpoint.py``) and the training entry
 point (``python -m patch2pix_tpu_torch.train.cli``)."""
 
 from patch2pix_tpu_torch.train.checkpoint import (
@@ -16,7 +16,7 @@ from patch2pix_tpu_torch.train.state import (
     lr_schedule,
     make_optimizer,
 )
-from patch2pix_tpu_torch.train.step import make_train_step
+from patch2pix_tpu_torch.train.step import make_sharded_train_step, make_train_step
 
 __all__ = [
     "load_ckpt",
@@ -30,5 +30,6 @@ __all__ = [
     "create_train_state",
     "lr_schedule",
     "make_optimizer",
+    "make_sharded_train_step",
     "make_train_step",
 ]

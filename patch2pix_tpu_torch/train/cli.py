@@ -19,16 +19,28 @@ mean pose error or the 0.34/0.33/0.33 pass-rate mix improves. A raise
 there is logged (``Failed to eval immatch``) and training goes on, as in
 JAX.
 
-A data-parallel ``--mesh`` above 1 (the sharded step) is not ported and
-raises at start-up, before any step.
+``--mesh N`` trains data-parallel over N ranks with the step over a
+mesh (``train/step.make_train_step(..., mesh=)``): it joins a ``torchrun``-style
+environment (``WORLD_SIZE`` = N, ``RANK``, ``LOCAL_RANK``,
+``MASTER_ADDR``/``MASTER_PORT``) through
+``parallel.mesh.initialize_multihost``, or else spawns N ranks from a
+``file://`` store, one card each (gloo processes with ``--device cpu``).
+``--mesh 0`` is every visible card, 1 on the CPU. It raises at start-up
+when N exceeds the cards or does not divide ``--batch``. Every rank reads
+the same global batch order and takes its rows; rank 0 alone writes the
+checkpoints, metrics and log, and runs the validation, while the other
+ranks wait at a barrier at the epoch's end. The process group's timeout,
+``GROUP_TIMEOUT``, bounds that wait.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 import time
 import traceback
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -37,6 +49,12 @@ from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
 from patch2pix_tpu_torch.data.megadepth import MegaDepthPairDataset, batch_iterator
 from patch2pix_tpu_torch.data.prefetch import prefetch_to_device
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
+from patch2pix_tpu_torch.parallel.mesh import (
+    initialize_multihost,
+    make_mesh,
+    process_group,
+    shard_batch,
+)
 from patch2pix_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
 from patch2pix_tpu_torch.train.state import create_train_state
 from patch2pix_tpu_torch.train.step import make_train_step
@@ -96,8 +114,8 @@ def parse_args(argv=None):
     p.add_argument("--weight_epi", "-wepi", type=float, nargs="*", default=[1, 1])
 
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel mesh size; 0 and 1 train on one device, more "
-                   "is not ported")
+                   help="data-parallel mesh size: ranks, one device each; 0 is every "
+                   "visible card (1 on the CPU)")
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="cap batches per epoch (0 = full dataset)")
     p.add_argument("--no_eval", action="store_true")
@@ -170,12 +188,31 @@ def build_configs(args):
     return model_cfg, optim_cfg
 
 
-def check_ported(args) -> None:
-    """Raise on the options whose code is not in the port."""
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the data-parallel (sharded) train step is not ported; "
-            "train on one device (--mesh 1)")
+# how long a rank waits in a collective: the end-of-epoch barrier waits
+# for rank 0's checkpoints and its whole validation
+GROUP_TIMEOUT = timedelta(hours=6)
+
+
+def mesh_size(args, device) -> int:
+    """The ranks ``--mesh`` asks for (0: every visible card, 1 on the
+    CPU); raises when they exceed the cards or do not divide ``--batch``."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else None
+    n = args.mesh or (cards or 1)
+    if cards is not None and n > cards:
+        raise ValueError(f"--mesh {n}: {cards} CUDA card(s) visible")
+    if args.batch % n:
+        raise ValueError(f"--mesh {n} does not divide --batch {args.batch}")
+    return n
+
+
+class _Silent:
+    """The log of a rank other than 0."""
+
+    def __call__(self, msg: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def validate(model, data_root: str, device, log):
@@ -225,12 +262,49 @@ def load_pretrained(model, path: str) -> None:
 def main(argv=None) -> str:
     """Train as the flags say; returns the run directory."""
     args = parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
+    n = mesh_size(args, device)
+    if n == 1:
+        return train(args, device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if int(os.environ.get("WORLD_SIZE", "1")) == n and "RANK" in os.environ:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        initialize_multihost(None, n, int(os.environ["RANK"]), backend=backend,
+                             timeout=GROUP_TIMEOUT)
+        try:
+            return train(args, device, make_mesh(n, device=device))
+        finally:
+            torch.distributed.destroy_process_group()
+    with tempfile.TemporaryDirectory() as store:
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(n, backend, store, args), nprocs=n, join=True,
+            start_method="spawn")
+    return run_dir_tags(args)
+
+
+def _rank_main(rank: int, n: int, backend: str, store: str, args) -> None:
+    """One spawned rank of ``--mesh n``: its group, its device, its rows."""
+    device = torch.device("cpu")
+    if backend == "nccl":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:  # the CPU ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    with process_group(n, rank, backend, store, timeout=GROUP_TIMEOUT):
+        train(args, device, make_mesh(n, device=device))
+
+
+def train(args, device, mesh=None) -> str:
+    """The training run on this rank (all of it without a ``mesh``);
+    returns the run directory."""
+    lead = mesh is None or mesh.rank == 0
     make_deterministic(args.seed)
     out_dir = run_dir_tags(args)
-    os.makedirs(out_dir, exist_ok=True)
-    log = Logger(os.path.join(out_dir, "log.txt"))
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
+    log = Logger(os.path.join(out_dir, "log.txt")) if lead else _Silent()
     log(config2str(args))
     log(f"Log dir {out_dir}")
 
@@ -268,13 +342,16 @@ def main(argv=None) -> str:
         *(count_parameters(getattr(model, name, None))
           for name in ("extract", "ncn", "regress_mid", "regress_fine"))))
 
-    train_step = make_train_step(
-        model, state.optimizer, ksize=args.ksize, ptmax=args.ptmax,
-        cls_dthres=tuple(args.cls_dthres), epi_dthres=tuple(args.epi_dthres),
-        weight_cls=args.weight_cls, weight_epi=tuple(args.weight_epi),
-        backbone_train_bn=args.backbone_train_bn, remat=args.remat)
+    step_kwargs = dict(
+        ksize=args.ksize, ptmax=args.ptmax, cls_dthres=tuple(args.cls_dthres),
+        epi_dthres=tuple(args.epi_dthres), weight_cls=args.weight_cls,
+        weight_epi=tuple(args.weight_epi), backbone_train_bn=args.backbone_train_bn,
+        remat=args.remat)
+    train_step = make_train_step(model, state.optimizer, mesh=mesh, **step_kwargs)
+    if mesh is not None:
+        log(f"Mesh: {mesh.size}-rank data parallel")
 
-    writer = MetricsWriter(os.path.join(out_dir, "metrics.jsonl"), "train")
+    writer = MetricsWriter(os.path.join(out_dir, "metrics.jsonl"), "train") if lead else None
     t0 = time.time()
     log(f"Start training from {start_epoch} to {args.epochs} ..")
     for epoch in range(start_epoch, args.epochs):
@@ -286,34 +363,42 @@ def main(argv=None) -> str:
         for i, batch in enumerate(it):
             if i >= steps_per_epoch:
                 break
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
             state, metrics = train_step(state, batch, generator=gen)
-            writer.append(metrics)
-            if steps_per_epoch >= args.plot_counts and (
+            if lead:
+                writer.append(metrics)
+            if lead and steps_per_epoch >= args.plot_counts and (
                     i % max(steps_per_epoch // args.plot_counts, 1) == 0 and i > 0):
                 log(f"Batch:{i} {writer.summary(['loss/pair', 'skipped'])}")
         it.close()
-        means = writer.flush(epoch + 1)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        log(f">Epoch:{epoch + 1} time:{time.time() - t1:.3f}s "
-            + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
+        if lead:
+            means = writer.flush(epoch + 1)
+            log(f">Epoch:{epoch + 1} time:{time.time() - t1:.3f}s "
+                + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
 
-        save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag="last")
-        if (epoch + 1) % args.save_step == 0:
-            save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag=f"ep{epoch + 1}")
+            save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag="last")
+            if (epoch + 1) % args.save_step == 0:
+                save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag=f"ep{epoch + 1}")
 
-        if not args.no_eval:
-            try:
-                qt_err, pass_rate = validate(model, args.data_root, device, log)
-                rate = 0.34 * pass_rate[0] + 0.33 * pass_rate[4] + 0.33 * pass_rate[9]
-                if qt_err < best_vals[2] or rate > best_vals[3]:
-                    best_vals[2] = min(qt_err, best_vals[2])
-                    best_vals[3] = max(rate, best_vals[3])
-                    save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag="immatch_best")
-                    log(f">>Save best immatch model: epoch={epoch + 1} "
-                        f"qt={qt_err:.3f} rate={rate:.2f}%")
-            except Exception as e:  # a failed validation never stops training, as in JAX
-                log(f"Failed to eval immatch: {e}\n{traceback.format_exc()}")
+            if not args.no_eval:
+                try:
+                    qt_err, pass_rate = validate(model, args.data_root, device, log)
+                    rate = 0.34 * pass_rate[0] + 0.33 * pass_rate[4] + 0.33 * pass_rate[9]
+                    if qt_err < best_vals[2] or rate > best_vals[3]:
+                        best_vals[2] = min(qt_err, best_vals[2])
+                        best_vals[3] = max(rate, best_vals[3])
+                        save_ckpt(out_dir, state, model_cfg, epoch, best_vals, tag="immatch_best")
+                        log(f">>Save best immatch model: epoch={epoch + 1} "
+                            f"qt={qt_err:.3f} rate={rate:.2f}%")
+                except Exception as e:  # a failed validation never stops training, as in JAX
+                    log(f"Failed to eval immatch: {e}\n{traceback.format_exc()}")
+        if mesh is not None:
+            # the other ranks wait here, not in the next epoch's first
+            # collective, while rank 0 writes and validates
+            torch.distributed.barrier(group=mesh.group)
 
     log(f"Finished, time:{time.time() - t0:.1f}s")
     log.close()

@@ -17,7 +17,7 @@ reference's semantics:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -45,13 +45,23 @@ def patch2pix_losses(
     epi_dthres: Tuple[float, float] = (50.0, 5.0),
     weight_cls: float = 10.0,
     weight_epi: Tuple[float, float] = (1.0, 1.0),
+    pair_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total loss and the metrics dict of a ``Patch2Pix.forward``
     output (``coarse``/``mid``/``fine`` ``(B, N, 4)``,
     ``mid_probs``/``fine_probs`` ``(B, N)``) under the ground-truth
     fundamental matrices ``Fs`` ``(B, 3, 3)``. ``weight_epi`` is
     (fine, mid). The metrics carry every key of the JAX package's dict
-    (0-d float32 tensors)."""
+    (0-d float32 tensors).
+
+    ``pair_sum``: where these pairs are one rank's rows of a global
+    batch, a function summing a 1-D float32 tensor over the ranks (the
+    sharded step's all-reduce). Every mean over pairs is then the
+    global one: its numerator and its count are summed over the ranks
+    in one call. The metrics are the global batch's, and the returned
+    loss is this rank's SHARE of the global loss (its numerators over
+    the global counts), so that the ranks' shares sum to it and their
+    gradients add up to its gradient."""
     efine_w, emid_w = float(weight_epi[0]), float(weight_epi[1])
 
     cdist = sampson_dist_batched(outputs["coarse"], Fs)  # (B, N)
@@ -83,37 +93,34 @@ def patch2pix_losses(
     pair_epi_valid = pair_cls_valid & (mids.any(dim=1) | fids.any(dim=1))
     epi_pair = emid_w * epi_mid + efine_w * epi_fine
 
-    cls_loss = _masked_mean(cls_pair, pair_cls_valid)
-    epi_loss = _masked_mean(epi_pair, pair_epi_valid)
-    loss = weight_cls * cls_loss + epi_loss
-
     with torch.no_grad():
         mpred = (outputs["mid_probs"] > 0.5).float()
         fpred = (outputs["fine_probs"] > 0.5).float()
         mid_epi_mask = pair_epi_valid & mids.any(dim=1)
         fine_epi_mask = pair_epi_valid & fids.any(dim=1)
-        metrics = {
-            "loss/pair": loss.detach(),
-            "loss/cls_mid": _masked_mean(mcls_lss, pair_cls_valid),
-            "loss/cls_fine": _masked_mean(fcls_lss, pair_cls_valid),
-            "loss/epi_mid": _masked_mean(epi_mid, mid_epi_mask),
-            "loss/epi_fine": _masked_mean(epi_fine, fine_epi_mask),
-            "cls_ratios/mpos_gt": torch.mean(mpos_sum / n),
-            "cls_ratios/fpos_gt": torch.mean(fpos_sum / n),
-            "cls_ratios/mpos_pred": torch.mean(mpred.sum(dim=1) / n),
-            "cls_ratios/fpos_pred": torch.mean(fpred.sum(dim=1) / n),
+        every = torch.ones_like(mpos_sum, dtype=torch.bool)
+        # the means over pairs: name -> (per-pair value, pair mask)
+        means = {
+            "loss/cls_mid": (mcls_lss, pair_cls_valid),
+            "loss/cls_fine": (fcls_lss, pair_cls_valid),
+            "loss/epi_mid": (epi_mid, mid_epi_mask),
+            "loss/epi_fine": (epi_fine, fine_epi_mask),
+            "cls_ratios/mpos_gt": (mpos_sum / n, every),
+            "cls_ratios/fpos_gt": (fpos_sum / n, every),
+            "cls_ratios/mpos_pred": (mpred.sum(dim=1) / n, every),
+            "cls_ratios/fpos_pred": (fpred.sum(dim=1) / n, every),
             # a pair skips at either gate: no cls positives or no epi inliers
-            "skipped": torch.sum(~pair_epi_valid).float(),
+            "skipped": ((~pair_epi_valid).float(), None),
             # distances over GT-thresholded (*_gt) and predicted-positive
             # (*_pred) sets
-            "match_dist/cmid_gt": _masked_mean(_masked_mean(cdist, mids, 1), mid_epi_mask),
-            "match_dist/mmid_gt": _masked_mean(epi_mid, mid_epi_mask),
-            "match_dist/mfid_gt": _masked_mean(_masked_mean(mdist, fids, 1), fine_epi_mask),
-            "match_dist/ffid_gt": _masked_mean(epi_fine, fine_epi_mask),
-            "match_dist/cmid_pred": _masked_mean(_masked_mean(cdist, mpred, 1), pair_cls_valid),
-            "match_dist/mmid_pred": _masked_mean(_masked_mean(mdist, mpred, 1), pair_cls_valid),
-            "match_dist/mfid_pred": _masked_mean(_masked_mean(mdist, fpred, 1), pair_cls_valid),
-            "match_dist/ffid_pred": _masked_mean(_masked_mean(fdist, fpred, 1), pair_cls_valid),
+            "match_dist/cmid_gt": (_masked_mean(cdist, mids, 1), mid_epi_mask),
+            "match_dist/mmid_gt": (epi_mid, mid_epi_mask),
+            "match_dist/mfid_gt": (_masked_mean(mdist, fids, 1), fine_epi_mask),
+            "match_dist/ffid_gt": (epi_fine, fine_epi_mask),
+            "match_dist/cmid_pred": (_masked_mean(cdist, mpred, 1), pair_cls_valid),
+            "match_dist/mmid_pred": (_masked_mean(mdist, mpred, 1), pair_cls_valid),
+            "match_dist/mfid_pred": (_masked_mean(mdist, fpred, 1), pair_cls_valid),
+            "match_dist/ffid_pred": (_masked_mean(fdist, fpred, 1), pair_cls_valid),
         }
         # per-pair rec/prec/spec/acc/f1 over the pairs past the cls gate
         for tag, pred, gt, pos_sum in (("cls_mid", mpred, mcls_pos, mpos_sum),
@@ -133,5 +140,30 @@ def patch2pix_losses(
                              torch.zeros_like(prec))
             for name, v in (("rec", rec), ("prec", prec), ("spec", spec), ("acc", acc),
                             ("f1", f1)):
-                metrics[f"{tag}/{name}"] = _masked_mean(v, pair_cls_valid)
+                means[f"{tag}/{name}"] = (v, pair_cls_valid)
+
+    # the loss terms' numerators keep their gradient; every count is a
+    # constant
+    cls_num = torch.sum(cls_pair * pair_cls_valid.to(cls_pair.dtype))
+    epi_num = torch.sum(epi_pair * pair_epi_valid.to(epi_pair.dtype))
+    with torch.no_grad():
+        nums = [cls_num.detach(), epi_num.detach()]
+        counts = [pair_cls_valid.float().sum(), pair_epi_valid.float().sum()]
+        for v, mask in means.values():
+            m = torch.ones_like(v) if mask is None else mask.to(v.dtype)
+            nums.append(torch.sum(v * m))
+            counts.append(torch.sum(m))
+        sums = torch.cat([torch.stack(nums), torch.stack(counts)])
+        if pair_sum is not None:
+            sums = pair_sum(sums)
+        gnum, gcnt = sums.split(len(nums))
+
+    def ratio(num, cnt):
+        return torch.where(cnt > 0, num / torch.clamp(cnt, min=1.0), torch.zeros_like(num))
+
+    loss = weight_cls * ratio(cls_num, gcnt[0]) + ratio(epi_num, gcnt[1])
+    with torch.no_grad():
+        metrics = {"loss/pair": weight_cls * ratio(gnum[0], gcnt[0]) + ratio(gnum[1], gcnt[1])}
+        for i, (name, (_, mask)) in enumerate(means.items(), start=2):
+            metrics[name] = gnum[i] if mask is None else ratio(gnum[i], gcnt[i])
     return loss, metrics

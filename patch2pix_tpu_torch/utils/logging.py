@@ -113,6 +113,17 @@ class MetricsWriter:
         return " ".join(f"{k}={means[k]:.4f}" for k in keys if k in means)
 
 
+def get_sys_mem() -> tuple:
+    """(rss, vms) of this process in GB, as the reference reports; (0, 0)
+    where psutil is missing."""
+    try:
+        import psutil
+    except ImportError:
+        return 0.0, 0.0
+    info = psutil.Process(os.getpid()).memory_info()
+    return info.rss / 1e9, info.vms / 1e9
+
+
 def get_device_mem() -> Dict[str, Dict[str, float]]:
     """Per-CUDA-device memory in GB: in use, peak, and the card's total
     (the JAX runtime's ``bytes_in_use``, ``peak_bytes_in_use`` and

@@ -1,8 +1,14 @@
 """Package-level properties of the port (``patch2pix_tpu_torch``).
 
   * no module of the port, and not ``chip_smoke.py`` or the tests' gloo
-    rank worker, imports JAX, its libraries or the JAX package (an AST
+    rank workers, imports JAX, its libraries or the JAX package (an AST
     scan);
+  * the port exports every public name of the JAX package's
+    ``parallel`` (its modules too), ``ops.dispatch``,
+    ``utils.profiling`` and ``utils.plotting``, and
+    ``evaluation.BatchedMatcher``, ``train.step.make_sharded_train_step``
+    and ``predict_fine(stack_backbone=)``, but the two names that only
+    mean something to XLA;
   * the port's parameter keys are the reference's (the 276-key shape
     map stored in the golden fixtures), and ``state_dict_from_jax``
     inverts ``convert_patch2pix_state_dict`` exactly;
@@ -48,7 +54,8 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "patch2pix_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
+        ROOT / "tests" / "torch_parallel_worker.py"]
     assert len(files) > 15
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -159,3 +166,40 @@ def test_every_c_entry_point_is_bound_once():
     ``_SIGNATURES``, so the check above covers it."""
     bound = [fn for m in SIGNATURE_MODULES for fn in _signature_module(m)._SIGNATURES]
     assert sorted(bound) == sorted(_c_prototypes())
+
+
+# JAX names with no meaning in the port: HLO parsing (the port records
+# its own collectives, ``comm_stats.record_collectives``) and the gate
+# that turned Pallas off (the port's kernels stay on under the gate)
+NOT_PORTED = {"patch2pix_tpu.parallel.comm_stats": {"collective_stats"},
+              "patch2pix_tpu.ops.dispatch": {"pallas_allowed"}}
+
+
+def _public_names(module):
+    return {k for k, v in vars(module).items()
+            if not k.startswith("_") and getattr(v, "__module__", None) == module.__name__}
+
+
+@pytest.mark.parametrize("name", [
+    "parallel", "parallel.mesh", "parallel.comm_stats", "parallel.volume_sharding",
+    "ops.dispatch", "utils.profiling", "utils.plotting"])
+def test_port_exports_the_jax_names(name):
+    jax_mod = importlib.import_module(f"patch2pix_tpu.{name}")
+    port = importlib.import_module(f"patch2pix_tpu_torch.{name}")
+    want = set(getattr(jax_mod, "__all__", ())) | _public_names(jax_mod)
+    want -= NOT_PORTED.get(jax_mod.__name__, set())
+    assert want and not want - set(dir(port)), sorted(want - set(dir(port)))
+
+
+def test_port_exports_the_sharded_entry_points():
+    import inspect
+
+    from patch2pix_tpu.evaluation import BatchedMatcher as JaxBatchedMatcher
+    from patch2pix_tpu_torch import evaluation, train
+    from patch2pix_tpu_torch.train import step
+
+    assert "BatchedMatcher" in evaluation.__all__ and "make_sharded_train_step" in train.__all__
+    assert {"make_sharded_train_step", "shard_batch_spec"} <= set(dir(step))
+    assert "stack_backbone" in inspect.signature(Patch2Pix.predict_fine).parameters
+    jax_args = set(inspect.signature(JaxBatchedMatcher).parameters) - {"variables"}
+    assert jax_args == set(inspect.signature(evaluation.BatchedMatcher).parameters)

@@ -303,3 +303,25 @@ def test_run_dist_ba_matches_jax(gloo_results, name):
 def test_dist_debug_checks_clean(gloo_results):
     *_, c = gloo_results["debug"]
     assert np.isfinite(c)
+
+
+@pytest.mark.parametrize("n_cams", [4, 6])
+def test_dist_lm_iteration_volume_is_independent_of_points(n_cams, tmp_path):
+    """One LM iteration of the point-sharded solver all-reduces the
+    reduced camera system, O((6C)^2) floats, and its cost: the same
+    bytes for 20 and 200 points (a group of one gloo rank, so the
+    collectives run and are recorded)."""
+    from patch2pix_tpu_torch.parallel import comm_stats, mesh
+
+    volumes = []
+    with mesh.process_group(1, 0, "gloo", str(tmp_path)) as group:
+        for n_pts in (20, 200):
+            Rs, ts, X, ci, pi, uv = make_scene(n_cams=n_cams, n_pts=n_pts, noise=1e-3, seed=5)
+            sp = dist_ba.shard_problem(Rs, ts, X, ci, pi, uv, n_shards=1)
+            step = dist_ba.make_dist_ba_step(n_cams, use_huber=False, group=group)
+            with comm_stats.record_collectives() as stats:
+                step(dist_ba.local_problem(sp, 0, "cpu"), 1e-3, 1e9)
+            volumes.append(stats)
+    c6 = 6 * n_cams
+    assert volumes[0] == volumes[1] == {"all-reduce": {
+        "count": 2, "bytes": 4 * (c6 * c6 + n_cams * 36 + c6) + 4 * 2}}

@@ -2,8 +2,13 @@
 
   * ``parse_args([])`` gives JAX's namespace plus ``--device``;
     ``run_dir_tags`` gives JAX's directory for six flag sets;
-  * the option that is not ported (``--mesh`` above 1) raises before any
-    step;
+  * a ``--mesh`` that does not divide ``--batch`` raises before any step;
+  * ``--mesh 2 --device cpu`` trains one step on two spawned gloo ranks
+    and leaves the checkpoint of ``--mesh 1`` (one step, so its Adam
+    state holds the gradient): the step count and metrics line equal
+    (rtol 1e-5), running averages rtol 1e-5, the gradients within 1e-4
+    of the largest, the parameters within the difference those gradients
+    make to Adam's first step, frozen weights equal;
   * checkpoints: a save/load round trip restores the model, the
     optimizer and the step exactly; ``restore_for_eval`` (and
     ``load_model`` on the directory) rebuilds a model with ``panc = 1``
@@ -21,7 +26,8 @@
     a ``val_dense`` fixture beside the training data (the model's own
     matches): its ``Pose err:`` line, no ``Failed to eval immatch``, an
     ``immatch_best`` checkpoint whose meta holds the best qt and rate,
-    and training that equals a ``--no_eval`` run's exactly.
+    and training that equals a ``--no_eval`` run's exactly; at ``--mesh
+    2`` too, rank 0 validating each of 2 epochs while rank 1 waits.
 """
 
 import json
@@ -72,10 +78,10 @@ def test_run_dir_tags_equal_jax(flags):
         jax_cli.parse_args(flags))
 
 
-@pytest.mark.parametrize("flags,match", [(["--mesh", "2", "--no_eval"], "mesh")],
-                         ids=["mesh"])
+@pytest.mark.parametrize("flags,match", [(["--mesh", "3", "--batch", "2", "--no_eval"],
+                                          "does not divide")], ids=["mesh"])
 def test_unported_options_raise_at_start(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         cli.main(flags + ["--device", "cpu", "--out_dir", str(tmp_path / "out"),
                           "--data_root", str(tmp_path / "none")])
     assert not (tmp_path / "out").exists()
@@ -236,3 +242,58 @@ def test_cli_validates_each_epoch(tmp_path):
             assert torch.equal(got["optimizer"]["state"][i][k], st[k])
     assert (open(os.path.join(run, "metrics.jsonl")).read()
             == open(os.path.join(plain, "metrics.jsonl")).read())
+
+
+def test_cli_mesh2_equals_mesh1(tmp_path):
+    from tests.test_torch_train import assert_adam_step_close
+
+    fixture = write_megadepth_fixture(str(tmp_path / "fx"), 2, 64, 96, seed=7)
+    runs = {n: cli.main(_cli_args(fixture, str(tmp_path / f"m{n}"), 1, "--mesh", str(n),
+                                  "--steps_per_epoch", "1"))
+            for n in (1, 2)}
+    assert "Mesh: 2-rank data parallel" in open(os.path.join(runs[2], "log.txt")).read()
+    got, want = (torch.load(os.path.join(runs[n], "last.pt"), weights_only=True)
+                 for n in (2, 1))
+    assert got["step"] == want["step"] == 1
+    met = [json.loads(open(os.path.join(runs[n], "metrics.jsonl")).read()) for n in (2, 1)]
+    assert met[0].keys() == met[1].keys()
+    for k, v in met[1].items():
+        if not isinstance(v, str):
+            np.testing.assert_allclose(met[0][k], v, rtol=1e-5, atol=1e-6, err_msg=k)
+    # after one Adam step the first moment is (1 - b1) g
+    names = [k for k, p in Patch2Pix(build_cli_config(), device="cpu").named_parameters()
+             if k.startswith("regress_")]
+    grads = [{k: s["exp_avg"] / 0.1 for k, s in zip(names, ck["optimizer"]["state"].values())}
+             for ck in (got, want)]
+    scale = max(float(g.abs().max()) for g in grads[1].values())
+    for k in names:
+        np.testing.assert_allclose(grads[0][k].numpy(), grads[1][k].numpy(), rtol=0,
+                                   atol=1e-4 * scale, err_msg=k)
+        assert_adam_step_close(got["model"][k], want["model"][k], grads[0][k], grads[1][k],
+                               5e-4)
+    for k, v in want["model"].items():
+        if "running" in k:
+            np.testing.assert_allclose(got["model"][k].numpy(), v.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+        elif k.startswith(("extract.", "ncn.")):
+            assert torch.equal(got["model"][k], v), k
+
+
+def test_cli_mesh2_validates_each_epoch(tmp_path):
+    # rank 0 validates at each epoch's end while rank 1 waits at the
+    # barrier; both go on to the next epoch's steps
+    fixture = write_megadepth_fixture(str(tmp_path / "fx"), 2, 64, 96, seed=8)
+    write_val_dense_fixture(os.path.join(fixture[0], "immatch_benchmark", "val_dense"), 2,
+                            96, 128, seed=9, grid=(8, 6))
+    args = _cli_args(fixture, str(tmp_path / "m2"), 2, "--mesh", "2", "--steps_per_epoch", "1")
+    args.remove("--no_eval")
+    run = cli.main(args)
+    log = open(os.path.join(run, "log.txt")).read()
+    assert "Mesh: 2-rank data parallel" in log and log.count("Pose err: qt_mean=") == 2
+    assert "Failed to eval immatch" not in log and ">>Save best immatch model" in log
+    assert read_meta(run)["epoch"] == 1
+    assert torch.load(os.path.join(run, "last.pt"), weights_only=True)["step"] == 2
+
+
+def build_cli_config():
+    return cli.build_configs(cli.parse_args(["--change_stride", *REG]))[0]

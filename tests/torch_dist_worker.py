@@ -17,12 +17,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from patch2pix_tpu_torch.sfm.dist_ba import (
-    local_problem,
-    make_dist_ba_step,
-    process_group,
-    run_dist_ba,
-)
+from patch2pix_tpu_torch.parallel.mesh import process_group
+from patch2pix_tpu_torch.sfm.dist_ba import local_problem, make_dist_ba_step, run_dist_ba
 
 
 def _gather_points(sp, X_local, group):
