@@ -164,14 +164,41 @@ Phases, each fatal on failure:
      (2, 96, 128, 256), bf16 and f32: coords and valid flags equal
      ``coarse_matches``', scores rtol 2e-5 / atol 1e-6; B2 and B1 launch
      and are held; ms per call beside the single-device coarse stage;
-  16. one JSON line of per-kernel numbers (B1's and B2's launches summed
-     over phases 4, 11, 12, 13 and 15, B3's over 4, 13 and 15), then the
-     result line.
+  16. the JAX-only tools' twins and a ``gather="block"`` run directory
+     (under ``build/chip_smoke_tools/``, removed afterwards), each part's
+     seconds printed: (a) ``python -m
+     patch2pix_tpu_torch.evaluation.demo_matching`` through its ``main``
+     at ``--imsize 1024`` with random bf16 weights on 3 PNG pairs of
+     ``make_pair`` scenes at 1024x768, ``--no_plot`` (this machine has no
+     matplotlib): matches and seconds per pair, B1-B3 launched; (b)
+     ``python -m patch2pix_tpu_torch.data.prep_megadepth_pairs`` on a
+     synthetic ``scene_info`` (``write_scene_info``): its pair count;
+     (c) a run directory whose meta says ``gather="block"`` (the JAX
+     package's TPU gather switch, which routes nothing in the port),
+     written by ``save_ckpt`` from the seeded weights, through
+     ``restore_for_eval``: ``predict_fine`` (change_stride, 1024x768,
+     fine_cap 1200, f32) equal to the ``"auto"`` model's bit for bit;
+     (d) ``python -m patch2pix_tpu_torch.train.synth_demo`` at its
+     defaults (300 steps, ``--no_plot``): finite losses and
+     loss/epi_fine's last 25 steps under 0.7 of its first 25's, ms per
+     step, the held-out Sampson error at the start and the end, the pairs
+     skipped in the last 6 steps beside the JAX tool's committed run's;
+     then tests/test_train_convergence.py's workload
+     (``train.convergence``: f32, 96x128, one fixed batch, 24 steps,
+     cuDNN's deterministic algorithms) with finite losses, no pair
+     skipped in the last 6 steps, loss/epi_fine under 0.7 and
+     loss/epi_mid under 0.9 on 6-step windows, its pair-loss ratio
+     printed; ~90 s;
+  17. one JSON line of per-kernel numbers (B1's and B2's launches summed
+     over phases 4, 11, 12, 13, 15 and 16, B3's over 4, 13, 15 and 16),
+     then the result line.
 
 Each path's launches are counted from zero just before it runs: phase 4
 for B1-B3, phase 5 for B4, phase 6 for B5 and B7, phase 10 for B1-B3
 under the CLI, phases 11 and 12 for B1 and B2, phase 13 for B1-B3
-under the protocols' Matcher, phase 15 for B1-B3 on each sharded path.
+under the protocols' Matcher, phase 15 for B1-B3 on each sharded path,
+phase 16 for B1-B3 under the demo, both models of (c), the synthetic
+training demo and the convergence workload.
 
 Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 """
@@ -179,6 +206,7 @@ Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import os
 import re
@@ -198,8 +226,11 @@ from patch2pix_tpu_torch.data.synthetic import (
     synthetic_batch,
     warp_homography,
     write_megadepth_fixture,
+    write_scene_info,
     write_val_dense_fixture,
 )
+from patch2pix_tpu_torch.data import prep_megadepth_pairs
+from patch2pix_tpu_torch.evaluation import demo_matching
 from patch2pix_tpu_torch.evaluation import immatch as immatch_module
 from patch2pix_tpu_torch.evaluation.hpatches import eval_hpatches
 from patch2pix_tpu_torch.evaluation.immatch import eval_immatch_val_sets
@@ -215,7 +246,6 @@ from patch2pix_tpu_torch.models.ncn import NeighConsensus
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix, shift_to_anchors
 from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
-from patch2pix_tpu_torch.ops import conv4d as conv4d_module
 from patch2pix_tpu_torch.ops import fine_stage as fine_stage_module
 from patch2pix_tpu_torch.ops import patch_gather as patch_gather_module
 from patch2pix_tpu_torch.ops.conv4d_small import _SIGNATURES as CONV4D_SIGNATURES
@@ -288,12 +318,17 @@ from patch2pix_tpu_torch.sfm.scale_demo import (
 )
 from patch2pix_tpu_torch.sfm.twoview import draw_sample_ids, ransac_essential
 from patch2pix_tpu_torch.train import cli as train_cli
+from patch2pix_tpu_torch.train import synth_demo
 from patch2pix_tpu_torch.train import create_train_state, make_ncn_pretrain_step, make_train_step
-from patch2pix_tpu_torch.train.checkpoint import load_ckpt, read_meta, save_ckpt
+from patch2pix_tpu_torch.train.checkpoint import load_ckpt, read_meta, restore_for_eval, save_ckpt
+from patch2pix_tpu_torch.train.convergence import RULES, run_convergence
 from patch2pix_tpu_torch.train.step import resolve_remat
 from patch2pix_tpu_torch.utils import logging as logging_module
 from patch2pix_tpu_torch.utils.torch_import import load_ncnet_checkpoint
 from tests.ref_loader import seeded_state_dict
+
+# the module (``ops.conv4d`` is the function, as in the JAX package)
+conv4d_module = importlib.import_module("patch2pix_tpu_torch.ops.conv4d")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(ROOT, "tests", "fixtures")
@@ -2733,6 +2768,197 @@ def parallel_path(dev, sd, main_pairs_s, train_ms, ims):
     return total
 
 
+# ------------------------------------------------------------ phase 16
+
+
+TOOLS_DIR = os.path.join(ROOT, "build", "chip_smoke_tools")
+DEMO_PAIRS = 3
+# tests/test_train_convergence.py's rules as the demo holds them: losses
+# finite, no pair skipped in the last 6 steps, loss/epi_fine's
+# last-window mean under 0.7 of its first's (windows of 25 steps on the
+# demo, of 6 on the test's own workload)
+SYNTH_WINDOW, EPI_FINE_RATIO, NO_SKIP_STEPS = 25, 0.7, 6
+CONVERGENCE_RULES = RULES
+# the JAX tool's committed run at the demo's defaults
+# (artifacts/synth_train/losses.csv): pairs skipped in its last 6 steps
+JAX_DEMO_LAST_SKIPPED = [1, 3, 3, 3, 0, 1]
+
+
+def demo_twin(dev):
+    """(a) ``python -m patch2pix_tpu_torch.evaluation.demo_matching`` at
+    --imsize 1024 with random bf16 weights on 3 PNG pairs of
+    ``make_pair`` scenes (1024x768). Returns the launches."""
+    from PIL import Image
+
+    pairs = os.path.join(TOOLS_DIR, "pairs")
+    rs = np.random.RandomState(16)
+    for i in range(DEMO_PAIRS):
+        os.makedirs(os.path.join(pairs, f"pair_{i}"))
+        for j, im in enumerate(make_pair(rs, H, W)[:2]):
+            u8 = np.clip(np.round(im * 255), 0, 255).astype(np.uint8)
+            Image.fromarray(u8).save(os.path.join(pairs, f"pair_{i}", f"{j + 1}.png"))
+    reset_counts()
+    # the card machine has no matplotlib: the PNGs are held by the CPU test
+    done = demo_matching.main(["--pairs", pairs, "--out", os.path.join(TOOLS_DIR, "demo"),
+                               "--imsize", "1024", "--no_plot"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    if len(done) != DEMO_PAIRS or any(n == 0 for _, n, _ in done):
+        fail(f"demo: matches per pair {done}")
+    want = {"tap_sum": 2 * DEMO_PAIRS, "corr_pool": DEMO_PAIRS, "expand_scale_pair": DEMO_PAIRS}
+    if any(launches.get(k, 0) < v for k, v in want.items()):
+        fail(f"demo: launches {launches}, expected at least {want}")
+    log(f"tools (a) demo_matching [--imsize 1024, bf16, random weights, --no_plot: no "
+        f"matplotlib on this machine] on {DEMO_PAIRS} PNG pairs of {W}x{H}: " + "; ".join(
+            f"{name} {n} matches {secs:.3f} s" for name, n, secs in done)
+        + f" (the first pair includes first use); launches {launches}")
+    return launches
+
+
+def prep_twin():
+    """(b) ``python -m patch2pix_tpu_torch.data.prep_megadepth_pairs`` on a
+    synthetic ``scene_info`` (``write_scene_info``, as the JAX package's
+    tests/test_tools.py writes it)."""
+    base = os.path.join(TOOLS_DIR, "MegaDepth_undistort")
+    write_scene_info(os.path.join(base, "scene_info"), n_ims=8, n_pts=400)
+    t0 = time.perf_counter()
+    out = prep_megadepth_pairs.main(["--base_dir", base, "--save_dir",
+                                     os.path.join(TOOLS_DIR, "pairs_npy"),
+                                     "--min_overlap_ratio", "0.3", "--exclude_tag", ""])
+    secs = time.perf_counter() - t0
+    scenes = np.load(out, allow_pickle=True).item()
+    n = sum(len(v["pairs"]) for v in scenes.values())
+    if n == 0:
+        fail("prep_megadepth_pairs: no pair kept")
+    log(f"tools (b) prep_megadepth_pairs [8 cameras, 400 points, overlap >= 0.3]: {n} pairs "
+        f"in {len(scenes)} scene(s), {secs:.3f} s")
+
+
+def block_route(dev, sd):
+    """(c) a run directory whose meta says ``gather="block"`` (the JAX
+    package's TPU gather switch, which routes nothing in the port),
+    written by ``save_ckpt`` from the seeded weights: ``restore_for_eval``
+    keeps the value, and ``predict_fine`` at 1024x768, change_stride,
+    fine_cap 1200, f32 with TF32 off, equals the ``"auto"`` model's bit
+    for bit under cuDNN's deterministic algorithms. Returns the launches."""
+    run_dir = os.path.join(TOOLS_DIR, "block_run")
+    cfg = ModelConfig(change_stride=True, gather="block").resolved()
+    model = Patch2Pix(cfg, device=dev)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    save_ckpt(run_dir, create_train_state(model, OptimConfig()), cfg, epoch=0)
+    del model
+    ims = [torch.from_numpy(seeded_images(BATCH, H, W, seed)).to(dev) for seed in (31, 32)]
+    block = restore_for_eval(run_dir, device=dev, dtype="float32")
+    auto = build_model(True, sd, "float32", dev)
+    if block.config.gather != "block":
+        fail(f"restore_for_eval gave gather={block.config.gather!r}")
+    before = counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = [m.predict_fine(ims[0], ims[1], ksize=2, fine_cap=FINE_CAP)
+                for m in (auto, block)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+    for name, a, b in zip(("fine", "mid", "coarse"), *outs):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"the gather='block' run directory's {name} matches differ from 'auto'")
+    n = int(outs[0][2].valid.sum())
+    log(f"tools (c) gather='block' run directory [cs {W}x{H} f32, TF32 off, fine_cap "
+        f"{FINE_CAP}]: restored with gather='block'; predict_fine equal to 'auto' bit for "
+        f"bit ({n} coarse matches); launches {launches}")
+    del block, auto
+    return launches
+
+
+def synth_twin(dev):
+    """(d) ``python -m patch2pix_tpu_torch.train.synth_demo`` at its
+    defaults: finite losses and loss/epi_fine's last 25 steps under 0.7
+    of its first 25's. Pairs still skipped in the last 6 steps are
+    printed beside the JAX tool's run, which skips some too at these
+    defaults (the random-init frozen backbone leaves some of the 64 pool
+    pairs with no coarse match inside the epipolar gate); the no-skip
+    rule is held on the test's own workload, :func:`convergence_rules`.
+    Returns the launches."""
+    reset_counts()
+    summary, rows = synth_demo.main(["--out", os.path.join(TOOLS_DIR, "synth"), "--no_plot"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    if not all(np.isfinite(r["loss_pair"]) for r in rows):
+        fail("synth demo: a loss is not finite")
+    epi = [r["loss_epi_fine"] for r in rows]
+    head, tail = np.mean(epi[:SYNTH_WINDOW]), np.mean(epi[-SYNTH_WINDOW:])
+    if not tail < EPI_FINE_RATIO * head:
+        fail(f"synth demo: loss/epi_fine over the last {SYNTH_WINDOW} steps {tail:.4g} is "
+             f"not under {EPI_FINE_RATIO} of the first {SYNTH_WINDOW}'s {head:.4g}")
+    if not (launches.get("tap_sum", 0) and launches.get("expand_scale_pair", 0)):
+        fail(f"synth demo: B1 and B3 must launch: {launches}")
+    skipped = [int(r["skipped"]) for r in rows[-NO_SKIP_STEPS:]]
+    log(f"tools (d) synth_demo [defaults: ResNet34 upsample 16, bf16, {summary['steps']} "
+        f"steps, batch 4, 480x320, ptmax 400, panc 8, Adam 5e-4; --no_plot]: "
+        f"{summary['ms_per_step_avg']} ms/step (first chunk excluded); loss/epi_fine "
+        f"{head:.4g} -> {tail:.4g} (ratio {tail / head:.3f}, rule < {EPI_FINE_RATIO}); "
+        f"loss/pair {summary['loss_pair_first25']:.4g} -> {summary['loss_pair_last25']:.4g}; "
+        f"held-out fine Sampson {summary['val_sampson_init']:.3f} px at the start, "
+        f"{summary['val_sampson_last']:.3f} at the end (coarse {summary['val_coarse_init']:.3f}"
+        f" -> {summary['val_coarse_last']:.3f}); pairs skipped in the last {NO_SKIP_STEPS} "
+        f"steps {skipped} (the JAX tool's run: {JAX_DEMO_LAST_SKIPPED}); launches {launches}")
+    return launches
+
+
+def convergence_rules(dev):
+    """(d) tests/test_train_convergence.py's workload on the card
+    (``train.convergence.run_convergence``: f32, upsample 16, 96x128, one
+    fixed batch, 24 steps, cuDNN's deterministic algorithms, the
+    proposals drawn on the card). Holds finite losses, no pair skipped in
+    the last 6 steps, loss/epi_fine under 0.7 and loss/epi_mid under 0.9
+    of the first 6 steps'; prints the loss/pair ratio beside the JAX
+    test's bound 0.5, which the port misses on the CPU as well (PERF.md
+    §7). Returns the launches."""
+    reset_counts()
+    out = run_convergence(dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    ratios, skipped = out["ratios"], out["skipped_last"]
+    if not all(np.isfinite(h["loss/pair"]) for h in out["hist"]):
+        fail("convergence: a loss is not finite")
+    if any(skipped):
+        fail(f"convergence: pairs still skipped in the last {NO_SKIP_STEPS} steps: {skipped}")
+    for key in ("loss/epi_fine", "loss/epi_mid"):
+        if not ratios[key] < CONVERGENCE_RULES[key]:
+            fail(f"convergence: {key} last/first 6 steps {ratios[key]:.3f}, "
+                 f"rule < {CONVERGENCE_RULES[key]}")
+    log(f"tools (d) tests/test_train_convergence.py's workload [f32, upsample 16, 96x128, "
+        f"batch 2, ptmax 48, Adam 2e-3, 24 steps, cudnn.deterministic, draws on the card]: "
+        f"skipped in the last {NO_SKIP_STEPS} steps {skipped}; last/first 6 steps "
+        f"loss/epi_fine {ratios['loss/epi_fine']:.3f} (rule < 0.7), loss/epi_mid "
+        f"{ratios['loss/epi_mid']:.3f} (rule < 0.9); not held: loss/pair "
+        f"{ratios['loss/pair']:.3f} (the JAX test's bound 0.5); {out['seconds']:.1f} s; "
+        f"launches {launches}")
+    return launches
+
+
+def tools_path(dev, sd):
+    """Phase 16: the JAX-only tools' twins and a ``gather="block"`` run
+    directory (module docstring). Returns B1-B3's launches."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    total = {}
+    try:
+        for part in (lambda: demo_twin(dev), prep_twin, lambda: block_route(dev, sd),
+                     lambda: synth_twin(dev), lambda: convergence_rules(dev)):
+            t0 = time.perf_counter()
+            for k, v in (part() or {}).items():
+                total[k] = total.get(k, 0) + v
+            log(f"tools part: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    log(f"tools phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -2916,7 +3142,13 @@ def main():
         if k in ("tap_sum", "corr_pool", "expand_scale_pair"):
             path_counts[k] += v
 
-    # phase 16: report
+    # phase 16: the tools' twins (demo, pair prep, a gather="block" run
+    # directory, the synthetic training demo)
+    for k, v in tools_path(dev, sd).items():
+        if k in ("tap_sum", "corr_pool", "expand_scale_pair"):
+            path_counts[k] += v
+
+    # phase 17: report
     line = {"kernels": [
         dict(name=KERNELS[fn][0], route="cuda", source=KERNELS[fn][1],
              replaces=KERNELS[fn][2], launches=path_counts[KERNELS[fn][0]],

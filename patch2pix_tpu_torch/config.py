@@ -30,6 +30,9 @@ class RegressorConfig:
     feat_dim: int = 259  # filled from backbone dims + feat_idx
 
 
+GATHER_ROUTES = ("auto", "block")
+
+
 @dataclass
 class ModelConfig:
     backbone: str = "ResNet34"
@@ -42,6 +45,15 @@ class ModelConfig:
     # compute dtype for conv/matmul activations ("float32" | "bfloat16");
     # params stay float32, correlation accumulates in float32
     dtype: str = "float32"
+    # the JAX config's patch-gather switch, kept so that a JAX run
+    # directory's meta restores and round-trips. The port takes one route
+    # whatever its value: "block" is a TPU performance choice in JAX,
+    # and every gather is a copy, so the output is the same
+    gather: str = "auto"
+
+    def __post_init__(self):
+        if self.gather not in GATHER_ROUTES:
+            raise ValueError(f"gather={self.gather!r}; expected one of {GATHER_ROUTES}")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -100,22 +112,15 @@ class TrainConfig:
 
 
 def to_json(cfg) -> str:
-    """A config dataclass as indented JSON (tuples as lists). A
-    ``ModelConfig`` also carries the JAX config's ``gather`` key, always
-    ``"auto"``: the route the port's regression stages take."""
-    d = dataclasses.asdict(cfg)
-    if isinstance(cfg, ModelConfig):
-        d["gather"] = "auto"
-    return json.dumps(d, indent=2)
+    """A config dataclass as indented JSON (tuples as lists)."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
 
 
 def from_dict(cls, d):
     """``cls`` from a dict of its fields: unknown keys are dropped,
     lists become tuples, and a ``regressor`` dict a
-    ``RegressorConfig``. A JAX ``gather`` other than ``"auto"`` raises:
-    the port has no forced block-gather route."""
-    if cls is ModelConfig and d.get("gather", "auto") != "auto":
-        raise ValueError(f"gather={d['gather']!r} is not ported; only 'auto' is")
+    ``RegressorConfig``. A ``gather`` other than ``"auto"`` or
+    ``"block"`` raises."""
     names = {f.name for f in dataclasses.fields(cls)}
     kwargs = {}
     for k, v in d.items():

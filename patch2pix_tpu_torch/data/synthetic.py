@@ -192,6 +192,48 @@ def write_megadepth_fixture(root: str, n_pairs: int, h: int, w: int, seed: int =
     return data_root, pair_root, match_npy, np.stack(Fs)
 
 
+def write_scene_info(scene_dir: str, scene: str = "0001", n_ims: int = 4, n_pts: int = 200,
+                     seed: int = 0) -> str:
+    """A D2-Net ``scene_info`` npz for ``data.prep_megadepth_pairs``,
+    built as the JAX package's ``tests/test_tools.py`` builds its own:
+    ``n_pts`` points of a wide slab seen by ``n_ims`` landscape PINHOLE
+    cameras (720x480, f 600) translated 0.4 apart along x, so that the
+    overlap between cameras is below 1. Returns the npz's path."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[600.0, 0, 360], [0, 600, 240], [0, 0, 1]])
+    X = rng.uniform([-3, -1.5, 4], [3, 1.5, 8], (n_pts, 3))
+    poses, p2d, ndepth = [], [], []
+    for i in range(n_ims):
+        R, t = np.eye(3), np.array([0.4 * i, 0.0, 0.0])
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = R, t
+        poses.append(pose)
+        pc = X @ R.T + t
+        proj = (pc / pc[:, 2:3]) @ K.T
+        vis, nd = {}, {}
+        for p in range(n_pts):
+            if 0 <= proj[p, 0] < 720 and 0 <= proj[p, 1] < 480:
+                vis[p] = proj[p, :2]
+                nd[p] = pc[p, 2]
+        p2d.append(vis)
+        ndepth.append(nd)
+    overlap = np.zeros((n_ims, n_ims))
+    for i in range(n_ims):
+        for j in range(i + 1, n_ims):
+            overlap[i, j] = len(p2d[i].keys() & p2d[j].keys()) / max(len(p2d[i]), len(p2d[j]))
+    os.makedirs(scene_dir, exist_ok=True)
+    path = os.path.join(scene_dir, f"{scene}.npz")
+    np.savez(path, overlap_matrix=overlap,
+             image_paths=np.asarray([f"Undistorted_SfM/{scene}/images/im{i}.jpg"
+                                     for i in range(n_ims)], dtype=object),
+             points3D_id_to_2D=np.asarray(p2d, dtype=object),
+             points3D_id_to_ndepth=np.asarray(ndepth, dtype=object),
+             intrinsics=np.stack([K] * n_ims), poses=np.stack(poses))
+    return path
+
+
 def write_val_dense_fixture(root: str, n_scenes: int, h: int, w: int, seed: int = 0,
                             grid: Tuple[int, int] = (16, 12)) -> Dict[str, dict]:
     """A PhotoTourism-layout validation set of :func:`make_posed_pair`

@@ -16,7 +16,8 @@ the caller, as in JAX). Kernels on this path: B2 (``corr_pool``, any
 channel count) whenever ksize == 2 and the feature maps have even
 sides, B1 (``tap_sum``) in both NCN branches,
 B3 (``expand_scale_pair``) in every regression stage that is not
-grid-aligned.
+grid-aligned. ``config.gather`` routes nothing: JAX's ``"block"`` is a
+TPU performance switch with the same output, as every gather is a copy.
 
 ``forward`` is the training forward (the JAX ``__call__``): coarse
 matches, ``select_ptmax``, ``panc`` anchors, then both regression stages
@@ -94,6 +95,19 @@ def parse_regressor_out(out, in_coords, psize: int, ptype: str, bounds):
     return matches, io_probs
 
 
+def seeded_patch2pix(config: ModelConfig, seed: int = 0, device=None) -> "Patch2Pix":
+    """A fresh Patch2Pix from the port's initialisers, drawn from torch's
+    CPU generator seeded with ``seed`` (inside ``torch.random.fork_rng``:
+    the caller's random state is left as it was), then moved to
+    ``device`` (CUDA unless given): the weights do not depend on the
+    device."""
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = Patch2Pix(config, device="cpu")
+    return model.to(device)
+
+
 class Patch2Pix(nn.Module):
     """The full matching pipeline. Parameters use the reference key
     names (``extract.*``, ``ncn.*``, ``regress_mid.*``,
@@ -122,6 +136,12 @@ class Patch2Pix(nn.Module):
 
     # ---------------- coarse stage ----------------
 
+    def extract_pyramid(self, im, stats=None):
+        """The backbone's hypercolumn pyramid of NHWC images ``(B, H, W,
+        3)``: [im, conv1, layer1, layer2, layer3]. ``stats``: a list to
+        run the BatchNorms on batch statistics (``ResNetFeatures.forward``)."""
+        return self.extract(im, pyramid=True, stats=stats)
+
     def extract_pyramid_pair(self, im1, im2, stats=None, stack: bool = True):
         """Both images' pyramids; one stacked backbone call when the
         shapes match (exact: BN runs on running averages). ``stats``: a
@@ -130,10 +150,9 @@ class Patch2Pix(nn.Module):
         takes one call per side, as the JAX package does on a sharded
         batch."""
         if stats is not None or not stack or im1.shape != im2.shape:
-            return (self.extract(im1, pyramid=True, stats=stats),
-                    self.extract(im2, pyramid=True, stats=stats))
+            return self.extract_pyramid(im1, stats), self.extract_pyramid(im2, stats)
         b = im1.shape[0]
-        feats = self.extract(torch.cat([im1, im2], dim=0), pyramid=True)
+        feats = self.extract_pyramid(torch.cat([im1, im2], dim=0))
         return tuple(f[:b] for f in feats), tuple(f[b:] for f in feats)
 
     def coarse_corr(self, feat1, feat2, ksize: int = 1):
@@ -185,9 +204,9 @@ class Patch2Pix(nn.Module):
         -> (refined ``(B, N, 4)``, probs ``(B, N)``). ``grid_aligned``
         asserts every coord is a coarse-cell centre and takes the
         space-to-depth gather; otherwise the superblock gather + B3 where
-        both pyramids are psize-tileable, else the per-pixel block
-        gather. ``stats``: a list to run the regressor on batch
-        statistics (``FeatRegressNet.forward``)."""
+        both pyramids are psize-tileable, else the per-pixel block gather.
+        ``stats``: a list to run the regressor on batch statistics
+        (``FeatRegressNet.forward``)."""
         cfg = self.config
         r = cfg.regressor
         psize = r.psize[0] if stage == "mid" else r.psize[1]

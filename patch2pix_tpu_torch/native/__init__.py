@@ -75,6 +75,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether :func:`library` builds and loads here. It only reports:
+    :func:`build_tracks_native` still raises where the library cannot
+    load."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def build_tracks_native(
     pair_matches: Dict[Tuple[int, int], np.ndarray],
     cell: float = 4.0,

@@ -24,6 +24,11 @@ class Matches(NamedTuple):
     scores: torch.Tensor
     valid: torch.Tensor
 
+    @property
+    def n(self) -> int:
+        """Rows per pair (valid or not)."""
+        return self.coords.shape[1]
+
 
 def _fdiv(a, b):
     return torch.div(a, b, rounding_mode="floor")

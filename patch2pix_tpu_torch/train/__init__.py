@@ -16,7 +16,11 @@ from patch2pix_tpu_torch.train.state import (
     lr_schedule,
     make_optimizer,
 )
-from patch2pix_tpu_torch.train.step import make_sharded_train_step, make_train_step
+from patch2pix_tpu_torch.train.step import (
+    make_sharded_train_step,
+    make_train_step,
+    shard_batch_spec,
+)
 
 __all__ = [
     "load_ckpt",
@@ -32,4 +36,5 @@ __all__ = [
     "make_optimizer",
     "make_sharded_train_step",
     "make_train_step",
+    "shard_batch_spec",
 ]

@@ -6,14 +6,25 @@ directory:
 
   * ``{tag}.pt``: the step count, the model's ``state_dict`` (its
     parameters and every BatchNorm's running averages, the regressors'
-    and the backbone's) and the optimizer's ``state_dict``;
+    and the backbone's) and the optimizer's ``state_dict`` (None for a
+    tag written for evaluation only, which :func:`load_ckpt` refuses);
   * ``{tag}.meta.json``: the JAX package's metadata, ``epoch``,
     ``best_vals`` and ``model_config`` (the config's JSON, as the JAX
     ``to_json`` writes it), so eval rebuilds the model from the
     directory alone.
 
-Orbax directories written by the JAX package are not read here; JAX
-weights come across through ``utils.jax_import.load_jax_train_state``.
+A run directory of the JAX package holds each tag as an orbax
+directory, which the port does not read (it imports no JAX, optax or
+orbax). Convert it where the JAX package runs:
+
+    python tools/orbax_to_torch.py RUN_DIR [--tag last] [--eval_only]
+
+which restores the tag with the JAX package's ``load_ckpt`` and writes
+``{tag}.pt`` beside it with :func:`save_ckpt` (the step, the weights,
+Adam's moments and count through ``utils.jax_import``) and the same
+meta. Then :func:`restore_for_eval`, ``evaluation.matcher.load_model``,
+``init_patch2pix_matcher`` and ``train.cli --resume`` read the
+directory.
 """
 
 from __future__ import annotations
@@ -46,11 +57,13 @@ def save_ckpt(ckpt_dir: str, state: TrainState, model_config: ModelConfig, epoch
               best_vals: Optional[Sequence[float]] = None, tag: str = LAST) -> None:
     """Write the tag's weights and metadata, each through a temporary
     file renamed into place, so a run cut while saving keeps the
-    previous checkpoint whole."""
+    previous checkpoint whole. A state without an optimizer writes an
+    evaluation-only tag."""
     os.makedirs(os.path.abspath(ckpt_dir), exist_ok=True)
     pt, meta_path = _paths(ckpt_dir, tag)
+    optimizer = None if state.optimizer is None else state.optimizer.inner.state_dict()
     torch.save({"step": state.step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.inner.state_dict()}, pt + ".tmp")
+                "optimizer": optimizer}, pt + ".tmp")
     os.replace(pt + ".tmp", pt)
     meta = {"epoch": epoch,
             "best_vals": list(best_vals) if best_vals is not None else None,
@@ -75,6 +88,9 @@ def load_ckpt(ckpt_dir: str, state: TrainState, tag: str = LAST) -> Tuple[TrainS
     with the checkpoint's step count, and the metadata."""
     device = next(state.model.parameters()).device
     payload = _load(ckpt_dir, tag, device)
+    if payload["optimizer"] is None:
+        raise ValueError(f"{ckpt_dir}/{tag}.pt holds no optimizer state (written for "
+                         f"evaluation only); it cannot resume training")
     state.model.load_state_dict(payload["model"])
     state.optimizer.inner.load_state_dict(payload["optimizer"])
     return replace(state, step=int(payload["step"])), read_meta(ckpt_dir, tag)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import fnmatch
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -105,13 +105,13 @@ def make_optimizer(cfg: OptimConfig, model: torch.nn.Module, steps_per_epoch: in
 @dataclass
 class TrainState:
     """The step count (updates applied so far), the model (parameters
-    and BatchNorm running averages) and its optimizer. A step updates
-    the model and the optimizer in place and returns a state with the
-    next count."""
+    and BatchNorm running averages) and its optimizer (None in a state
+    written for evaluation only). A step updates the model and the
+    optimizer in place and returns a state with the next count."""
 
     step: int
     model: torch.nn.Module
-    optimizer: Optimizer
+    optimizer: Optional[Optimizer]
 
 
 def create_train_state(model: torch.nn.Module, optim_cfg: OptimConfig,

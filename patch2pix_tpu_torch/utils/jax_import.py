@@ -19,8 +19,11 @@ at their initial values. The regressors' ``BNAffine`` ``convbn{i}``
 running ``mean``/``var`` map onto the ``conv.{2i+1}`` BatchNorm
 buffers, for either ``feat_comb`` (a ``post`` conv0 kernel has
 ``feat_dim`` input channels, a ``pre`` one twice that). A JAX
-``TrainState`` (its ``params`` and ``batch_stats``; the
-optimizer state is not carried) loads with :func:`load_jax_train_state`.
+``TrainState``'s ``params`` and ``batch_stats`` load with
+:func:`load_jax_train_state`; its optax state becomes the port's
+``torch.optim`` state with :func:`optimizer_state_from_jax` (Adam's
+``mu``/``nu``/``count``, or SGD's momentum ``trace``, through the same
+layout maps as the weights).
 
 A JAX ``ImMatchNet`` tree maps onto the port's ``ImMatchNet`` with
 :func:`immatch_state_dict_from_jax`: its ``FeatureExtraction`` (VGG16
@@ -39,17 +42,26 @@ import numpy as np
 import torch
 
 
+# A leaf the tree does not hold (an optax ``MaskedNode``: a frozen
+# parameter's moment) passes through every layout map as None, and
+# ``_to_torch`` drops it.
+
+
+def _leaf(w):
+    return None if w is None else np.asarray(w)
+
+
 def _conv2d(w) -> np.ndarray:
-    return np.transpose(np.asarray(w), (3, 2, 0, 1))
+    return None if w is None else np.transpose(np.asarray(w), (3, 2, 0, 1))
 
 
 def _linear(w) -> np.ndarray:
-    return np.transpose(np.asarray(w), (1, 0))
+    return None if w is None else np.transpose(np.asarray(w), (1, 0))
 
 
 def _conv4d(w) -> np.ndarray:
     # (k1, k2, k3, k4, in, out) -> (k1, out, in, k2, k3, k4)
-    return np.transpose(np.asarray(w), (0, 5, 4, 1, 2, 3))
+    return None if w is None else np.transpose(np.asarray(w), (0, 5, 4, 1, 2, 3))
 
 
 _BN_LEAVES = (("scale", "weight", "params"), ("bias", "bias", "params"),
@@ -60,7 +72,7 @@ _BN_LEAVES = (("scale", "weight", "params"), ("bias", "bias", "params"),
 def _put_bn(out, key, params, stats):
     trees = {"params": params, "batch_stats": stats}
     for leaf, tkey, coll in _BN_LEAVES:
-        out[f"{key}.{tkey}"] = np.asarray(trees[coll][leaf])
+        out[f"{key}.{tkey}"] = _leaf(trees[coll][leaf])
 
 
 def _resnet(out, params, stats):
@@ -89,7 +101,7 @@ def _ncn(out, p, prefix="ncn."):
     li = 0
     while f"conv{li}_kernel" in p:
         out[f"{prefix}conv.{2 * li}.weight"] = _conv4d(p[f"conv{li}_kernel"])
-        out[f"{prefix}conv.{2 * li}.bias"] = np.asarray(p[f"conv{li}_bias"])
+        out[f"{prefix}conv.{2 * li}.bias"] = _leaf(p[f"conv{li}_bias"])
         li += 1
 
 
@@ -103,14 +115,15 @@ def _regressor(out, name, params, stats):
                 s[f"convbn{li}"])
     for li in range(n_fc):
         out[f"{name}.fc.{3 * li}.weight"] = _linear(p[f"fc{li}"]["kernel"])
-        out[f"{name}.fc.{3 * li}.bias"] = np.asarray(p[f"fc{li}"]["bias"])
+        out[f"{name}.fc.{3 * li}.bias"] = _leaf(p[f"fc{li}"]["bias"])
         _put_bn(out, f"{name}.fc.{3 * li + 1}", p[f"fcbn{li}"], s[f"fcbn{li}"])
     out[f"{name}.fc.{3 * n_fc}.weight"] = _linear(p["fc_out"]["kernel"])
-    out[f"{name}.fc.{3 * n_fc}.bias"] = np.asarray(p["fc_out"]["bias"])
+    out[f"{name}.fc.{3 * n_fc}.bias"] = _leaf(p["fc_out"]["bias"])
 
 
 def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()
+            if v is not None}
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -216,3 +229,87 @@ def load_jax_train_state(model: torch.nn.Module, state) -> None:
     """Load a JAX ``TrainState``'s ``params`` and ``batch_stats`` into a
     port ``Patch2Pix`` (as :func:`load_jax_variables`)."""
     load_jax_variables(model, {"params": state.params, "batch_stats": state.batch_stats})
+
+
+class _NoStats(dict):
+    """A ``batch_stats`` tree with no leaf: moments exist for parameters
+    only."""
+
+    def __missing__(self, key):
+        return None if key in ("mean", "var") else _NoStats()
+
+
+def _unmask(tree):
+    """An optax moment tree with each ``MaskedNode`` leaf (a parameter
+    the optimizer does not update) as None."""
+    if type(tree).__name__ == "MaskedNode":
+        return None
+    if isinstance(tree, Mapping):
+        return {k: _unmask(v) for k, v in tree.items()}
+    return tree
+
+
+def _nodes(tree, fields) -> list:
+    """Every node of an optax state that holds all of ``fields``: a
+    NamedTuple (a state restored on a template) or a dict (one restored
+    without), at any depth, as a dict of those fields."""
+    if type(tree).__name__ == "MaskedNode":
+        return []
+    if hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if isinstance(tree, Mapping):
+        if all(f in tree for f in fields):
+            return [{f: tree[f] for f in fields}]
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return []
+    return [n for v in children for n in _nodes(v, fields)]
+
+
+def _optimizer_node(opt_state, fields) -> dict:
+    found = _nodes(opt_state, fields)
+    if len(found) != 1:
+        raise ValueError(f"the optax state holds {len(found)} nodes with {fields}; "
+                         f"expected one")
+    return found[0]
+
+
+def optimizer_state_from_jax(opt_state, model: torch.nn.Module, optimizer) -> dict:
+    """A JAX ``TrainState.opt_state`` (optax Adam or SGD with momentum,
+    inside the JAX package's ``multi_transform`` freeze mask) -> the
+    ``state_dict`` of ``optimizer.inner``, the port's ``torch.optim``
+    optimizer over ``model``'s trainable parameters (``train.state``).
+
+    Adam's ``mu``/``nu`` become ``exp_avg``/``exp_avg_sq`` and its
+    ``count`` every parameter's ``step``; SGD's ``trace`` becomes
+    ``momentum_buffer``. The moment trees go through
+    :func:`state_dict_from_jax`'s layout maps as if they were the
+    parameters. Frozen parameters (``MaskedNode`` in the optax tree) get
+    no state: the port's optimizer never holds them. Raises
+    ``KeyError`` when a parameter the optimizer holds has no moment in
+    the tree, or its shape differs."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    held = [names[id(p)] for g in optimizer.inner.param_groups for p in g["params"]]
+    shapes = dict(model.named_parameters())
+
+    def moments(tree, field):
+        sd = state_dict_from_jax({"params": _unmask(tree), "batch_stats": _NoStats()})
+        bad = [n for n in held if n not in sd or sd[n].shape != shapes[n].shape]
+        if bad:
+            raise KeyError(f"no {field!r} moment of the right shape for {bad}")
+        return sd
+
+    if isinstance(optimizer.inner, torch.optim.Adam):
+        node = _optimizer_node(opt_state, ("count", "mu", "nu"))
+        mu, nu = moments(node["mu"], "mu"), moments(node["nu"], "nu")
+        count = float(np.asarray(node["count"]))
+        state = {i: {"step": torch.tensor(count), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                 for i, n in enumerate(held)}
+    elif isinstance(optimizer.inner, torch.optim.SGD):
+        trace = moments(_optimizer_node(opt_state, ("trace",))["trace"], "trace")
+        state = {i: {"momentum_buffer": trace[n]} for i, n in enumerate(held)}
+    else:
+        raise ValueError(f"unsupported optimizer {type(optimizer.inner).__name__}")
+    return {"state": state, "param_groups": optimizer.inner.state_dict()["param_groups"]}

@@ -280,3 +280,43 @@ def plot_epilines(
         fig.savefig(save_path, bbox_inches="tight")
         plt.close(fig)
     return fig
+
+
+def plot_train_curves(rows: Sequence[dict], save_path: str) -> None:
+    """The synthetic training demo's curves (``train.synth_demo``), one
+    row per step: the total loss, the mid and fine epipolar losses (raw
+    and a 9-step moving mean), and the held-out fine Sampson error at
+    each evaluation (all matches, confidence-gated, and the fixable ones)
+    -> a PNG at ``save_path``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(1, 3, figsize=(13, 3.5))
+    steps = [r["step"] for r in rows]
+
+    def smooth(key):
+        v = np.asarray([r[key] for r in rows])
+        n = min(9, len(v))
+        return np.convolve(v, np.ones(n) / n, mode="same")
+
+    axes[0].plot(steps, [r["loss_pair"] for r in rows], alpha=0.3)
+    axes[0].plot(steps, smooth("loss_pair"))
+    axes[0].set_title("total loss")
+    for key, label in (("loss_epi_mid", "mid"), ("loss_epi_fine", "fine")):
+        axes[1].plot(steps, [r[key] for r in rows], alpha=0.3, label=label)
+        axes[1].plot(steps, smooth(key))
+    axes[1].set_title("epipolar loss (px)")
+    axes[1].legend()
+    for key, marker, label in (("val_fine_sampson_px", "o", "all (conf-gated)"),
+                               ("val_fine_fixable_px", "s", "fixable (coarse<16px)")):
+        vs = [(r["step"], r[key]) for r in rows if key in r]
+        axes[2].plot([s for s, _ in vs], [v for _, v in vs], marker=marker, label=label)
+    axes[2].legend()
+    axes[2].set_title("held-out fine sampson (px, clipped@50)")
+    for ax in axes:
+        ax.set_xlabel("step")
+    fig.tight_layout()
+    fig.savefig(save_path, dpi=110)
+    plt.close(fig)

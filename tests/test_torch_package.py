@@ -3,12 +3,13 @@
   * no module of the port, and not ``chip_smoke.py`` or the tests' gloo
     rank workers, imports JAX, its libraries or the JAX package (an AST
     scan);
-  * the port exports every public name of the JAX package's
-    ``parallel`` (its modules too), ``ops.dispatch``,
-    ``utils.profiling`` and ``utils.plotting``, and
-    ``evaluation.BatchedMatcher``, ``train.step.make_sharded_train_step``
-    and ``predict_fine(stack_backbone=)``, but the two names that only
-    mean something to XLA;
+  * the port exports every public name of every JAX module that has a
+    port counterpart (a ``*_pallas`` module's is its kernel's module),
+    but the names in ``NOT_PORTED``, each with its reason and its port
+    counterpart; and ``evaluation.BatchedMatcher``,
+    ``train.step.make_sharded_train_step`` and
+    ``predict_fine(stack_backbone=)``; ``native_available()`` reports
+    whether the track builder loads, and nothing falls back;
   * the port's parameter keys are the reference's (the 276-key shape
     map stored in the golden fixtures), and ``state_dict_from_jax``
     inverts ``convert_patch2pix_state_dict`` exactly;
@@ -168,11 +169,67 @@ def test_every_c_entry_point_is_bound_once():
     assert sorted(bound) == sorted(_c_prototypes())
 
 
-# JAX names with no meaning in the port: HLO parsing (the port records
-# its own collectives, ``comm_stats.record_collectives``) and the gate
-# that turned Pallas off (the port's kernels stay on under the gate)
-NOT_PORTED = {"patch2pix_tpu.parallel.comm_stats": {"collective_stats"},
-              "patch2pix_tpu.ops.dispatch": {"pallas_allowed"}}
+# JAX names with no meaning in the port, each with the port's
+# counterpart (a dotted name that must resolve) and the reason
+_TO_JAX_LAYOUT = ("converts a reference state dict to the JAX layout; the port's modules "
+                  "use the reference's keys and layouts, so the dict loads as it is")
+NOT_PORTED = {
+    "patch2pix_tpu.parallel.comm_stats": {
+        "collective_stats": ("parallel.comm_stats.record_collectives",
+                             "parses XLA's HLO; the port records its own collectives")},
+    "patch2pix_tpu.ops.dispatch": {
+        "pallas_allowed": ("ops.dispatch.spmd_mode",
+                           "the gate that turned Pallas off; the port's kernels stay on")},
+    "patch2pix_tpu.ops.tap_sum_pallas": {
+        "tap_sum_pallas": ("ops.tap_sum.tap_sum", "the Pallas entry point of B1 (v1 layout)"),
+        "tap_sum_pallas_t": ("ops.tap_sum.tap_sum", "the Pallas entry point of B1"),
+        "tap_sum_feasible_t": ("ops.tap_sum.tap_sum",
+                               "a Mosaic VMEM bound; the CUDA kernel takes every shape")},
+    "patch2pix_tpu.ops.corr_pool_pallas": {
+        "corr_pool_fused": ("ops.corr_pool.corr_pool", "the Pallas entry point of B2")},
+    "patch2pix_tpu.ops.patch_expand_pallas": {
+        "expand_scale_pair_pallas": ("ops.patch_expand.expand_scale_pair",
+                                     "the Pallas entry point of B3"),
+        "expand_scale_pair_xla": ("ops.patch_expand.expand_scale_pair_plain",
+                                  "B3's XLA twin; the plain PyTorch version is the port's")},
+    "patch2pix_tpu.ops.conv4d_pallas": {
+        "conv4d_pallas": ("ops.conv4d_small.conv4d_small", "the Pallas entry point of B4")},
+    "patch2pix_tpu.ops.fine_stage_pallas": {
+        "fused_fine_head_pallas": ("ops.fine_stage.fused_fine_head",
+                                   "the Pallas entry point of B5"),
+        "head_prolog_xla": ("ops.fine_stage.head_prolog",
+                            "B5's XLA prolog; the port's prolog runs B7")},
+    "patch2pix_tpu.models.regressor": {
+        "BNAffine": ("models.regressor.bn_affine",
+                     "a Flax module; the port folds torch BatchNorm2d into an affine"),
+        "ScaledKernelConv": ("models.regressor.scaled_kernel_conv",
+                             "a Flax module; a function over the torch conv's weight"),
+        "SegmentedConv": ("models.regressor.segmented_conv",
+                          "a Flax module; a function over the torch conv's weight")},
+    "patch2pix_tpu.models.resnet": {
+        "FoldableBatchNorm": ("models.resnet.conv_bn",
+                              "a Flax module; torch BatchNorm2d, folded by conv_bn"),
+        "StemConv": ("models.resnet.conv2d_nhwc",
+                     "a Flax module; the stem is a torch Conv2d run channels-last")},
+    "patch2pix_tpu.utils.torch_import": {
+        "convert_patch2pix_state_dict": ("evaluation.matcher.load_model", _TO_JAX_LAYOUT),
+        "convert_vgg16_features": ("utils.torch_import.load_torchvision_vgg16_features",
+                                   _TO_JAX_LAYOUT),
+        "convert_densenet_features": ("utils.torch_import.load_torchvision_densenet_features",
+                                      _TO_JAX_LAYOUT),
+        "convert_ncnet_checkpoint": ("utils.torch_import.load_ncnet_checkpoint",
+                                     _TO_JAX_LAYOUT),
+        "convert_torchvision_resnet": ("utils.torch_import.load_torchvision_resnet",
+                                       _TO_JAX_LAYOUT),
+        "merge_variables": ("train.cli.load_pretrained",
+                            "merges a converted partial tree; the port loads a partial "
+                            "state dict with strict=False")},
+}
+
+# JAX modules whose port counterpart has another name
+PORT_NAMES = {"ops.tap_sum_pallas": "ops.tap_sum", "ops.corr_pool_pallas": "ops.corr_pool",
+              "ops.patch_expand_pallas": "ops.patch_expand",
+              "ops.conv4d_pallas": "ops.conv4d_small", "ops.fine_stage_pallas": "ops.fine_stage"}
 
 
 def _public_names(module):
@@ -180,15 +237,104 @@ def _public_names(module):
             if not k.startswith("_") and getattr(v, "__module__", None) == module.__name__}
 
 
-@pytest.mark.parametrize("name", [
-    "parallel", "parallel.mesh", "parallel.comm_stats", "parallel.volume_sharding",
-    "ops.dispatch", "utils.profiling", "utils.plotting"])
+def _declares_names(path):
+    """The file defines a public function or class, or an ``__all__``."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            return True
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return True
+    return False
+
+
+def _ported_jax_modules():
+    """Every JAX module (dotted, under ``patch2pix_tpu``) that names
+    something public and has a port counterpart."""
+    jax_root, port_root = ROOT / "patch2pix_tpu", ROOT / "patch2pix_tpu_torch"
+    out = []
+    for f in sorted(jax_root.rglob("*.py")):
+        parts = list(f.relative_to(jax_root).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        name = ".".join(parts)
+        port = PORT_NAMES.get(name, name).split(".")
+        port_file = port_root.joinpath(*port)
+        if (port_file.with_suffix(".py").exists() or (port_file / "__init__.py").exists()) \
+                and _declares_names(f):
+            out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("name", _ported_jax_modules())
 def test_port_exports_the_jax_names(name):
     jax_mod = importlib.import_module(f"patch2pix_tpu.{name}")
-    port = importlib.import_module(f"patch2pix_tpu_torch.{name}")
+    port = importlib.import_module(f"patch2pix_tpu_torch.{PORT_NAMES.get(name, name)}")
     want = set(getattr(jax_mod, "__all__", ())) | _public_names(jax_mod)
-    want -= NOT_PORTED.get(jax_mod.__name__, set())
-    assert want and not want - set(dir(port)), sorted(want - set(dir(port)))
+    want -= set(NOT_PORTED.get(jax_mod.__name__, {}))
+    missing = want - set(dir(port))
+    assert not missing, sorted(missing)
+
+
+def test_export_scan_covers_the_jax_package():
+    """The scan above reaches every module of the JAX package but the
+    two that export nothing, and each Pallas module through its port."""
+    names = _ported_jax_modules()
+    assert len(names) >= 60 and set(PORT_NAMES) <= set(names)
+    assert {"ops", "models", "data", "native", "train", "parallel.mesh",
+            "utils.plotting"} <= set(names)
+
+
+@pytest.mark.parametrize("jax_module", sorted(NOT_PORTED))
+def test_not_ported_names_have_a_counterpart(jax_module):
+    """Each exemption names a JAX public name, a reason, and a port
+    counterpart that resolves."""
+    jax_mod = importlib.import_module(jax_module)
+    for name, (counterpart, reason) in NOT_PORTED[jax_module].items():
+        assert hasattr(jax_mod, name) and reason, name
+        module, attr = counterpart.rsplit(".", 1)
+        assert callable(getattr(importlib.import_module(f"patch2pix_tpu_torch.{module}"),
+                                attr)), counterpart
+
+
+def test_package_exports_import():
+    """The JAX package's ``from patch2pix_tpu.models import Patch2Pix``
+    idiom, and the small names the scan covers by module."""
+    from patch2pix_tpu_torch import native
+    from patch2pix_tpu_torch.data import MegaDepthPairDataset, load_im_flexible  # noqa: F401
+    from patch2pix_tpu_torch.models import Patch2Pix as Exported
+    from patch2pix_tpu_torch.ops import Matches, conv4d, gather_local_patches  # noqa: F401
+    from patch2pix_tpu_torch.train import shard_batch_spec
+
+    assert Exported is Patch2Pix and callable(conv4d)
+    assert shard_batch_spec() == {"im1": "data", "im2": "data", "F": "data"}
+    m = Matches(torch.zeros(2, 7, 4), torch.zeros(2, 7), torch.zeros(2, 7, dtype=torch.bool))
+    assert m.n == 7
+    model = Patch2Pix(ModelConfig().resolved(), device="cpu")
+    im = torch.zeros(1, 64, 96, 3)
+    pyr = model.extract_pyramid(im)
+    pair = model.extract_pyramid_pair(im, im)
+    assert len(pyr) == 5 and all(torch.equal(a, b) for a, b in zip(pyr, pair[0]))
+
+
+def test_native_available_reports_the_library(monkeypatch):
+    """``native_available()`` is whether ``native.library()`` loads; it
+    only reports, and ``build_tracks_native`` still raises where the
+    library cannot be built."""
+    from patch2pix_tpu_torch import native
+
+    try:
+        native.library()
+        loads = True
+    except (RuntimeError, OSError):
+        loads = False
+    assert native.native_available() is loads
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-p2p")
+    monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR / "never")
+    assert native.native_available() is False
+    with pytest.raises(RuntimeError):
+        native.build_tracks_native({(0, 1): np.zeros((1, 4))})
 
 
 def test_port_exports_the_sharded_entry_points():

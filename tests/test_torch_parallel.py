@@ -46,7 +46,6 @@ from patch2pix_tpu.parallel.volume_sharding import (
 from patch2pix_tpu.utils.torch_import import convert_patch2pix_state_dict
 from patch2pix_tpu_torch.config import ModelConfig
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
-from patch2pix_tpu_torch.ops import conv4d as tconv
 from patch2pix_tpu_torch.ops.dispatch import spmd_mode, spmd_safe_dispatch
 from patch2pix_tpu_torch.parallel import comm_stats, mesh
 from patch2pix_tpu_torch.parallel.volume_sharding import make_sharded_coarse_matcher
@@ -57,6 +56,7 @@ from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 B, H1, W1, C, KSIZE = 2, 8, 12, 16, 2
 # the module (the package's ``conv4d`` attribute is the function)
 jconv = importlib.import_module("patch2pix_tpu.ops.conv4d")
+tconv = importlib.import_module("patch2pix_tpu_torch.ops.conv4d")
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])

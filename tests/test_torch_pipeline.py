@@ -222,15 +222,19 @@ def test_load_model_from_reference_checkpoint(seeded_sd, tmp_path):
 
 
 def test_model_config_gather_is_auto_only():
-    """The JAX ``ModelConfig.gather`` key: the port's ``to_json`` writes it
-    as ``"auto"`` (so a checkpoint's meta equals JAX's), reads ``"auto"``
-    back, and refuses ``"block"``, a route the port does not have."""
+    """The JAX ``ModelConfig.gather`` key: the port's ``to_json`` writes
+    the config's own value (so a checkpoint's meta equals JAX's), reads
+    ``"auto"`` and ``"block"`` back, and refuses any other value. (The
+    name predates the ``"block"`` route.)"""
     from patch2pix_tpu.config import to_json as jax_to_json
     from patch2pix_tpu_torch.config import from_dict, model_config_from_json, to_json
 
-    got = json.loads(to_json(ModelConfig(change_stride=True).resolved()))
-    assert got == json.loads(jax_to_json(JaxModelConfig(change_stride=True).resolved()))
-    assert got["gather"] == "auto"
-    assert model_config_from_json(json.dumps(got)).change_stride
-    with pytest.raises(ValueError, match="gather='block'"):
-        from_dict(ModelConfig, dict(got, gather="block"))
+    for gather in ("auto", "block"):
+        got = json.loads(to_json(ModelConfig(change_stride=True, gather=gather).resolved()))
+        assert got == json.loads(jax_to_json(
+            JaxModelConfig(change_stride=True, gather=gather).resolved()))
+        assert got["gather"] == gather
+        back = model_config_from_json(json.dumps(got))
+        assert back.change_stride and back.gather == gather
+    with pytest.raises(ValueError, match="gather='tiled'"):
+        from_dict(ModelConfig, dict(got, gather="tiled"))
