@@ -12,12 +12,16 @@ Phases, each fatal on failure:
      its path (change_stride, 1024x768, B=2: the NCN volume, M = 2400
      proposals, F = 512; B2 also at upsample 16 and at the ResNet101
      change_stride layer3, (2, 96, 128, 1024), which bf16 runs through the
-     kernel's streamed instance), in bf16 and in float32:
+     streamed kernel), in bf16 and in float32:
      hold the kernel against its plain PyTorch version on the card, time
      kernel, plain version and library yardstick, and compute the bound
      from the bytes and operations this run's inputs need (B3, B4, B5 and
      B7 also print their share of the bound, B4 and B7 their registers,
-     shared memory and spills; B4 is held and timed on the
+     shared memory and spills; B2 prints each case's kernel device ms by
+     the profiler beside the CUDA-event ms, and for the streamed kernel its
+     share of the bound, the L2 -> SM bytes its design predicts, its
+     registers and spills and its cluster shape, and holds it at the card
+     tests' shapes too; B4 is held and timed on the
      channels-last volume the NCN's fold-in leaves and on an NCHW view,
      and prints its tensor-core kernel's registers and shared memory for
      each staging and, as a yardstick the port never calls for these
@@ -255,7 +259,9 @@ from patch2pix_tpu_torch.ops.conv4d_small import (
     conv4d_small_plain,
     mma_fragments,
 )
-from patch2pix_tpu_torch.ops.corr_pool import LAYOUTS as CORR_POOL_LAYOUTS
+from patch2pix_tpu_torch.ops.corr_pool import STREAM_CLUSTER, kernel_instance
+from patch2pix_tpu_torch.ops.corr_pool import _round_up
+from patch2pix_tpu_torch.ops.corr_pool import layout as corr_pool_layout
 from patch2pix_tpu_torch.ops.corr_pool import (
     cell_parity_rows,
     corr_pool,
@@ -354,10 +360,14 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
 }
 
 # the device functions of csrc/*.cu, as the profiler names them
-PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_f32_kernel",
+PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_stream_kernel",
+                     "corr_pool_f32_kernel",
                      "expand_kernel", "expand_level_kernel", "conv4d_small_kernel",
                      "conv4d_small_mma_kernel", "fine_head_bf16_kernel",
                      "fine_head_f32_kernel")
+
+# phase 1's ptxas reports, {source: text}, for the kernels built in this run
+PTXAS = {}
 
 # the main path's setting: 1024x768, B=2, fine_cap 1200
 H, W, BATCH, FINE_CAP = 768, 1024, 2, 1200
@@ -524,31 +534,106 @@ def corr_pool_case(dtype, gen, dev, h, w, c=256):
     library, label = corr_pool_library(f1, f2)
     library_ms = time_ms(library, iters=5)
     # the wrapper's share: the two operand layout copies
-    rows1, rows2, chans, k_major = CORR_POOL_LAYOUTS[dtype]
+    rows1, rows2, chans, k_major = corr_pool_layout(dtype, c)
     layout_ms = time_ms(lambda: (cell_parity_rows(f1, rows1, chans, k_major),
                                  cell_parity_rows(f2, rows2, chans, k_major)))
+    # the kernel alone, by the profiler: mean device ms of 10 calls
+    calls = device_ms(lambda: [corr_pool(f1, f2) for _ in range(10)])
+    kernel_ms = sum(v for k, v in calls.items() if "corr_pool_" in k) / 10
     flops = 2 * BATCH * (h * w) * (h * w) * c
     b_ms, b_by = bound(nbytes(f1, f2, got), flops, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms,
+                bound_by=b_by, library_ms=library_ms, kernel_ms=kernel_ms,
+                rows=(_round_up(h * w, rows1), _round_up(h * w, rows2), _round_up(c, chans)),
                 shape=f"2x {tuple(f1.shape)} {dtype} -> {tuple(got.shape)} f32, "
                       f"library = {label}, of ms the layout copies {layout_ms:.4f}")
 
 
+def ptxas_entry(report, kernel):
+    """(registers, spill store bytes, spill load bytes) that ``ptxas -v``
+    reported for the entry function whose name holds ``kernel``, or None
+    where the report has no such entry (a library built earlier)."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            regs = spills = None
+            for nxt in lines[i + 1:]:
+                if "Compiling entry" in nxt:
+                    break
+                if m := re.search(r"Used (\d+) registers", nxt):
+                    regs = int(m.group(1))
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt):
+                    spills = (int(m.group(1)), int(m.group(2)))
+            return regs, *(spills or (None, None))
+    return None
+
+
+def log_corr_pool_stream(u, c):
+    """The streamed kernel's readings at (BATCH, h, w, c): device ms and
+    share of the bound, the operand bytes its design moves from L2 (per
+    cluster item the 256 panel rows once, multicast, and two image-2
+    tiles; against the replaced design's 256 + 64 rows per 64-row image-2
+    tile) and into the SMs (each CTA receives the whole panel), its
+    registers and spills and its launch shape."""
+    rp1, rp2, cp = u["rows"]
+    pair = corr_pool_layout(torch.bfloat16, c)[1]
+    items = BATCH * (rp1 // 256) * (rp2 // pair)
+    design = items * (256 + pair) * cp * 2
+    into_sms = items * STREAM_CLUSTER * (256 + pair // STREAM_CLUSTER) * cp * 2
+    before = BATCH * (rp1 // 256) * (rp2 // 64) * 320 * cp * 2
+    ptx = ptxas_entry(PTXAS.get("corr_pool", ""), "corr_pool_stream_kernel")
+    regs = ("not in this run's build" if ptx is None
+            else f"{ptx[0]} registers, spill stores {ptx[1]} B, spill loads {ptx[2]} B")
+    log(f"corr_pool streamed kernel: device ms {u['kernel_ms']:.4f} (profiler, mean of 10 "
+        f"calls; CUDA events {u['ms']:.4f} ms a wrapper call with its layout copies), "
+        f"{u['bound_ms'] / u['kernel_ms']:.1%} of the bound {u['bound_ms']:.4f} "
+        f"({u['bound_by']}); operand bytes the design predicts from L2 {design / 1e9:.3f} GB "
+        f"({design / u['kernel_ms'] / 1e9:.3f} TB/s at this time; the replaced design "
+        f"{before / 1e9:.3f} GB), into the SMs {into_sms / 1e9:.3f} GB "
+        f"({into_sms / u['kernel_ms'] / 1e9:.3f} TB/s); ptxas {regs}; cluster "
+        f"({STREAM_CLUSTER}, 1, 1), persistent (as many clusters as are resident at once, "
+        f"at most one an item), over {items} items of 256 x {pair} raw rows")
+
+
+# the streamed kernel's shapes in tests/test_torch_card.py: (b, h1, w1,
+# h2, w2, c), ragged against its tiles, 9 K blocks, one panel against an
+# odd count of image-2 tiles, B = 3
+STREAM_CARD_SHAPES = ((2, 18, 26, 22, 30, 512), (1, 10, 14, 6, 70, 448),
+                      (2, 24, 32, 24, 32, 1024), (2, 18, 26, 22, 30, 576),
+                      (2, 12, 20, 20, 22, 1024), (3, 14, 18, 10, 26, 512))
+
+
 def check_corr_pool(dtype, gen, dev):
-    """B2 at the cs main-path shape, layer3 (B, 96, 128, 256); first the
-    upsample-16 shape (B, 48, 64, 256), which runs it too, and the
-    ResNet101 change_stride layer3 (B, 96, 128, 1024) of phase 12's path
-    (bf16 through the streamed instance) are checked and their numbers
-    logged."""
+    """B2 at the cs main-path shape, layer3 (B, 96, 128, 256), timed first
+    (a profiler session before it would slow the host's launches of its
+    short calls below the card's pace); then the upsample-16 shape (B,
+    48, 64, 256), which runs it too, and the ResNet101 change_stride
+    layer3 (B, 96, 128, 1024) of phase 12's path (bf16 through the
+    streamed kernel) are checked and their numbers logged, the streamed
+    kernel's readings too; in bf16 the streamed kernel is then held at
+    the card tests' shapes."""
+    main = corr_pool_case(dtype, gen, dev, H // 8, W // 8)
+    log(f"corr_pool {kernel_instance(dtype, 256)} kernel at C = 256: device ms "
+        f"{main['kernel_ms']:.4f} (profiler, mean of 10 calls)")
     for tag, h, w, c in (("upsample 16", H // 16, W // 16, 256),
                          ("ResNet101 change_stride", H // 8, W // 8, 1024)):
         u = corr_pool_case(dtype, gen, dev, h, w, c)
         log(f"kernel corr_pool [{str(dtype)[6:]}] {tag}, {u['shape']}: max_abs_err "
-            f"{u['max_abs_err']:.3g} ms {u['ms']:.4f} plain_ms {u['plain_ms']:.4f} library_ms "
-            f"{u['library_ms']:.4f} bound_ms {u['bound_ms']:.4f} ({u['bound_by']})")
+            f"{u['max_abs_err']:.3g} ms {u['ms']:.4f} device_ms {u['kernel_ms']:.4f} plain_ms "
+            f"{u['plain_ms']:.4f} library_ms {u['library_ms']:.4f} bound_ms "
+            f"{u['bound_ms']:.4f} ({u['bound_by']})")
+        if kernel_instance(dtype, c) == "streamed":
+            log_corr_pool_stream(u, c)
         torch.cuda.empty_cache()
-    return corr_pool_case(dtype, gen, dev, H // 8, W // 8)
+    if dtype == torch.bfloat16:
+        errs = []
+        for b, h1, w1, h2, w2, c in STREAM_CARD_SHAPES:
+            f1, f2 = (l2_normalize(torch.randn(shape, generator=gen, device=dev)).to(dtype)
+                      for shape in ((b, h1, w1, c), (b, h2, w2, c)))
+            errs.append(hold_corr_pool(f"corr_pool streamed {(b, h1, w1, h2, w2, c)}", f1, f2)[1])
+        log(f"corr_pool streamed kernel at the card tests' shapes {STREAM_CARD_SHAPES}: max abs "
+            f"err " + " ".join(f"{e:.3g}" for e in errs) + " (<= 1e-4 each)")
+    return main
 
 
 def expand_inputs(dtype, gen, dev):
@@ -2975,12 +3060,14 @@ def main():
 
     # phase 1: build
     secs, reports = _build.build()
+    PTXAS.update(reports)
     log(f"kernel build: {secs:.1f} s ({len(reports)} sources compiled)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            # every kernel's registers and spills; the entry names of the wgmma
+            # every kernel's registers, spills and ptxas's performance
+            # warnings (wgmma serialised); the entry names of the wgmma
             # kernels and of patch_expand's B3 and B7 too
-            if ("registers" in line or "spill" in line
+            if ("registers" in line or "spill" in line or "Performance" in line
                     or (name in ("corr_pool", "fine_head", "patch_expand")
                         and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")

@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the port's wgmma kernels (B2, B5):
 // mbarriers, TMA tile loads and their tensor maps, the 128-byte-swizzle
-// wgmma descriptor, warpgroup fences.
+// wgmma descriptor, warpgroup fences; for a thread-block cluster, the
+// CTA's rank, the cluster barrier, arrivals on another CTA's mbarrier
+// and TMA loads multicast to several CTAs.
 
 #pragma once
 
@@ -44,6 +46,47 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// The same wait with acquire semantics at cluster scope: for a barrier
+// that other CTAs of the cluster arrive on.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Arrive on the mbarrier at `bar`'s offset in the shared memory of CTA
+// `cta` of this cluster (this CTA's own included), releasing this
+// thread's earlier accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every non-exited thread of every CTA of the cluster meets here.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Box (64 elements, rows) at (element x, row y) of a 2D map.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int x, int y) {
@@ -51,6 +94,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// The same box written to `dst`'s offset in every CTA of the cluster
+// whose bit is set in `cta_mask`; each copy completes bytes on the
+// mbarrier at `bar`'s offset in its own CTA.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int x, int y,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(x), "r"(y), "h"(cta_mask)
       : "memory");
 }
 
@@ -77,6 +133,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -3,8 +3,9 @@
 ``corr_pool(f1, f2)`` equals ``maxpool4d_values(feat_correlation(f1,
 f2), 2)`` without the pre-pool volume (port of
 ``patch2pix_tpu.ops.corr_pool_pallas.corr_pool_fused``). On CUDA tensors
-it lays the features out for the kernel (:func:`cell_parity_rows`) and
-launches ``csrc/corr_pool.cu``; on CPU tensors it runs
+it lays the features out for the kernel that :func:`kernel_instance`
+names (:func:`cell_parity_rows`, :func:`layout`) and launches it
+(``csrc/corr_pool.cu``); on CPU tensors it runs
 :func:`corr_pool_plain`. The within-window argmax offsets are not
 produced: :func:`decode_delta_from_feats` recomputes them from the
 features for the few selected cells.
@@ -30,15 +31,39 @@ from patch2pix_tpu_torch.ops.correlation import (
 KSIZE = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"p2p_corr_pool": "pppiiiiiiip"}
-# the kernels' operand layouts: (image-1 row multiple, image-2 row
-# multiple, channel multiple, K-major); see csrc/corr_pool.cu
-LAYOUTS = {torch.float32: (128, 128, 16, True), torch.bfloat16: (256, 64, 64, False)}
+# the kernels' operand layouts by (dtype, kernel): (image-1 row multiple,
+# image-2 row multiple, channel multiple, K-major); see csrc/corr_pool.cu:
+# float32 the SIMT kernel (F_TILE, F_KC), bf16 the resident-panel kernel
+# (H_BM, H_BN, H_KB) up to RESIDENT_MAX_C channels and the streamed one
+# (H_BM, S_ROWS2, H_KB) beyond
+LAYOUTS = {
+    (torch.float32, "simt"): (128, 128, 16, True),
+    (torch.bfloat16, "resident"): (256, 64, 64, False),
+    (torch.bfloat16, "streamed"): (256, 384, 64, False),
+}
+RESIDENT_MAX_C = 384  # H_MAX_CP
+STREAM_CLUSTER = 2  # S_CLUSTER: CTAs a cluster of the streamed kernel
+
+
+def kernel_instance(dtype: torch.dtype, c: int) -> str:
+    """The kernel a call on ``c``-channel features of ``dtype`` takes:
+    "simt" (float32), "resident" (bf16, ``c`` rounded up to the channel
+    multiple at most RESIDENT_MAX_C) or "streamed" (bf16, wider)."""
+    if dtype == torch.float32:
+        return "simt"
+    chans = LAYOUTS[(torch.bfloat16, "resident")][2]
+    return "resident" if _round_up(c, chans) <= RESIDENT_MAX_C else "streamed"
+
+
+def layout(dtype: torch.dtype, c: int):
+    """The operand layout (LAYOUTS' value) of that call's kernel."""
+    return LAYOUTS[(dtype, kernel_instance(dtype, c))]
 
 
 def corr_pool_supported(feat1: torch.Tensor, feat2: torch.Tensor, ksize: int) -> bool:
     """Condition of the fused path: ksize 2, even spatial dims and equal
-    channel counts, any width (bf16 features wider than 384 channels run
-    the kernel's streamed instance, ``csrc/corr_pool.cu``)."""
+    channel counts, any width (bf16 features wider than RESIDENT_MAX_C
+    channels run the streamed kernel, ``csrc/corr_pool.cu``)."""
     _, h1, w1, c1 = feat1.shape
     _, h2, w2, c2 = feat2.shape
     return (ksize == KSIZE and c1 == c2
@@ -103,7 +128,7 @@ def _launch(feat1, feat2):
         raise TypeError(f"corr_pool: dtypes {feat1.dtype}, {feat2.dtype}")
     if not corr_pool_supported(feat1, feat2, KSIZE) or feat2.shape[0] != b:
         raise ValueError(f"corr_pool: shapes {tuple(feat1.shape)}, {tuple(feat2.shape)}")
-    rows1, rows2, chans, k_major = LAYOUTS[feat1.dtype]
+    rows1, rows2, chans, k_major = layout(feat1.dtype, c)
     a = cell_parity_rows(feat1, rows1, chans, k_major)
     m = cell_parity_rows(feat2, rows2, chans, k_major)
     rdim, cdim = (2, 1) if k_major else (1, 2)

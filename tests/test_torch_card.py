@@ -11,7 +11,8 @@ Each kernel is held against its plain version on the card, at small
 and ragged shapes (partial tiles, channel counts that are not a
 multiple of 8, a t=1 pyramid level), to its kernel's tolerance: tap_sum
 bit-identical, corr_pool atol 1e-4 on unit-norm features (bf16 up to
-1024 channels, through the streamed instance beyond 384),
+1024 channels, through the streamed kernel beyond 384: 9 K blocks, one
+panel against an odd count of image-2 tiles, B = 3),
 expand_scale_pair f32 rtol 1e-6 / bf16 bit for bit, except at patch
 pixels whose inverse norm rounds to the neighbouring bf16 value (one in
 10^4 at most; chip_smoke's ``expand_bf16_mismatch``), with corners
@@ -132,9 +133,12 @@ def test_tap_sum_bit_identical(cuda, dtype, bs, h1, w1, hw, cout):
     (2, 8, 12, 10, 6, 96), (1, 6, 70, 4, 36, 20),
     (2, 18, 26, 22, 30, 256),  # C of the main path, pooled grids ragged against every tile
     (2, 48, 64, 48, 64, 256),  # the upsample-16 main-path shape
-    # bf16 beyond 384 channels: the streamed instance (panel K blocks
-    # through the ring), ragged and at ResNet50/101's layer3 width
+    # bf16 beyond 384 channels: the streamed kernel (2-CTA clusters,
+    # the panel multicast), ragged and at ResNet50/101's layer3 width
     (2, 18, 26, 22, 30, 512), (1, 10, 14, 6, 70, 448), (2, 24, 32, 24, 32, 1024),
+    (2, 18, 26, 22, 30, 576),   # 9 K blocks
+    (2, 12, 20, 20, 22, 1024),  # one panel, 3 image-2 tiles (the last pair half padding)
+    (3, 14, 18, 10, 26, 512),   # B = 3
 ])
 def test_corr_pool_matches_plain(cuda, dtype, b, h1, w1, h2, w2, c):
     f1 = _unit_feats(1, b, h1, w1, c).to(cuda, dtype)

@@ -7,8 +7,10 @@ them (Pallas in interpret mode, or their jnp formulation). Tolerances:
 
   * B1 tap_sum: exact in f32 (the same nine f32 adds in tap order);
   * B2 corr_pool: rtol 1e-5 (dot products summed in another order);
-    its kernels' operand layout, fed through a plain matmul and a max
-    over aligned groups of four rows, the same;
+    each of its kernels' operand layouts (the streamed bf16 kernel's
+    beyond 384 channels too), fed through a plain matmul and a max over
+    aligned groups of four rows, the same; the layouts' multiples
+    against the kernels' constants in ``csrc/corr_pool.cu``;
   * decode_delta_from_feats: exact, first max on ties;
   * B3 expand_scale_pair: f32 rtol 1e-6, bf16 one bf16 ulp (channel
     square-sums in another order), identical ``output_slice_map``; its
@@ -17,6 +19,8 @@ them (Pallas in interpret mode, or their jnp formulation). Tolerances:
 
 The kernels themselves run only on a CUDA card: tests/test_torch_card.py.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -34,12 +38,17 @@ from patch2pix_tpu.ops.patch_expand_pallas import (
 )
 from patch2pix_tpu.ops.patch_expand_pallas import output_slice_map as jax_slice_map
 from patch2pix_tpu.ops.tap_sum_pallas import tap_sum_pallas, tap_sum_pallas_t
+from patch2pix_tpu_torch.ops._build import CSRC
 from patch2pix_tpu_torch.ops.corr_pool import (
     LAYOUTS,
+    RESIDENT_MAX_C,
+    STREAM_CLUSTER,
     cell_parity_rows,
     corr_pool,
     corr_pool_plain,
     decode_delta_from_feats,
+    kernel_instance,
+    layout,
 )
 from patch2pix_tpu_torch.ops.patch_expand import (
     SMEM_LIMIT,
@@ -130,14 +139,29 @@ def test_corr_pool_plain_matches_pallas(b, h1, w1, h2, w2, c):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("layout", sorted(LAYOUTS, key=str), ids=str)
-@pytest.mark.parametrize("b,h1,w1,h2,w2,c", [(3, 6, 10, 10, 14, 20),   # 15 x 35 cells
-                                              (3, 12, 18, 8, 22, 96)])  # 54 x 44 cells
-def test_corr_pool_layout_matches_plain_and_pallas(layout, b, h1, w1, h2, w2, c):
+_RESIDENT, _SIMT = (torch.bfloat16, "resident"), (torch.float32, "simt")
+_STREAMED = (torch.bfloat16, "streamed")
+_LAYOUT_CASES = [
+    pytest.param(kernel, *shape, id="-".join(map(str, (*shape, kernel[0]))))
+    for shape in [(3, 6, 10, 10, 14, 20),   # 15 x 35 cells
+                  (3, 12, 18, 8, 22, 96)]   # 54 x 44 cells
+    for kernel in (_RESIDENT, _SIMT)
+] + [
+    # the streamed kernel's, ragged, with an odd count of S_BN-row image-2
+    # tiles (the last pair's second tile all padding)
+    pytest.param(_STREAMED, *shape, id="-".join(map(str, (*shape, *_STREAMED))))
+    for shape in [(3, 10, 14, 20, 22, 448),   # 35 x 110 cells: 1 panel, 3 tiles
+                  (2, 12, 22, 6, 10, 1024)]   # 66 x 15 cells: 2 panels, 1 tile
+]
+
+
+@pytest.mark.parametrize("kernel,b,h1,w1,h2,w2,c", _LAYOUT_CASES)
+def test_corr_pool_layout_matches_plain_and_pallas(kernel, b, h1, w1, h2, w2, c):
     """The (pooled cell, parity) rows the CUDA kernels read, padded to
     their tiles: one matmul, then the max over each cell's four rows on
     both sides, is the pooled correlation."""
-    rows1, rows2, chans, k_major = LAYOUTS[layout]
+    assert kernel_instance(kernel[0], c) == kernel[1]
+    rows1, rows2, chans, k_major = LAYOUTS[kernel]
     f1 = _unit_feats(5, b, h1, w1, c)
     f2 = _unit_feats(6, b, h2, w2, c)
     a = cell_parity_rows(torch.from_numpy(f1), rows1, chans, k_major)
@@ -153,6 +177,45 @@ def test_corr_pool_layout_matches_plain_and_pallas(layout, b, h1, w1, h2, w2, c)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     pallas = np.asarray(corr_pool_fused(jnp.asarray(f1), jnp.asarray(f2), True))
     np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,c,kernel", [
+    (torch.float32, 1024, "simt"), (torch.bfloat16, 256, "resident"),
+    (torch.bfloat16, 384, "resident"), (torch.bfloat16, 385, "streamed"),
+    (torch.bfloat16, 1024, "streamed")])
+def test_corr_pool_kernel_instance(dtype, c, kernel):
+    """bf16 takes the resident-panel kernel while C rounded up to 64
+    channels fits RESIDENT_MAX_C, the streamed kernel beyond."""
+    assert kernel_instance(dtype, c) == kernel
+    assert layout(dtype, c) == LAYOUTS[(dtype, kernel)]
+
+
+def _cu_constants(path):
+    """{name: value} of the ``constexpr int`` and ``uint32_t`` constants
+    of a CUDA source whose expressions are integer arithmetic on earlier
+    ones."""
+    found = {}
+    pattern = r"constexpr (?:int|uint32_t) (\w+) = ([^;\n]+)"
+    for m in re.finditer(pattern, path.read_text()):
+        try:
+            found[m.group(1)] = int(eval(m.group(2), {"__builtins__": {}}, dict(found)))
+        except (NameError, SyntaxError):
+            pass
+    return found
+
+
+def test_corr_pool_layouts_match_the_kernels_constants():
+    """LAYOUTS, RESIDENT_MAX_C and STREAM_CLUSTER against the tile and row
+    multiples the kernels in csrc/corr_pool.cu are built with."""
+    k = _cu_constants(CSRC / "corr_pool.cu")
+    assert LAYOUTS == {
+        _SIMT: (k["F_TILE"], k["F_TILE"], k["F_KC"], True),
+        _RESIDENT: (k["H_BM"], k["H_BN"], k["H_KB"], False),
+        _STREAMED: (k["H_BM"], k["S_ROWS2"], k["H_KB"], False),
+    }
+    assert RESIDENT_MAX_C == k["H_MAX_CP"]
+    assert STREAM_CLUSTER == k["S_CLUSTER"]
+    assert k["S_ROWS2"] == k["S_CLUSTER"] * k["S_BN"]
 
 
 def test_decode_delta_from_feats_matches_jax_with_ties():

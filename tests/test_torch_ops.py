@@ -206,7 +206,7 @@ def test_block_gather_matches_jax(rng):
 
 def test_corr_pool_guard_sends_wide_bf16_to_plain_route(rng):
     """bf16 features of any width satisfy ``corr_pool_supported`` (B2's
-    streamed instance takes C > 384, as the JAX kernel takes any C %
+    streamed kernel takes C > 384, as the JAX kernel takes any C %
     128 == 0); ``coarse_corr`` on the CPU still equals the plain
     composition bit for bit. Odd sides, unequal channels and ksize != 2
     are refused."""
