@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (``patch2pix_tpu_torch``) on one CUDA card.
+"""Drive the PyTorch port (``patch2pix_tpu_torch``) on CUDA cards.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 1-17 on one card
+    python3 chip_smoke.py --cards 4    # phase 1, then phase 18 on 4 cards
 
 Phases, each fatal on failure:
 
@@ -197,6 +198,48 @@ Phases, each fatal on failure:
      over phases 4, 11, 12, 13, 15 and 16, B3's over 4, 13, 15 and 16),
      then the result line.
 
+  18. (``--cards N`` alone, after phase 1; it exits non-zero where fewer
+     than N cards are visible, and ``--cards 1`` rehearses it at world
+     size 1 on one card) the multi-card paths, one NCCL rank a card
+     spawned from a ``file://`` store, every process group with a
+     5-minute timeout (``MULTI_TIMEOUT``), so that a hang fails the run;
+     each rank prints its current card and name, two ranks on one card
+     fail; the world-size-1 references run on rank 0, card 0, while the
+     other ranks wait; each part prints its seconds: (a) the sharded train
+     step at phase 7's setting: one f32 step at one pair a rank (cuDNN
+     deterministic, ``debug_checks``) against ``make_train_step`` without
+     a mesh on the same global batch by the CPU tests' rule (metrics and
+     running averages rtol 1e-5, parameters by Adam's bound, frozen
+     tensors bit-identical, summed gradients within 1e-4 of the largest
+     or, where larger, within the card's own spread: how far the same
+     single-device step with cuDNN off lies from it, in this run),
+     its collectives (all-reduces only), B1 and B3 launched on every rank
+     and held on rank 0; then bf16 ms/step at 4 pairs a rank beside world
+     size 1 at batch 4 and the weak-scaling efficiency; (b)
+     ``BatchedMatcher`` on 32 PNG pairs (28 at 1024x768, 4 at 640x480),
+     both strides: in f32 every pair equals ``Matcher.estimate_matches``
+     on card 0 by the goldens' rules, nothing recorded but the results'
+     final ``all_gather_object``; bf16 pairs/s at per_chip_batch 1, 2, 4
+     beside world size 1 and the scaling efficiency; B1-B3 launched on
+     every rank and held on rank 0; (c) the h1-sharded coarse matcher on
+     phase 4's change_stride features (card 0's, broadcast), bf16 and f32:
+     coords and valid flags equal ``coarse_matches``', scores rtol 2e-5 /
+     atol 1e-6, its collectives per call, B2 and B1 launched on every rank
+     and held on rank 0, ms per call beside ``coarse_matches``; (d) the
+     point-sharded BA on phase 14's (500, 100000, 6) problem: the first
+     step against ``ba_step`` on card 0 by phase 14's rules,
+     ``run_dist_ba(max_iters=10, debug_checks=True)`` below 1e-2 of the
+     initial cost and within 0.5 relative of ``run_ba``'s, ms and
+     collectives per LM iteration (k = 6 minus k = 2) beside a group of
+     rank 0 alone; then the scale demo with ``--mesh N`` at its defaults
+     by phase 14's rules; (e) the training CLI with ``--mesh N`` (phase
+     10's fixture and setting, 1 epoch of 3 steps, the validation on):
+     ``Mesh:`` in the log, ``last.pt`` and ``immatch_best``, no failed
+     validation pair, frozen tensors bit-identical to the ``.pth``, every
+     tensor and epoch loss finite; (f) ``parallel.dryrun.dryrun_multichip(N)``
+     and its ``[dryrun]`` lines, each rank on its own card. It ends with
+     the result line, ``count`` the cards driven.
+
 Each path's launches are counted from zero just before it runs: phase 4
 for B1-B3, phase 5 for B4, phase 6 for B5 and B7, phase 10 for B1-B3
 under the CLI, phases 11 and 12 for B1 and B2, phase 13 for B1-B3
@@ -204,12 +247,15 @@ under the protocols' Matcher, phase 15 for B1-B3 on each sharded path,
 phase 16 for B1-B3 under the demo, both models of (c), the synthetic
 training demo and the convergence workload.
 
-Needs one CUDA card, ``nvcc`` and the repository checkout; imports no JAX.
+Needs one CUDA card (N with ``--cards N``), ``nvcc`` and the repository
+checkout; imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import functools
 import importlib
 import json
 import os
@@ -217,10 +263,13 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, model_config_from_json
 from patch2pix_tpu_torch.data.synthetic import (
@@ -301,7 +350,13 @@ from patch2pix_tpu_torch.ops.tap_sum import (
 from patch2pix_tpu_torch import native as native_module
 from patch2pix_tpu_torch.parallel import volume_sharding as volume_sharding_module
 from patch2pix_tpu_torch.parallel.comm_stats import format_comm_table, record_collectives
-from patch2pix_tpu_torch.parallel.mesh import make_mesh, process_group, shard_batch
+from patch2pix_tpu_torch.parallel.dryrun import dryrun_multichip
+from patch2pix_tpu_torch.parallel.mesh import (
+    make_mesh,
+    process_group,
+    shard_batch,
+    spawned_rank,
+)
 from patch2pix_tpu_torch.parallel.volume_sharding import make_sharded_coarse_matcher
 from patch2pix_tpu_torch.data.colmap_model import read_model
 from patch2pix_tpu_torch.sfm import ba as ba_module
@@ -931,12 +986,16 @@ def backward_tap_sum(gen, z, bias, bs, h1, w1):
 
 
 def backward_corr_pool(gen, f1, f2):
-    """B2's backward at the features' shape."""
-    b, h, w, _ = f1.shape
-    g = torch.randn((b, h // 2, w // 2, h // 2, w // 2), generator=gen, device=f1.device)
+    """B2's backward at the features' shapes (an h1 slice of feat1 on a
+    sharded path)."""
+    b, h1, w1, _ = f1.shape
+    _, h2, w2, _ = f2.shape
+    g = torch.randn((b, h1 // 2, w1 // 2, h2 // 2, w2 // 2), generator=gen, device=f1.device)
     same = backward_routes(corr_pool, corr_pool_plain, (f1, f2), (g,))
     ms = time_ms(lambda: corr_pool_backward(f1, f2, g), iters=5, warmup=1)
-    return same, ms, f"g {tuple(g.shape)} f32 -> 2x {tuple(f1.shape)} {f1.dtype}"
+    shapes = (f"2x {tuple(f1.shape)}" if f1.shape == f2.shape
+              else f"{tuple(f1.shape)} and {tuple(f2.shape)}")
+    return same, ms, f"g {tuple(g.shape)} f32 -> {shapes} {f1.dtype}"
 
 
 def backward_expand(gen, rows1, rows2, y1, x1, y2, x2, psize, out_dtype):
@@ -2550,16 +2609,23 @@ def ba_path(dev):
         f"(relative difference {rel:.3g}); no divergence raised")
 
 
-def sfm_demo_path(cams=50, pts=5000):
-    """Phase 14 (c): the scale demo at its defaults (``cams``, ``pts``)
-    through its ``main``, ``--mesh 1`` on the card."""
+def sfm_demo_path(cams=50, pts=5000, mesh=1, timeout=None):
+    """Phase 14 (c), and phase 18 (d) with ``mesh`` 4: the scale demo at
+    its defaults (``cams``, ``pts``) through its ``main``, ``--mesh
+    mesh`` on the card(s); ``timeout``: its process group's."""
     shutil.rmtree(SFM_DIR, ignore_errors=True)
-    with counting(incremental_module, "ransac_essential", "ransac_pnp", "run_ba") as inc, \
-            counting(ba_module, "ba_step") as steps, \
-            counting(native_module, "build_tracks_native") as nat, \
-            counting(scale_demo, "make_scale_scene", "run_dist_ba_ranks") as demo:
-        summary = scale_demo.main(["--cams", str(cams), "--pts", str(pts), "--mesh", "1",
-                                   "--out", SFM_DIR])
+    ranks = scale_demo.run_dist_ba_ranks
+    scale_demo.run_dist_ba_ranks = functools.partial(ranks, timeout=timeout)
+    try:
+        with counting(incremental_module, "ransac_essential", "ransac_pnp",
+                      "run_ba") as inc, \
+                counting(ba_module, "ba_step") as steps, \
+                counting(native_module, "build_tracks_native") as nat, \
+                counting(scale_demo, "make_scale_scene", "run_dist_ba_ranks") as demo:
+            summary = scale_demo.main(["--cams", str(cams), "--pts", str(pts), "--mesh",
+                                       str(mesh), "--out", SFM_DIR])
+    finally:
+        scale_demo.run_dist_ba_ranks = ranks
     Rs_gt, ts_gt = demo.results["make_scale_scene"][0][:2]
     radius = float(np.linalg.norm([-R.T @ t for R, t in zip(Rs_gt, ts_gt)], axis=1).mean())
     _, ims, points = read_model(os.path.join(SFM_DIR, "colmap"), ext=".bin")
@@ -2571,8 +2637,9 @@ def sfm_demo_path(cams=50, pts=5000):
         fail(f"sfm demo: {summary}; ATE / radius {ate}; native track builds "
              f"{nat.calls['build_tracks_native']}; COLMAP read back {len(ims)} images, "
              f"{len(points)} points")
-    log(f"sfm demo [{cams} cams, {pts} pts, 0.4 px, 5% outliers, pair gap 5, ba_every 10, mesh 1, "
-        f"{summary['device']}, {summary['power_limit']}]: {summary['points']} points, ATE "
+    log(f"sfm demo [{cams} cams, {pts} pts, 0.4 px, 5% outliers, pair gap 5, ba_every 10, "
+        f"mesh {mesh}, {summary['device']}, {summary['power_limit']}]: {summary['points']} "
+        f"points, ATE "
         f"{100 * ate['ate_incremental']:.4f}% of the radius after the incremental run, "
         f"{100 * ate['ate_after_dist_ba']:.4f}% after dist BA; native track builder "
         f"(C++) used; COLMAP export read back: {len(ims)} images, {len(points)} points; "
@@ -2603,13 +2670,13 @@ BATCHED_DIR = os.path.join(ROOT, "build", "chip_smoke_batched")
 BATCHED_PAIRS = ((W, H, 8), (640, 480, 2))
 
 
-def write_batched_pairs(root):
-    """Seeded noise PNG pairs, as ``BATCHED_PAIRS`` sizes them."""
+def write_batched_pairs(root, sizes=BATCHED_PAIRS):
+    """Seeded noise PNG pairs, as ``sizes`` ((w, h, count) each) says."""
     from PIL import Image
 
     os.makedirs(root, exist_ok=True)
     pairs, seed = [], 100
-    for w, h, n in BATCHED_PAIRS:
+    for w, h, n in sizes:
         for _ in range(n):
             paths = []
             for _ in range(2):
@@ -3044,21 +3111,535 @@ def tools_path(dev, sd):
     return total
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("CUDA is not available", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
+# ------------------------------------------------------------ phase 18
+
+MULTI_DIR = os.path.join(ROOT, "build", "chip_smoke_multi")
+# (b)'s pairs: 28 at the main path's size and 4 at 640x480 (two buckets)
+MULTI_PAIRS = ((W, H, 28), (640, 480, 4))
+# how long a rank of phase 18 waits in a collective: a hang fails the call
+MULTI_TIMEOUT = timedelta(minutes=5)
+# JAX's dryrun train step (the default model at 64x64; MULTICHIP_r05.json, a TPU run)
+JAX_DRYRUN_STEP = "all-reduce x18 40478.2 KiB"
+
+
+# rank 0's failed checks in this rank process (``solo``)
+MULTI_FAILURES = []
+
+
+def solo(rank, fn):
+    """``fn()`` on rank 0 alone (a world-size-1 reference on card 0, or
+    rank 0's checks) while the other ranks wait at a barrier; its result
+    on rank 0, None on the others. A check that fails in ``fn`` is
+    printed and kept, and fails phase 18 once every part has run (the
+    other ranks wait at the barrier, so the group stays in step); None is
+    returned for it."""
+    out = None
+    if rank == 0:
+        try:
+            out = fn()
+        except SystemExit as e:
+            print(e, file=sys.stderr, flush=True)
+            MULTI_FAILURES.append(str(e))
+    dist.barrier()
+    return out
+
+
+def rank_launches(tag, need):
+    """Every rank's launches since ``reset_counts``, gathered; fails
+    unless each rank launched each kernel of ``need``."""
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {k: v for k, v in counts().items() if v})
+    if not all(c.get(k, 0) > 0 for c in every for k in need):
+        fail(f"{tag}: {need} must launch on every rank; launches per rank {every}")
+    return every
+
+
+def gather_only(tag, comm, n):
+    """``BatchedMatcher``'s rule: nothing recorded while matching, so a
+    run records only the results' final ``all_gather_object`` (nothing
+    at all on one rank)."""
+    want = {"all-gather"} if n > 1 else set()
+    if set(comm) != want or (n > 1 and comm["all-gather"]["count"] != 1):
+        fail(f"{tag}: collectives {comm}; only the final all_gather_object expected")
+
+
+def adam_step_excess(got, want, g, wg, lr=5e-4, eps=1e-8):
+    """``tests/test_torch_train.py``'s ``assert_adam_step_close``: by how
+    much parameters after one Adam step from gradient ``g`` differ from
+    those after one from ``wg`` beyond what the two gradients can make
+    them differ (<= 0 holds)."""
+    same = torch.sign(g) == torch.sign(wg)
+    gmin = torch.minimum(g.abs(), wg.abs())
+    bound = torch.where(same, lr * eps * (g - wg).abs() / (gmin + eps) ** 2,
+                        torch.full_like(g, 2 * lr))
+    return float(((got - want).abs() - 1.01 * bound - 1e-6).max())
+
+
+def hold_train_step(tag, model, metrics, want, control, before):
+    """``tests/test_torch_train_sharded.py``'s rule for a sharded step
+    against the single-device one (``want``: its state, gradients and
+    metrics): metrics rtol 1e-5 (atol 1e-6), parameters by Adam's bound,
+    frozen tensors bit-identical to ``before``, running averages rtol
+    1e-5 (atol 1e-6); the summed gradients within 1e-4 of the largest
+    there, here within the larger of that and the card's own spread:
+    how far ``control``, the single-device step's gradients with cuDNN
+    off (another convolution algorithm, the same batch), lie from
+    ``want``'s. A rank's share of the proposals takes other cuDNN
+    algorithms than the whole batch's, which moves the regressors'
+    weight gradients by ~2e-4 of the largest in f32. Returns the largest
+    errors."""
+    wsd, wgrads, wmet = want
+    met = {k: float(v) for k, v in metrics.items()}
+    if met.keys() != wmet.keys():
+        fail(f"{tag}: metrics {sorted(met)} against make_train_step's {sorted(wmet)}")
+    off = {k: (met[k], v) for k, v in wmet.items() if abs(met[k] - v) > 1e-6 + 1e-5 * abs(v)}
+    grads = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    if grads.keys() != wgrads.keys() or not all(k.startswith("regress_") for k in grads):
+        fail(f"{tag}: gradients of {sorted(grads)} against {sorted(wgrads)}")
+    scale = max(float(g.abs().max()) for g in wgrads.values())
+    errs = {"metrics rel": max(abs(met[k] - v) / max(abs(v), 1e-30) for k, v in wmet.items()),
+            "grad / largest": max(float((grads[k] - wgrads[k]).abs().max())
+                                  for k in grads) / scale,
+            "cuDNN-off control / largest": max(float((control[k] - wgrads[k]).abs().max())
+                                               for k in grads) / scale}
+    now = model.state_dict()
+    errs["Adam excess"] = max(adam_step_excess(now[k], wsd[k], grads[k], wgrads[k])
+                              for k in grads)
+    frozen = [k for k in now if k.startswith(("extract.", "ncn.")) and "running" not in k]
+    changed = [k for k in frozen
+               if not torch.equal(now[k].cpu(), torch.from_numpy(np.asarray(before[k])))]
+    running = [k for k in now if "running" in k]
+    errs["running abs"] = max(float((now[k] - wsd[k]).abs().max()) for k in running)
+    far = [k for k in running if not torch.allclose(now[k], wsd[k], rtol=1e-5, atol=1e-6)]
+    grad_tol = max(1e-4, errs["cuDNN-off control / largest"])
+    if off or errs["grad / largest"] > grad_tol or errs["Adam excess"] > 0 or changed or far:
+        fail(f"{tag}: {errs}; metrics off (sharded, single) {off}; frozen tensors changed "
+             f"{changed}; running averages off {far}")
+    return errs
+
+
+def multi_train(rank, n, dev, mesh, sd):
+    """Phase 18 (a): the sharded train step at the reference setting."""
+    tag = f"multi train [world {n}]"
+    kw = dict(ksize=2, ptmax=PTMAX, remat="auto")
+    cells = (TRAIN_H // 8 // 2) * (TRAIN_W // 8 // 2)
+
+    def batch_of(pairs, seed):
+        rs = np.random.RandomState(seed)
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in synthetic_batch(rs, pairs, TRAIN_H, TRAIN_W).items()}
+
+    def draw(pairs):
+        return torch.rand((pairs, 2 * cells), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(7))
+
+    def stepper(dtype, mesh_=None, **extra):
+        model = seeded_model(sd, dtype, dev)
+        state = create_train_state(model, OptimConfig(lr_init=5e-4))
+        return model, state, make_train_step(model, state.optimizer, mesh=mesh_, **kw, **extra)
+
+    # f32 parity at one pair a rank, cuDNN's deterministic algorithms
+    batch, rand = batch_of(n, 0), draw(n)
+    torch.backends.cudnn.deterministic = True
+
+    def single(cudnn=True):
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            model, state, step = stepper("float32")
+            _, met = step(state, batch, rand=rand)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.enabled = True
+        return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None},
+                {k: float(v) for k, v in met.items()})
+
+    want = solo(rank, single)
+    control = solo(rank, lambda: single(cudnn=False)[1])
+    model, state, step = stepper("float32", mesh, debug_checks=True)
+    reset_counts()
+    with capture_inputs(keep=1) as captured, record_collectives() as comm:
+        state, met = step(state, shard_batch(batch, mesh), rand=rand)
+        torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    every = rank_launches(tag, ("tap_sum", "expand_scale_pair"))
+    if set(comm) != {"all-reduce"}:
+        fail(f"{tag}: collectives other than all-reduce: {comm}")
+    n_grad = sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+    def held():
+        errs = hold_train_step(tag, model, met, want, control, sd)
+        hold_path_calls(tag, captured, torch.Generator(device=dev).manual_seed(6))
+        return errs
+
+    errs = solo(rank, held) or {}
+    del model, state, step, captured, want, control
+    torch.cuda.empty_cache()
+
+    # bf16 ms/step: 4 pairs a rank against world size 1 at batch 4
+    def ms_per_step(mesh_, pairs):
+        model, state, step = stepper("bfloat16", mesh_)
+        big, rand_ = batch_of(pairs, 1), draw(pairs)
+        b = big if mesh_ is None else shard_batch(big, mesh_)
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            state, _ = step(state, b, rand=rand_)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    ms_n = ms_per_step(mesh, TRAIN_BATCH * n)
+    ms_1 = solo(rank, lambda: ms_per_step(None, TRAIN_BATCH))
+    torch.cuda.empty_cache()
+    if rank == 0 and errs:
+        log(f"{tag} [ResNet34 change_stride {TRAIN_W}x{TRAIN_H} ptmax={PTMAX} panc 8, Adam "
+            f"5e-4, backbone and NCN frozen, NCCL]: f32 step at global batch {n} (one pair a "
+            f"rank) from the seeded state and a fixed draw, cuDNN deterministic, against "
+            f"make_train_step without a mesh on card 0: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (rules: metrics and running averages rtol 1e-5, gradients within the larger "
+            f"of 1e-4 of the largest and the cuDNN-off control, Adam's bound <= 0; frozen "
+            f"tensors bit-identical); collectives per "
+            f"step (debug_checks' two 4-byte all-reduces included): "
+            + ", ".join(f"{k} x{v['count']} {v['bytes']} bytes ({v['bytes'] / 1024:.1f} KiB)"
+                        for k, v in comm.items())
+            + f", of which the gradient buffer {4 * n_grad} bytes ({n_grad} trainable "
+            f"values); JAX's dryrun step (default model, 64x64, a TPU run): {JAX_DRYRUN_STEP}; "
+            f"launches per rank {every}; bf16 ms/step median of 5: {ms_n:.2f} at "
+            f"{TRAIN_BATCH} pairs a rank (global {TRAIN_BATCH * n}), world size 1 at batch "
+            f"{TRAIN_BATCH} {ms_1:.2f}: weak-scaling efficiency {ms_1 / ms_n:.1%}, "
+            f"{TRAIN_BATCH * n * 1e3 / ms_n:.2f} against {TRAIN_BATCH * 1e3 / ms_1:.2f} "
+            f"training pairs/s")
+
+
+def multi_batched(rank, n, dev, mesh, sd, pairs):
+    """Phase 18 (b): ``BatchedMatcher`` on ``MULTI_PAIRS`` over the ranks."""
+    kw = dict(ksize=2, io_thres=0.25, imsize=1024, fine_cap=FINE_CAP)
+    sizes = " and ".join(f"{c} at {w}x{h}" for w, h, c in MULTI_PAIRS)
+    for cs in (True, False):
+        tag = f"multi batched {'change_stride' if cs else 'upsample 16'} [world {n}]"
+        model = build_model(cs, sd, "float32", dev)
+        bm = BatchedMatcher(model, mesh=mesh, **kw)
+        with record_collectives() as comm:
+            out = bm.match_pairs(pairs)
+        gather_only(tag, comm, n)
+
+        def parity():
+            matcher = Matcher(model, device=dev, **kw)
+            return [hold_pair_parity(f"{tag} f32 pair {i}", got, matcher.estimate_matches(*pair))
+                    for i, (got, pair) in enumerate(zip(out, pairs))]
+
+        errs = solo(rank, parity)
+        if rank == 0 and errs:
+            log(f"{tag} [f32, TF32 off, imsize 1024, per_chip_batch {bm.per_chip_batch}, "
+                f"{len(pairs)} pairs: {sizes}]: every pair equals Matcher.estimate_matches on "
+                f"card 0 (rows " + " ".join(str(e[0]) for e in errs) + f"; max coord err "
+                f"{max(e[1] for e in errs):.3g} px, max score err {max(e[2] for e in errs):.3g}"
+                f"); nothing recorded while matching, then the results' "
+                f"{format_comm_table(comm)}")
+        del model, bm, out
+        torch.cuda.empty_cache()
+
+        model = build_model(cs, sd, "bfloat16", dev)
+
+        def rates(mesh_):
+            r = {}
+            for pcb in (1, 2, 4):
+                bm_ = BatchedMatcher(model, mesh=mesh_, per_chip_batch=pcb, **kw)
+                bm_.match_pairs(pairs[:1])  # warm up
+                torch.cuda.synchronize()
+                if mesh_.size > 1:
+                    dist.barrier()
+                t0 = time.perf_counter()
+                bm_.match_pairs(pairs)
+                r[pcb] = len(pairs) / (time.perf_counter() - t0)
+            return r
+
+        rates_n = rates(mesh)
+        rates_1 = solo(rank, lambda: rates(make_mesh(1, device=dev)))
+        reset_counts()
+        with capture_inputs(keep=1) as captured, record_collectives() as comm:
+            BatchedMatcher(model, mesh=mesh, **kw).match_pairs(pairs)
+        gather_only(tag, comm, n)
+        every = rank_launches(f"{tag} bf16", ("tap_sum", "corr_pool", "expand_scale_pair"))
+
+        def held():
+            hold_path_calls(f"{tag} bf16", outside_inference(captured),
+                            torch.Generator(device=dev).manual_seed(5))
+            log(f"{tag} [bf16]: pairs/s over the {len(pairs)} pairs (every rank decodes and "
+                f"resizes every PNG) at per_chip_batch 1 / 2 / 4: " + " / ".join(
+                    f"{rates_n[k]:.2f}" for k in (1, 2, 4)) + "; world size 1 on card 0: "
+                + " / ".join(f"{rates_1[k]:.2f}" for k in (1, 2, 4)) + "; scaling efficiency "
+                + " / ".join(f"{rates_n[k] / (n * rates_1[k]):.1%}" for k in (1, 2, 4))
+                + f"; launches per rank {every}; nothing recorded while matching")
+
+        solo(rank, held)
+        del model, captured
+        torch.cuda.empty_cache()
+
+
+def multi_coarse(rank, n, dev, mesh, sd):
+    """Phase 18 (c): the h1-sharded coarse matcher on phase 4's
+    change_stride features, ``H // 8 / n`` h1 rows a rank."""
+    ims = [torch.from_numpy(seeded_images(BATCH, H, W, seed)).to(dev) for seed in (1, 2)]
+    for dtype in ("bfloat16", "float32"):
+        tag = f"multi coarse [{dtype}, world {n}]"
+        model = build_model(True, sd, dtype, dev)
+        with torch.inference_mode():
+            f1, f2 = (f[-1] for f in model.extract_pyramid_pair(ims[0], ims[1]))
+            for f in (f1, f2):  # the features of card 0 on every rank
+                dist.broadcast(f, 0)
+        fn = make_sharded_coarse_matcher(model, mesh, ksize=2)
+
+        def single():
+            with torch.inference_mode():
+                return model.coarse_matches(*model.coarse_corr(f1, f2, 2), 2)
+
+        reset_counts()
+        with capture_inputs(sites=((conv4d_module, "tap_sum"),
+                                   (volume_sharding_module, "corr_pool")),
+                            keep=1) as captured, record_collectives() as comm:
+            got = fn(f1, f2)
+            torch.cuda.synchronize()
+        every = rank_launches(tag, ("tap_sum", "corr_pool"))
+
+        def held():
+            want = single()
+            if not (torch.equal(got.coords, want.coords)
+                    and torch.equal(got.valid, want.valid)):
+                fail(f"{tag}: coords or valid flags differ from coarse_matches'")
+            if not torch.allclose(got.scores, want.scores, rtol=2e-5, atol=1e-6):
+                fail(f"{tag}: scores differ from coarse_matches' by "
+                     f"{float((got.scores - want.scores).abs().max()):.3g}")
+            hold_path_calls(tag, outside_inference(captured),
+                            torch.Generator(device=dev).manual_seed(8))
+            return float((got.scores - want.scores).abs().max())
+
+        serr = solo(rank, held)
+        ms = time_ms(lambda: fn(f1, f2), iters=5)
+        single_ms = solo(rank, lambda: time_ms(single, iters=5))
+        if rank == 0 and serr is not None:
+            log(f"{tag} [features {tuple(f1.shape)}, {f1.shape[1] // n} h1 rows a rank, ksize "
+                f"2]: coords and valid flags equal coarse_matches' on card 0, scores max err "
+                f"{serr:.3g}; {ms:.3f} ms per call (world size 1, coarse_matches on card 0: "
+                f"{single_ms:.3f}); per call {format_comm_table(comm)}; launches per rank "
+                f"{every}")
+        del model, f1, f2, fn, got, captured
+        torch.cuda.empty_cache()
+
+
+def multi_ba(rank, n, dev, world, alone):
+    """Phase 18 (d): the point-sharded BA at ``BA_SCALES[1]`` over the
+    ranks against ``ba_step`` and ``run_ba`` on card 0; ms per LM
+    iteration at world size n and 1 (``alone``: a group of rank 0)."""
+    c, p, o = BA_SCALES[1]
+    Rs, ts, X, ci, pi, uv = make_ba_scene(c, p, o)
+    args = (Rs, ts, perturb_points(X), ci, pi, uv)
+    sp = shard_problem(*args, n_shards=n)
+
+    def single():
+        card = build_problem(*args, device=dev)
+        new, cn, co = ba_module.ba_step(card, 1e-3, 1e9, False)
+        cost0 = float(cost(card))
+        _, c_single = run_ba(card, max_iters=10, device=dev)
+        return (new.Rs, new.ts, cn, co), cost0, c_single
+
+    ref = solo(rank, single)
+    step = make_dist_ba_step(c, use_huber=False, group=world)
+    first = step(local_problem(sp, rank, dev), 1e-3, 1e9)
+    stats = {}
+    _, _, X_d, c_dist = run_dist_ba(sp, world, max_iters=10, debug_checks=True, device=dev,
+                                    stats=stats)
+
+    def lm_ms(group, sp_):
+        """ms and collectives per LM iteration, k = 6 minus k = 2 iterations."""
+        runs = []
+        for k in (6, 2):
+            st = {}
+            dist.barrier(group=group)
+            with record_collectives() as comm:
+                t0 = time.perf_counter()
+                run_dist_ba(sp_, group, max_iters=k, device=dev, stats=st)
+                runs.append(((time.perf_counter() - t0) * 1e3, st["iterations"], comm))
+        (t6, i6, c6), (t2, i2, c2) = runs
+        if i6 <= i2:
+            fail(f"multi dist BA: {i6} and {i2} LM iterations for max_iters 6 and 2")
+        per = {k: {"count": (v["count"] - c2[k]["count"]) // (i6 - i2),
+                   "bytes": (v["bytes"] - c2[k]["bytes"]) // (i6 - i2)}
+               for k, v in c6.items() if v["count"] > c2[k]["count"]}
+        return (t6 - t2) / (i6 - i2), per
+
+    ms_n, per_n = lm_ms(world, sp)
+    ms_1 = solo(rank, lambda: lm_ms(alone, shard_problem(*args, n_shards=1))[0])
+
+    def held():
+        if ref is None:
+            fail("multi dist BA: no world-size-1 reference (its run failed above)")
+        step_errs = hold_ba_step(f"multi dist step [world {n}] vs ba_step",
+                                 (first[0], first[1], first[3], first[4]), ref[0])
+        cost0, c_single = ref[1], ref[2]
+        rel = abs(c_dist - c_single) / max(c_single, 1e-12)
+        if not (c_dist < cost0 * 1e-2 and rel < 0.5 and np.isfinite(X_d).all()):
+            fail(f"multi run_dist_ba: cost {cost0:.6g} -> {c_dist:.6g}, run_ba {c_single:.6g}")
+        log(f"multi dist BA [world {n}, NCCL, {c} cams, {p} pts, {len(ci)} obs, f32, TF32 "
+            f"off]: first step vs ba_step on card 0 "
+            + ", ".join(f"{k} {v:.3g}" for k, v in step_errs.items())
+            + f"; run_dist_ba(max_iters 10, debug_checks) cost {cost0:.6g} -> {c_dist:.6g} in "
+            f"{stats['iterations']} iterations, {stats['host_syncs']} stop-flag reads; run_ba "
+            f"on card 0 {c_single:.6g} (relative difference {rel:.3g}); no divergence raised; "
+            f"ms per LM iteration (k = 6 minus k = 2): {ms_n:.3f} at world size {n}, {ms_1:.3f} "
+            f"at world size 1 (a group of one rank), speed-up {ms_1 / ms_n:.2f}x; collectives "
+            f"per iteration at world size {n}: "
+            + ", ".join(f"{k} x{v['count']} {v['bytes']} bytes" for k, v in per_n.items()))
+
+    solo(rank, held)
+    del sp, ref
+    torch.cuda.empty_cache()
+
+
+def multi_rank(rank, n, store, pairs):
+    """One NCCL rank of phase 18 (spawned through
+    ``parallel.mesh.spawned_rank``, so that any error ends it at once):
+    its card, the group, parts (a)-(d); it fails at the end where rank
+    0's checks failed."""
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, sd = load_golden("cs_1024")
+    with process_group(n, rank, "nccl", store, timeout=MULTI_TIMEOUT) as world:
+        mesh = make_mesh(group=world, device=dev)
+        card = torch.cuda.current_device()
+        print(f"rank {rank}: torch.cuda.current_device() {card}, "
+              f"{torch.cuda.get_device_name(card)}", flush=True)
+        cards = [None] * n
+        dist.all_gather_object(cards, card)
+        if sorted(cards) != list(range(n)):
+            fail(f"ranks and cards: {cards}; one card a rank expected")
+        alone = dist.new_group([0])
+        for part, run in (("a", lambda: multi_train(rank, n, dev, mesh, sd)),
+                          ("b", lambda: multi_batched(rank, n, dev, mesh, sd, pairs)),
+                          ("c", lambda: multi_coarse(rank, n, dev, mesh, sd)),
+                          ("d", lambda: multi_ba(rank, n, dev, world, alone))):
+            t0 = time.perf_counter()
+            run()
+            if rank == 0:
+                log(f"multi part ({part}): {time.perf_counter() - t0:.1f} s")
+        dist.barrier()
+    if MULTI_FAILURES:
+        fail("phase 18: " + "; ".join(MULTI_FAILURES))
+
+
+def multi_cli(n):
+    """Phase 18 (e): the training CLI with ``--mesh n``, phase 10's
+    fixture and setting, one epoch of 3 steps and its validation."""
+    root = os.path.join(MULTI_DIR, "cli")
+    fixture = write_megadepth_fixture(os.path.join(root, "fixture"), CLI_PAIRS, TRAIN_H,
+                                      TRAIN_W, seed=0)
+    _, _, sd = load_golden("cs_1024")
+    pre = {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+    pth = os.path.join(root, "seeded.pth")
+    torch.save({"state_dict": pre}, pth)
+    write_val_dense_fixture(os.path.join(fixture[0], "immatch_benchmark", "val_dense"), 2, H,
+                            W, seed=1)
+    argv = cli_argv(fixture, os.path.join(root, "out"), 1, "--pretrain", pth, "--mesh", str(n))
+    argv.remove("--no_eval")
+    t0 = time.perf_counter()
+    run = train_cli.main(argv, group_timeout=MULTI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(run, "log.txt")) as f:
+        text = f.read()
+    pairs = re.search(r"Pairs 2 match_failed=0 geo_failed=0 .* time:([0-9.]+)s", text)
+    written = [t for t in ("last", "immatch_best") if os.path.exists(os.path.join(run, f"{t}.pt"))]
+    # --mesh 1 (a rehearsal on one card) trains without a mesh
+    if ((n > 1 and f"Mesh: {n}-rank data parallel" not in text) or "Failed to eval immatch" in text
+            or "Pose err: qt_mean=" not in text or pairs is None or "Finished" not in text
+            or written != ["last", "immatch_best"]):
+        fail(f"multi cli --mesh {n}: checkpoints {written}; log:\n" + text[-2000:])
+    ckpt = checkpoint_model(run)
+    last = ckpt["model"]
+    frozen = [k for k in pre if k.startswith(("extract.", "ncn."))]
+    changed = [k for k in frozen if not torch.equal(last[k], pre[k])]
+    bad = [k for k, v in last.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        means = json.loads(f.readlines()[-1])
+    losses = {k: v for k, v in means.items() if k.startswith("loss")}
+    if (changed or bad or ckpt["step"] != CLI_STEPS or not losses
+            or not all(np.isfinite(v) for v in losses.values())):
+        fail(f"multi cli --mesh {n}: frozen tensors changed {changed}, non-finite {bad}, "
+             f"step {ckpt['step']}, losses {losses}")
+    log(f"multi cli [train.cli.main --mesh {n}, phase 10's setting and fixture, batch "
+        f"{TRAIN_BATCH} ({TRAIN_BATCH // n} a rank), 1 epoch x {CLI_STEPS} steps, the "
+        f"immatch validation on 2 pairs at {W}x{H}]: {secs:.1f} s in all (ranks spawned, the "
+        f"protocol {float(pairs.group(1)):.2f} s on rank 0); every rank passed the epoch's "
+        f"barrier; rank 0 wrote last.pt (step {ckpt['step']}) and immatch_best; "
+        f"{len(frozen)} frozen tensors bit-identical to the .pth, every tensor finite; epoch "
+        f"means " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
+
+
+def multi_dryrun(n):
+    """Phase 18 (f): ``dryrun_multichip(n)`` on the cards."""
+    out = dryrun_multichip(n)
+    if out["devices"] != [f"cuda:{r}" for r in range(n)]:
+        fail(f"dryrun ranks and cards: {out['devices']}")
+    log(f"multi dryrun_multichip({n}): ranks on {out['devices']}; train steps "
+        + ", ".join(f"mesh {m}: step {v['step']}" for m, v in out["train"].items())
+        + "; dist BA costs " + ", ".join(f"mesh {m}: {v['cost']:.3e}"
+                                         for m, v in out["ba"].items()))
+
+
+def multi_card_main(n):
+    """``--cards n``: phase 1, then phase 18 on n cards."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    for line in smi:
+        log(line)
+    visible = torch.cuda.device_count()
+    if visible < n:
+        print(f"--cards {n}: {visible} CUDA card(s) visible", file=sys.stderr)
+        return 3
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; cards "
+        + ", ".join(torch.cuda.get_device_name(i) for i in range(n)))
+    build_phase()
+    t_phase = time.perf_counter()
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    os.makedirs(MULTI_DIR)
+    try:
+        pairs = write_batched_pairs(os.path.join(MULTI_DIR, "pairs"), MULTI_PAIRS)
+        store = tempfile.mkdtemp(dir=MULTI_DIR)
+        torch.multiprocessing.start_processes(spawned_rank, args=(multi_rank, n, store, pairs),
+                                              nprocs=n, join=True, start_method="spawn")
+        for part, run in (("d, the scale demo",
+                           lambda: sfm_demo_path(mesh=n, timeout=MULTI_TIMEOUT)),
+                          ("e", lambda: multi_cli(n)), ("f", lambda: multi_dryrun(n))):
+            t0 = time.perf_counter()
+            run()
+            log(f"multi part ({part}): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    log(f"multi-card phase: {time.perf_counter() - t_phase:.1f} s")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
 
-    # phase 1: build
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on CUDA cards "
+                                 "(phases 1-17 on one card; the module docstring).")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="phase 1, then phase 18 alone on this many cards (1 rehearses it "
+                    "at world size 1 on one card)")
+    args = ap.parse_args(argv)
+    if args.cards is not None and args.cards < 1:
+        ap.error("--cards N takes N >= 1")
+    return args
+
+
+def build_phase():
+    """Phase 1: build every CUDA source, print the build time and ptxas's
+    registers and spills."""
     secs, reports = _build.build()
     PTXAS.update(reports)
     log(f"kernel build: {secs:.1f} s ({len(reports)} sources compiled)")
@@ -3071,6 +3652,27 @@ def main():
                     or (name in ("corr_pool", "fine_head", "patch_expand")
                         and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        print("CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.cards is not None:
+        return multi_card_main(args.cards)
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    # phase 1: build
+    build_phase()
 
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device=dev)

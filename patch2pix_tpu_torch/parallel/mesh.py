@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import tempfile
+import traceback
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Dict, NamedTuple, Optional
@@ -57,11 +59,23 @@ class Sharding(NamedTuple):
         return self.axis is None or self.mesh.size == 1
 
 
-def _rank_device(device) -> torch.device:
+def rank_device(device=None, group=None) -> torch.device:
+    """This rank's device in ``group`` (None: the rank alone). A CUDA
+    device without an index is the current card on a rank alone or in a
+    group of one; in a group of more ranks it is the rank's card on its
+    host (``LOCAL_RANK`` where ``torchrun`` set it, else the rank in the
+    default group modulo the visible cards), made the current card:
+    NCCL, the object collectives and the kernels launch on the current
+    card, which is card 0 on a rank that never set it."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    if group is None or dist.get_world_size(group) == 1:
+        return torch.device("cuda", torch.cuda.current_device())
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local is not None else dist.get_rank() % torch.cuda.device_count()
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data", group=None,
@@ -69,11 +83,10 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data", group=None,
     """This rank's 1-D mesh of ``n_devices`` ranks: the ranks of
     ``group`` (the default group when None). A mesh of one rank needs no
     process group; a larger one needs an initialised group of exactly
-    ``n_devices`` ranks. ``device``: this rank's device (CUDA, the
-    current card, unless given)."""
-    dev = _rank_device(device)
+    ``n_devices`` ranks. ``device``: this rank's device (CUDA unless
+    given; without an index, :func:`rank_device`'s card)."""
     if n_devices == 1 or (n_devices is None and group is None and not dist.is_initialized()):
-        return Mesh(axis, 1, 0, dev, None)
+        return Mesh(axis, 1, 0, rank_device(device), None)
     if not dist.is_initialized():
         raise RuntimeError(f"a mesh of {n_devices} ranks needs an initialised process group "
                            "(parallel.mesh.process_group or initialize_multihost)")
@@ -81,7 +94,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data", group=None,
     size = dist.get_world_size(group)
     if n_devices is not None and n_devices != size:
         raise ValueError(f"a mesh of {n_devices} ranks from a group of {size}")
-    return Mesh(axis, size, dist.get_rank(group), dev, group)
+    return Mesh(axis, size, dist.get_rank(group), rank_device(device, group), group)
 
 
 def data_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
@@ -153,6 +166,24 @@ def process_group(world_size: int, rank: int, backend: str, store_dir: Optional[
             yield dist.group.WORLD
         finally:
             dist.destroy_process_group()
+
+
+def spawned_rank(rank: int, fn, *args) -> None:
+    """``fn(rank, *args)`` as the body of a spawned rank
+    (``torch.multiprocessing.start_processes(spawned_rank, args=(fn,
+    ...))``): an error prints its traceback and ends the process with
+    exit code 1 without tearing down its process group (over NCCL a
+    teardown waits for the ranks still blocked in a collective until
+    their timeout), and the parent then ends the other ranks. Over gloo
+    that is at once; over NCCL a two-rank run on the card still lasted
+    past its group's timeout (``PERF.md``), so give every group a
+    timeout of minutes."""
+    try:
+        fn(rank, *args)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
 
 
 def replicated_divergence(blocks, group) -> torch.Tensor:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+from datetime import timedelta
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,7 +36,12 @@ import torch.distributed as dist
 
 from patch2pix_tpu_torch.config import resolve_device
 from patch2pix_tpu_torch.parallel import comm_stats
-from patch2pix_tpu_torch.parallel.mesh import process_group, replicated_divergence
+from patch2pix_tpu_torch.parallel.mesh import (
+    process_group,
+    rank_device,
+    replicated_divergence,
+    spawned_rank,
+)
 from patch2pix_tpu_torch.sfm.ba import (
     BAProblem,
     apply_updates,
@@ -249,8 +255,8 @@ def run_dist_ba(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float]:
     """LM driver over the point-sharded solver, called on every rank of
     ``group`` (the default group when None) with the same ``sp``; rank r
-    solves shard r on ``device`` (CUDA unless given; the current card
-    where no index is given).
+    solves shard r on ``device`` (CUDA unless given; without an index,
+    ``parallel.mesh.rank_device``'s card).
 
     Returns (Rs, ts, X_global, final_cost) on every rank: the shards'
     points are gathered once, at the end. With ``debug_checks`` a
@@ -258,12 +264,11 @@ def run_dist_ba(
     ``stats``, where given, receives the iteration count and the stop
     flags the loop read (its host synchronisations)."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     if not dist.is_initialized():
         raise RuntimeError("run_dist_ba needs an initialised process group "
                            "(parallel.mesh.process_group)")
     group = _default_group(group)
+    dev = rank_device(dev, group)
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     if sp.X.shape[0] != world:
         raise ValueError(f"{sp.X.shape[0]} shards for a group of {world} ranks")
@@ -296,7 +301,7 @@ def run_dist_ba(
 
 
 def _rank_main(rank: int, world_size: int, backend: str, store_dir: str, sp: ShardedBA,
-               kwargs: dict, out_path: Optional[str]):
+               kwargs: dict, out_path: Optional[str], timeout: Optional[timedelta]):
     """One rank of :func:`run_dist_ba_ranks`: its group, its shard, and
     (rank 0, where ``out_path`` is given) the result written to
     ``out_path``. Returns the result."""
@@ -306,19 +311,21 @@ def _rank_main(rank: int, world_size: int, backend: str, store_dir: str, sp: Sha
     else:
         device = torch.device("cpu")
     stats: dict = {}
-    with process_group(world_size, rank, backend, store_dir) as group:
+    with process_group(world_size, rank, backend, store_dir, timeout=timeout) as group:
         Rs, ts, X, c = run_dist_ba(sp, group, device=device, stats=stats, **kwargs)
     if rank == 0 and out_path is not None:
         np.savez(out_path, Rs=Rs, ts=ts, X=X, cost=c, **stats)
     return Rs, ts, X, c, stats
 
 
-def run_dist_ba_ranks(sp: ShardedBA, device=None, **kwargs):
+def run_dist_ba_ranks(sp: ShardedBA, device=None, timeout: Optional[timedelta] = None,
+                      **kwargs):
     """:func:`run_dist_ba` over a group of ``sp``'s shard count: gloo
     processes on the CPU, or one NCCL rank per card (as many cards as
     shards); a group of one runs in this process, a larger one in
-    spawned processes. ``kwargs`` go to :func:`run_dist_ba`. Returns
-    (Rs, ts, X_global, cost, {"iterations", "host_syncs"})."""
+    spawned processes. ``timeout``: how long a collective waits (the
+    backend's default when None). ``kwargs`` go to :func:`run_dist_ba`.
+    Returns (Rs, ts, X_global, cost, {"iterations", "host_syncs"})."""
     dev = resolve_device(device)
     world = sp.X.shape[0]
     backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -327,10 +334,11 @@ def run_dist_ba_ranks(sp: ShardedBA, device=None, **kwargs):
                          f"{torch.cuda.device_count()} found")
     with tempfile.TemporaryDirectory() as tmp:
         if world == 1:
-            return _rank_main(0, 1, backend, tmp, sp, kwargs, None)
+            return _rank_main(0, 1, backend, tmp, sp, kwargs, None, timeout)
         out = os.path.join(tmp, "rank0.npz")
         torch.multiprocessing.start_processes(
-            _rank_main, args=(world, backend, tmp, sp, kwargs, out), nprocs=world,
+            spawned_rank, args=(_rank_main, world, backend, tmp, sp, kwargs, out, timeout),
+            nprocs=world,
             join=True, start_method="spawn")
         with np.load(out) as r:
             stats = {k: int(r[k]) for k in ("iterations", "host_syncs")}

@@ -30,7 +30,7 @@ when N exceeds the cards or does not divide ``--batch``. Every rank reads
 the same global batch order and takes its rows; rank 0 alone writes the
 checkpoints, metrics and log, and runs the validation, while the other
 ranks wait at a barrier at the epoch's end. The process group's timeout,
-``GROUP_TIMEOUT``, bounds that wait.
+``GROUP_TIMEOUT`` (``main(..., group_timeout=)``), bounds that wait.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ from patch2pix_tpu_torch.parallel.mesh import (
     make_mesh,
     process_group,
     shard_batch,
+    spawned_rank,
 )
 from patch2pix_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
 from patch2pix_tpu_torch.train.state import create_train_state
@@ -259,8 +260,10 @@ def load_pretrained(model, path: str) -> None:
         raise KeyError(f"pretrained keys not in the model: {unexpected}")
 
 
-def main(argv=None) -> str:
-    """Train as the flags say; returns the run directory."""
+def main(argv=None, group_timeout: timedelta = GROUP_TIMEOUT) -> str:
+    """Train as the flags say; returns the run directory.
+    ``group_timeout``: how long a rank of ``--mesh`` waits in a
+    collective or at the end-of-epoch barrier."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     n = mesh_size(args, device)
@@ -272,19 +275,20 @@ def main(argv=None) -> str:
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
             torch.cuda.set_device(device)
         initialize_multihost(None, n, int(os.environ["RANK"]), backend=backend,
-                             timeout=GROUP_TIMEOUT)
+                             timeout=group_timeout)
         try:
             return train(args, device, make_mesh(n, device=device))
         finally:
             torch.distributed.destroy_process_group()
     with tempfile.TemporaryDirectory() as store:
         torch.multiprocessing.start_processes(
-            _rank_main, args=(n, backend, store, args), nprocs=n, join=True,
-            start_method="spawn")
+            spawned_rank, args=(_rank_main, n, backend, store, args, group_timeout), nprocs=n,
+            join=True, start_method="spawn")
     return run_dir_tags(args)
 
 
-def _rank_main(rank: int, n: int, backend: str, store: str, args) -> None:
+def _rank_main(rank: int, n: int, backend: str, store: str, args,
+               timeout: timedelta) -> None:
     """One spawned rank of ``--mesh n``: its group, its device, its rows."""
     device = torch.device("cpu")
     if backend == "nccl":
@@ -292,7 +296,7 @@ def _rank_main(rank: int, n: int, backend: str, store: str, args) -> None:
         torch.cuda.set_device(device)
     else:  # the CPU ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // n))
-    with process_group(n, rank, backend, store, timeout=GROUP_TIMEOUT):
+    with process_group(n, rank, backend, store, timeout=timeout):
         train(args, device, make_mesh(n, device=device))
 
 

@@ -8,10 +8,14 @@ and rank 0 writes the results to ``{out_dir}/results.pkl``:
     Huber) -> new R, t, the gathered new points (global order), new and
     old cost;
   * ``("run", sp, kwargs)``: :func:`run_dist_ba` -> (R, t, X, cost).
+
+:func:`failing_rank` is a group whose rank 0 raises while the others
+wait in a collective (``tests/test_torch_dryrun.py``, over gloo).
 """
 
 import os
 import pickle
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -19,6 +23,16 @@ import torch.distributed as dist
 
 from patch2pix_tpu_torch.parallel.mesh import process_group
 from patch2pix_tpu_torch.sfm.dist_ba import local_problem, make_dist_ba_step, run_dist_ba
+
+
+def failing_rank(rank, world, store_dir, timeout_s):
+    """Join the gloo group, pass a barrier, then rank 0 raises while the
+    other ranks wait in a second barrier."""
+    with process_group(world, rank, "gloo", store_dir, timeout=timedelta(seconds=timeout_s)):
+        dist.barrier()
+        if rank == 0:
+            raise RuntimeError("rank 0 fails inside its group")
+        dist.barrier()
 
 
 def _gather_points(sp, X_local, group):
