@@ -255,7 +255,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import importlib
 import json
 import os
@@ -2609,23 +2608,18 @@ def ba_path(dev):
         f"(relative difference {rel:.3g}); no divergence raised")
 
 
-def sfm_demo_path(cams=50, pts=5000, mesh=1, timeout=None):
+def sfm_demo_path(cams=50, pts=5000, mesh=1, group_timeout=None):
     """Phase 14 (c), and phase 18 (d) with ``mesh`` 4: the scale demo at
     its defaults (``cams``, ``pts``) through its ``main``, ``--mesh
-    mesh`` on the card(s); ``timeout``: its process group's."""
+    mesh`` on the card(s); ``group_timeout``: its process group's."""
     shutil.rmtree(SFM_DIR, ignore_errors=True)
-    ranks = scale_demo.run_dist_ba_ranks
-    scale_demo.run_dist_ba_ranks = functools.partial(ranks, timeout=timeout)
-    try:
-        with counting(incremental_module, "ransac_essential", "ransac_pnp",
-                      "run_ba") as inc, \
-                counting(ba_module, "ba_step") as steps, \
-                counting(native_module, "build_tracks_native") as nat, \
-                counting(scale_demo, "make_scale_scene", "run_dist_ba_ranks") as demo:
-            summary = scale_demo.main(["--cams", str(cams), "--pts", str(pts), "--mesh",
-                                       str(mesh), "--out", SFM_DIR])
-    finally:
-        scale_demo.run_dist_ba_ranks = ranks
+    with counting(incremental_module, "ransac_essential", "ransac_pnp",
+                  "run_ba") as inc, \
+            counting(ba_module, "ba_step") as steps, \
+            counting(native_module, "build_tracks_native") as nat, \
+            counting(scale_demo, "make_scale_scene", "run_dist_ba_ranks") as demo:
+        summary = scale_demo.main(["--cams", str(cams), "--pts", str(pts), "--mesh",
+                                   str(mesh), "--out", SFM_DIR], group_timeout=group_timeout)
     Rs_gt, ts_gt = demo.results["make_scale_scene"][0][:2]
     radius = float(np.linalg.norm([-R.T @ t for R, t in zip(Rs_gt, ts_gt)], axis=1).mean())
     _, ims, points = read_model(os.path.join(SFM_DIR, "colmap"), ext=".bin")
@@ -3175,19 +3169,18 @@ def adam_step_excess(got, want, g, wg, lr=5e-4, eps=1e-8):
     return float(((got - want).abs() - 1.01 * bound - 1e-6).max())
 
 
-def hold_train_step(tag, model, metrics, want, control, before):
+def hold_train_step(tag, model, metrics, want, before, control=None):
     """``tests/test_torch_train_sharded.py``'s rule for a sharded step
     against the single-device one (``want``: its state, gradients and
     metrics): metrics rtol 1e-5 (atol 1e-6), parameters by Adam's bound,
     frozen tensors bit-identical to ``before``, running averages rtol
-    1e-5 (atol 1e-6); the summed gradients within 1e-4 of the largest
-    there, here within the larger of that and the card's own spread:
-    how far ``control``, the single-device step's gradients with cuDNN
-    off (another convolution algorithm, the same batch), lie from
-    ``want``'s. A rank's share of the proposals takes other cuDNN
-    algorithms than the whole batch's, which moves the regressors'
-    weight gradients by ~2e-4 of the largest in f32. Returns the largest
-    errors."""
+    1e-5 (atol 1e-6), the summed gradients within 1e-4 of the largest.
+    Where ``control`` is given (the single-device step's gradients with
+    cuDNN off: another convolution algorithm, the same batch), the
+    gradients are held within the larger of 1e-4 and how far
+    ``control`` lies from ``want``'s: the pairing of two cuDNN steps,
+    whose algorithms may differ with the proposal count. Returns the
+    largest errors."""
     wsd, wgrads, wmet = want
     met = {k: float(v) for k, v in metrics.items()}
     if met.keys() != wmet.keys():
@@ -3199,9 +3192,12 @@ def hold_train_step(tag, model, metrics, want, control, before):
     scale = max(float(g.abs().max()) for g in wgrads.values())
     errs = {"metrics rel": max(abs(met[k] - v) / max(abs(v), 1e-30) for k, v in wmet.items()),
             "grad / largest": max(float((grads[k] - wgrads[k]).abs().max())
-                                  for k in grads) / scale,
-            "cuDNN-off control / largest": max(float((control[k] - wgrads[k]).abs().max())
-                                               for k in grads) / scale}
+                                  for k in grads) / scale}
+    grad_tol = 1e-4
+    if control is not None:
+        errs["cuDNN-off control / largest"] = max(
+            float((control[k] - wgrads[k]).abs().max()) for k in grads) / scale
+        grad_tol = max(grad_tol, errs["cuDNN-off control / largest"])
     now = model.state_dict()
     errs["Adam excess"] = max(adam_step_excess(now[k], wsd[k], grads[k], wgrads[k])
                               for k in grads)
@@ -3211,7 +3207,6 @@ def hold_train_step(tag, model, metrics, want, control, before):
     running = [k for k in now if "running" in k]
     errs["running abs"] = max(float((now[k] - wsd[k]).abs().max()) for k in running)
     far = [k for k in running if not torch.allclose(now[k], wsd[k], rtol=1e-5, atol=1e-6)]
-    grad_tol = max(1e-4, errs["cuDNN-off control / largest"])
     if off or errs["grad / largest"] > grad_tol or errs["Adam excess"] > 0 or changed or far:
         fail(f"{tag}: {errs}; metrics off (sharded, single) {off}; frozen tensors changed "
              f"{changed}; running averages off {far}")
@@ -3255,25 +3250,37 @@ def multi_train(rank, n, dev, mesh, sd):
                 {k: float(v) for k, v in met.items()})
 
     want = solo(rank, single)
-    control = solo(rank, lambda: single(cudnn=False)[1])
+    want_off = solo(rank, lambda: single(cudnn=False))
     model, state, step = stepper("float32", mesh, debug_checks=True)
     reset_counts()
     with capture_inputs(keep=1) as captured, record_collectives() as comm:
         state, met = step(state, shard_batch(batch, mesh), rand=rand)
         torch.cuda.synchronize()
-    torch.backends.cudnn.deterministic = False
     every = rank_launches(tag, ("tap_sum", "expand_scale_pair"))
     if set(comm) != {"all-reduce"}:
         fail(f"{tag}: collectives other than all-reduce: {comm}")
     n_grad = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    # the witness: the same sharded step with cuDNN off on every rank,
+    # held to the single-device cuDNN-off step by the CPU tests' rule
+    torch.backends.cudnn.enabled = False
+    try:
+        model_off, state_off, step_off = stepper("float32", mesh, debug_checks=True)
+        _, met_off = step_off(state_off, shard_batch(batch, mesh), rand=rand)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.deterministic = False
 
     def held():
-        errs = hold_train_step(tag, model, met, want, control, sd)
+        if want is None or want_off is None:
+            fail(f"{tag}: no single-device reference (its run failed above)")
+        errs_off = hold_train_step(f"{tag} cuDNN off", model_off, met_off, want_off, sd)
+        errs = hold_train_step(tag, model, met, want, sd, control=want_off[1])
         hold_path_calls(tag, captured, torch.Generator(device=dev).manual_seed(6))
-        return errs
+        return errs, errs_off
 
-    errs = solo(rank, held) or {}
-    del model, state, step, captured, want, control
+    errs, errs_off = solo(rank, held) or ({}, {})
+    del model, state, step, captured, want, want_off, model_off, state_off, step_off
     torch.cuda.empty_cache()
 
     # bf16 ms/step: 4 pairs a rank against world size 1 at batch 4
@@ -3300,7 +3307,9 @@ def multi_train(rank, n, dev, mesh, sd):
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (rules: metrics and running averages rtol 1e-5, gradients within the larger "
             f"of 1e-4 of the largest and the cuDNN-off control, Adam's bound <= 0; frozen "
-            f"tensors bit-identical); collectives per "
+            f"tensors bit-identical); with cuDNN off on every rank against the single-device "
+            f"step with cuDNN off: " + ", ".join(f"{k} {v:.3g}" for k, v in errs_off.items())
+            + f" (the same rules, gradients within 1e-4 of the largest); collectives per "
             f"step (debug_checks' two 4-byte all-reduces included): "
             + ", ".join(f"{k} x{v['count']} {v['bytes']} bytes ({v['bytes'] / 1024:.1f} KiB)"
                         for k, v in comm.items())
@@ -3498,11 +3507,13 @@ def multi_ba(rank, n, dev, world, alone):
     torch.cuda.empty_cache()
 
 
-def multi_rank(rank, n, store, pairs):
+def multi_rank(rank, n, store, pairs, t_spawn):
     """One NCCL rank of phase 18 (spawned through
-    ``parallel.mesh.spawned_rank``, so that any error ends it at once):
-    its card, the group, parts (a)-(d); it fails at the end where rank
-    0's checks failed."""
+    ``parallel.mesh.spawned_rank``, which ends it with exit code 1 on an
+    error): its card, the group, parts (a)-(d); it fails at the end where
+    rank 0's checks failed. Rank 0 prints the wall seconds from
+    ``t_spawn`` (``time.time()`` at the spawn) to each stage."""
+    marks = {"up": time.time() - t_spawn}
     torch.cuda.set_device(rank)
     dev = torch.device("cuda", rank)
     torch.backends.cudnn.allow_tf32 = False
@@ -3518,6 +3529,7 @@ def multi_rank(rank, n, store, pairs):
         if sorted(cards) != list(range(n)):
             fail(f"ranks and cards: {cards}; one card a rank expected")
         alone = dist.new_group([0])
+        marks["group"] = time.time() - t_spawn
         for part, run in (("a", lambda: multi_train(rank, n, dev, mesh, sd)),
                           ("b", lambda: multi_batched(rank, n, dev, mesh, sd, pairs)),
                           ("c", lambda: multi_coarse(rank, n, dev, mesh, sd)),
@@ -3527,6 +3539,11 @@ def multi_rank(rank, n, store, pairs):
             if rank == 0:
                 log(f"multi part ({part}): {time.perf_counter() - t0:.1f} s")
         dist.barrier()
+        marks["parts"] = time.time() - t_spawn
+    marks["teardown"] = time.time() - t_spawn
+    if rank == 0:
+        log("multi spawn [rank 0, wall s from the spawn]: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()))
     if MULTI_FAILURES:
         fail("phase 18: " + "; ".join(MULTI_FAILURES))
 
@@ -3586,7 +3603,9 @@ def multi_dryrun(n):
     log(f"multi dryrun_multichip({n}): ranks on {out['devices']}; train steps "
         + ", ".join(f"mesh {m}: step {v['step']}" for m, v in out["train"].items())
         + "; dist BA costs " + ", ".join(f"mesh {m}: {v['cost']:.3e}"
-                                         for m, v in out["ba"].items()))
+                                         for m, v in out["ba"].items())
+        + "; wall s from the spawn to each stage's end on rank 0: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
 
 
 def multi_card_main(n):
@@ -3609,10 +3628,13 @@ def multi_card_main(n):
     try:
         pairs = write_batched_pairs(os.path.join(MULTI_DIR, "pairs"), MULTI_PAIRS)
         store = tempfile.mkdtemp(dir=MULTI_DIR)
-        torch.multiprocessing.start_processes(spawned_rank, args=(multi_rank, n, store, pairs),
+        t_spawn = time.time()
+        torch.multiprocessing.start_processes(spawned_rank,
+                                              args=(multi_rank, n, store, pairs, t_spawn),
                                               nprocs=n, join=True, start_method="spawn")
+        log(f"multi spawn: every rank joined {time.time() - t_spawn:.1f} s after the spawn")
         for part, run in (("d, the scale demo",
-                           lambda: sfm_demo_path(mesh=n, timeout=MULTI_TIMEOUT)),
+                           lambda: sfm_demo_path(mesh=n, group_timeout=MULTI_TIMEOUT)),
                           ("e", lambda: multi_cli(n)), ("f", lambda: multi_dryrun(n))):
             t0 = time.perf_counter()
             run()

@@ -27,6 +27,7 @@ import argparse
 import os
 import pickle
 import tempfile
+import time
 from datetime import timedelta
 from typing import Dict, List, Tuple
 
@@ -156,10 +157,13 @@ def _dist_ba(group, problem, m, dev):
 
 
 def _rank_main(rank: int, n: int, backend: str, store: str, pairs, out_dir: str,
-               threads: int, timeout: timedelta) -> None:
+               threads: int, t_spawn: float) -> None:
     """One rank: its device, the default group, one subgroup a mesh size
     (the first m ranks), the three programs on each mesh it belongs to;
-    rank 0 prints JAX's lines and writes the results."""
+    rank 0 prints JAX's lines and writes the results, with the wall
+    seconds from ``t_spawn`` (``time.time()`` at the spawn) to each
+    stage's end."""
+    seconds = {"up": time.time() - t_spawn}
     if backend == "nccl":
         torch.cuda.set_device(rank)
         dev = torch.device("cuda", rank)
@@ -168,17 +172,19 @@ def _rank_main(rank: int, n: int, backend: str, store: str, pairs, out_dir: str,
         dev = torch.device("cpu")
     template = template_state()
     batches, problems = train_batches(n), ba_problems(n)
-    out = {"train": {}, "batched": {}, "ba": {}}
-    with process_group(n, rank, backend, store, timeout=timeout):
+    out = {"train": {}, "batched": {}, "ba": {}, "seconds": seconds}
+    with process_group(n, rank, backend, store, timeout=TIMEOUT):
         out["devices"] = [str(d) for d in _gather_devices(dev)]
         groups = {m: dist.group.WORLD if m == n else dist.new_group(list(range(m)))
                   for m in mesh_sizes(n)}
+        seconds["group"] = time.time() - t_spawn
         for m, group in groups.items():
             if rank < m:
                 out["train"][m] = _train(make_mesh(group=group, device=dev), template,
                                          batches[m], dev)
                 _say(rank, f"[dryrun] train step mesh data={m}: "
                      f"{format_comm_table(out['train'][m]['comm'])}")
+        seconds["train"] = time.time() - t_spawn
         for m, group in groups.items():
             if rank < m:
                 out["batched"][m] = _batched(make_mesh(group=group, device=dev), template,
@@ -187,12 +193,15 @@ def _rank_main(rank: int, n: int, backend: str, store: str, pairs, out_dir: str,
                 _say(rank, f"[dryrun] batched matcher mesh data={m}: B={b['B']}, collectives "
                      f"while matching: none, with the results' all_gather_object "
                      f"{format_comm_table(b['comm'])}")
+        seconds["batched"] = time.time() - t_spawn
         for m, group in groups.items():
             if rank < m:
                 out["ba"][m] = _dist_ba(group, problems[m], m, dev)
                 _say(rank, f"[dryrun] dist BA mesh ba={m}: final cost "
                      f"{out['ba'][m]['cost']:.3e}")
         dist.barrier()
+        seconds["ba"] = time.time() - t_spawn
+    seconds["teardown"] = time.time() - t_spawn
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -213,12 +222,13 @@ def _say(rank: int, msg: str) -> None:
         print(msg, flush=True)
 
 
-def dryrun_multichip(n_devices: int, device=None, timeout: timedelta = TIMEOUT) -> Dict:
+def dryrun_multichip(n_devices: int, device=None) -> Dict:
     """Run the sweep over ``n_devices`` ranks (module docstring): one NCCL
     rank per card (CUDA unless ``device`` says otherwise), or gloo
     processes on the CPU. Returns rank 0's results, ``{"devices": every
-    rank's device, "train" / "batched" / "ba": {m: ...}}``. ``timeout``:
-    how long a rank waits in a collective."""
+    rank's device, "train" / "batched" / "ba": {m: ...}, "seconds": the
+    wall seconds from the spawn to each stage's end on rank 0, and to the
+    parent's join}``."""
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if backend == "nccl" and torch.cuda.device_count() < n_devices:
@@ -229,11 +239,14 @@ def dryrun_multichip(n_devices: int, device=None, timeout: timedelta = TIMEOUT) 
         # BatchedMatcher's default per_chip_batch: 1 at the default upsample 16
         per_rank = 4 if ModelConfig().change_stride else 1
         pairs = write_pairs(tmp, max(mesh_sizes(n_devices)) * per_rank)
+        t_spawn = time.time()
         torch.multiprocessing.start_processes(
             spawned_rank, args=(_rank_main, n_devices, backend, tmp, pairs, tmp, threads,
-                                timeout), nprocs=n_devices, join=True, start_method="spawn")
+                                t_spawn), nprocs=n_devices, join=True, start_method="spawn")
         with open(os.path.join(tmp, "rank0.pkl"), "rb") as f:
-            return pickle.load(f)
+            out = pickle.load(f)
+    out["seconds"]["joined"] = time.time() - t_spawn
+    return out
 
 
 def main(argv=None) -> Dict:

@@ -172,12 +172,12 @@ def spawned_rank(rank: int, fn, *args) -> None:
     """``fn(rank, *args)`` as the body of a spawned rank
     (``torch.multiprocessing.start_processes(spawned_rank, args=(fn,
     ...))``): an error prints its traceback and ends the process with
-    exit code 1 without tearing down its process group (over NCCL a
-    teardown waits for the ranks still blocked in a collective until
-    their timeout), and the parent then ends the other ranks. Over gloo
-    that is at once; over NCCL a two-rank run on the card still lasted
-    past its group's timeout (``PERF.md``), so give every group a
-    timeout of minutes."""
+    exit code 1 without tearing down its process group, and the parent
+    then terminates the other ranks. Over gloo the run ends within
+    seconds. Over NCCL it does not: a two-rank run on the card whose
+    rank 0 failed lasted past its group's timeout, for a cause not yet
+    found (``ROADMAP.md`` C7), so give every group a timeout of
+    minutes."""
     try:
         fn(rank, *args)
     except BaseException:

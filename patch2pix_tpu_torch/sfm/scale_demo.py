@@ -29,6 +29,8 @@ import json
 import os
 import subprocess
 import time
+from datetime import timedelta
+from typing import Optional
 
 import numpy as np
 import torch
@@ -156,7 +158,10 @@ def bench_ba(scales: str, dev: torch.device):
     return results
 
 
-def main(argv=None):
+def main(argv=None, group_timeout: Optional[timedelta] = None):
+    """Run the demo (or ``--ba_scales``) as the flags say; returns the
+    summary. ``group_timeout``: how long a rank of ``--mesh`` waits in a
+    collective (the backend's default when None)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--cams", type=int, default=50)
     ap.add_argument("--pts", type=int, default=5000)
@@ -232,7 +237,7 @@ def main(argv=None):
     sp = shard_problem(Rs, ts, X, cam_idx, pt_idx, uv, n_shards=args.mesh)
     t0 = time.time()
     Rs2, ts2, X2, cost, dstats = run_dist_ba_ranks(
-        sp, device=dev, max_iters=20, huber_delta=3.0 / f_mean)
+        sp, device=dev, timeout=group_timeout, max_iters=20, huber_delta=3.0 / f_mean)
     t_dba = time.time() - t0
     for c, im in enumerate(reg):
         rec.Rs[im] = np.asarray(Rs2[c], np.float64)

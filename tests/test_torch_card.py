@@ -46,11 +46,14 @@ rows, R within 0.05 deg, t within 0.1 deg), and degenerate inputs (0, 3
 or 5 valid rows, a point set on one line) do not raise there. One
 Schur BA step (``sfm/ba.py``, padded and not) on the card agrees with
 the CPU's by chip_smoke's phase 14 rules (old cost rtol 1e-5, new cost
-rtol 1e-3, R and t atol 1e-5; points atol 1e-4).
+rtol 1e-3, R and t atol 1e-5; points atol 1e-4). With two cards or
+more, a two-rank NCCL group whose rank 0 fails ends at once, as over
+gloo (open fault C7 in ROADMAP.md: on the card it has not).
 """
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -85,6 +88,7 @@ from patch2pix_tpu_torch.ops.patch_expand import (
     expand_scale_pair_plain,
 )
 from patch2pix_tpu_torch.ops.tap_sum import tap_sum, tap_sum_backward, tap_sum_plain
+from patch2pix_tpu_torch.parallel.mesh import spawned_rank
 from patch2pix_tpu_torch.sfm.ba import ba_step, build_problem
 from patch2pix_tpu_torch.sfm.fivepoint import ransac_essential_5pt
 from patch2pix_tpu_torch.sfm.scale_demo import make_ba_scene, perturb_points
@@ -92,6 +96,7 @@ from patch2pix_tpu_torch.sfm.twoview import draw_sample_ids
 from patch2pix_tpu_torch.train import create_train_state, make_train_step
 from patch2pix_tpu_torch.utils.torch_import import load_ncnet_checkpoint
 from tests.ref_loader import seeded_state_dict
+from tests.torch_dist_worker import failing_rank
 
 PSIZE = 16
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "pipeline_golden_cs.npz")
@@ -769,3 +774,20 @@ def test_ba_step_repeats_bit_for_bit_on_card(cuda, bucket):
         for a, b in ((first.Rs, again.Rs), (first.ts, again.ts), (first.X, again.X),
                      (cn1, cn2), (co1, co2)):
             assert torch.equal(a, b)
+
+
+def test_failed_nccl_rank_ends_at_once(cuda, tmp_path):
+    """A two-rank NCCL group, one card a rank, whose rank 0 raises
+    through ``parallel.mesh.spawned_rank`` while rank 1 waits in a
+    barrier (120 s timeout): the run ends with exit code 1 well inside
+    the timeout, as over gloo (``tests/test_torch_dryrun.py``). Open
+    fault C7 in ROADMAP.md: on the card it has lasted 216.5 s."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    t0 = time.perf_counter()
+    with pytest.raises(torch.multiprocessing.ProcessExitedException) as raised:
+        torch.multiprocessing.start_processes(
+            spawned_rank, args=(failing_rank, 2, str(tmp_path), 120, "nccl"), nprocs=2,
+            join=True, start_method="spawn")
+    assert raised.value.exit_code == 1
+    assert time.perf_counter() - t0 < 60

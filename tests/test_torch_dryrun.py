@@ -18,6 +18,18 @@ ranks that import no JAX), then:
     float32 floor (the cost of the exact solution, evaluated in float32):
     three LM steps bring the cost from 1.3e-3 to ~2.4e-12, where the
     ranks' other order of summation moves it by ~0.14%;
+  * against JAX on the same inputs (``__graft_entry__.dryrun_multichip``'s
+    step, compiled by ``make_sharded_train_step`` on a mesh of 2 fake CPU
+    devices, its collectives read from the HLO): the same count of
+    all-reduces (18), all-reduces only; the convolutions' and dense
+    layers' weight gradients the same bytes, and the forward passes'
+    batch-statistics moments the same bytes. The rest differs (226 KiB
+    more in JAX, ``PERF.md``): XLA sends the backward sums over the batch
+    of each regressor's second conv before it sums over the 8x8
+    positions, where the port sends per-channel sums;
+  * the dist BA's final cost at mesh 2 within rtol 1e-3 of JAX's
+    ``run_dist_ba`` on the same problem (mesh of 2 fake CPU devices),
+    plus the float32 floor above;
   * a rank's CUDA device without an index (``parallel.mesh.rank_device``)
     is its own card, made the current one, in a group of more than one
     rank; the current card alone;
@@ -27,11 +39,23 @@ ranks that import no JAX), then:
     fail first, on the closed connection).
 """
 
+import re
 import time
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JaxMesh
+
+from patch2pix_tpu.config import ModelConfig as JaxModelConfig
+from patch2pix_tpu.config import OptimConfig as JaxOptimConfig
+from patch2pix_tpu.models.patch2pix import Patch2Pix as JaxPatch2Pix
+from patch2pix_tpu.parallel.comm_stats import collective_stats
+from patch2pix_tpu.sfm import dist_ba as jax_dist
+from patch2pix_tpu.train import create_train_state as jax_create_train_state
+from patch2pix_tpu.train import make_optimizer as jax_make_optimizer
+from patch2pix_tpu.train import make_sharded_train_step as jax_sharded_step
 
 from patch2pix_tpu_torch.config import ModelConfig
 from patch2pix_tpu_torch.evaluation.batched import BatchedMatcher
@@ -60,25 +84,28 @@ def _model():
 
 
 class _Spy(torch.autograd.Function):
-    """The identity, recording its input's bytes forward and its
-    gradient's bytes backward."""
+    """The identity, recording its input's bytes forward (in
+    ``sent[0]``) and its gradient's bytes backward (in ``sent[1]``)."""
 
     @staticmethod
     def forward(ctx, t, sent):
         ctx.sent = sent
-        sent.append(t.numel() * t.element_size())
+        sent[0].append(t.numel() * t.element_size())
         return t.clone()
 
     @staticmethod
     def backward(ctx, g):
-        ctx.sent.append(g.numel() * g.element_size())
+        ctx.sent[1].append(g.numel() * g.element_size())
         return g, None
 
 
-def _expected_all_reduces(batch, monkeypatch):
-    """(count, bytes) of what one step must sum over ranks, from a step
-    without a mesh whose moment and pair sums are recorded."""
-    moments, pairs = [], []
+def _spied_all_reduces(batch, monkeypatch):
+    """What one step must sum over ranks, from a step without a mesh
+    whose moment and pair sums are recorded: the bytes of each forward
+    and each backward moment sum, of the pair sums, and of the trainable
+    weights of two or more dimensions (convolutions and dense layers)
+    and of all of them."""
+    moments, pairs = ([], []), []
     make_moments, make_losses = step_module.global_batch_moments, step_module.patch2pix_losses
 
     def moments_spy(sum_fn, ranks):
@@ -98,9 +125,57 @@ def _expected_all_reduces(batch, monkeypatch):
                                        ptmax=dryrun.PTMAX)
     step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
          generator=torch.Generator().manual_seed(1))
-    grads = sum(4 * p.numel() for p in model.parameters() if p.requires_grad)
-    assert moments and len(pairs) == 1
-    return 1 + len(moments) + len(pairs), grads + sum(moments) + sum(pairs)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    assert moments[0] and len(moments[1]) == len(moments[0]) and len(pairs) == 1
+    return {"forward moments": moments[0], "backward moments": moments[1], "pairs": pairs,
+            "weights": sum(4 * p.numel() for p in trainable if p.dim() >= 2),
+            "grads": sum(4 * p.numel() for p in trainable)}
+
+
+def _expected_all_reduces(sent):
+    """(count, bytes) of the port's step: the gradients' one buffer, each
+    moment sum forward and backward, and the pair sum."""
+    sums = sent["forward moments"] + sent["backward moments"] + sent["pairs"]
+    return 1 + len(sums), sent["grads"] + sum(sums)
+
+
+@pytest.fixture(scope="module")
+def jax_step_hlo():
+    """The compiled HLO of JAX's sharded step as its ``dryrun_multichip``
+    builds it (default model, Adam 5e-4 with the multistep decay, ksize
+    2, ptmax 8), on a mesh of ``WORLD`` fake CPU devices and the dry
+    run's batch."""
+    model = JaxPatch2Pix(config=JaxModelConfig().resolved())
+    cfg = JaxOptimConfig(lr_init=5e-4, lr_decay=("multistep", 0.2, 5))
+    state = jax_create_train_state(jax.random.PRNGKey(0), model, cfg,
+                                   image_shape=(1, dryrun.IMAGE, dryrun.IMAGE, 3))
+    step = jax_sharded_step(model, jax_make_optimizer(cfg, state.params),
+                            JaxMesh(np.asarray(jax.devices()[:WORLD]), ("data",)),
+                            ksize=dryrun.KSIZE, ptmax=dryrun.PTMAX)
+    batch = {k: jax.numpy.asarray(v) for k, v in dryrun.train_batches(WORLD)[WORLD].items()}
+    return step.lower(state, batch, jax.random.PRNGKey(1)).compile().as_text()
+
+
+def _all_reduce_operands(hlo):
+    """[(bytes, op_name)] of every operand of every all-reduce in
+    ``hlo``, each named by the op its defining instruction came from."""
+    defs = {}
+    for line in hlo.splitlines():
+        m = re.match(r"\s*(?:ROOT )?(%[\w.\-]+) = (.*)", line)
+        if m:
+            defs[m.group(1)] = m.group(2)
+    out = []
+    for line in hlo.splitlines():
+        if " all-reduce(" not in line:
+            continue
+        args = line[line.index(" all-reduce(") + len(" all-reduce("):]
+        for name in args[:args.index(")")].split(","):
+            d = defs[re.sub(r"/\*.*?\*/", "", name).strip()]
+            dims = re.match(r"\w+\[([\d,]*)\]", d).group(1)
+            op = re.search(r'op_name="([^"]*)"', d)
+            out.append((4 * int(np.prod([int(x) for x in dims.split(",") if x])),
+                        op.group(1) if op else ""))
+    return out
 
 
 def test_dryrun_train_step_sends_all_reduces_only(run, monkeypatch):
@@ -108,8 +183,34 @@ def test_dryrun_train_step_sends_all_reduces_only(run, monkeypatch):
     got = run["train"][WORLD]
     assert got["step"] == 1
     assert set(got["comm"]) == {"all-reduce"}
-    count, nbytes = _expected_all_reduces(dryrun.train_batches(WORLD)[WORLD], monkeypatch)
+    sent = _spied_all_reduces(dryrun.train_batches(WORLD)[WORLD], monkeypatch)
+    count, nbytes = _expected_all_reduces(sent)
     assert got["comm"]["all-reduce"] == {"count": count, "bytes": nbytes}
+
+
+def test_dryrun_train_step_all_reduces_match_jax(run, jax_step_hlo, monkeypatch):
+    """JAX's step at mesh 2 (its HLO's all-reduces, all float32): the same
+    count as the port's step; the weight gradients and the forward
+    moments the same bytes. JAX's gradient sums come from the transposed
+    (backward) convolutions and dot products; its forward moments from
+    the forward pass's reductions of non-scalar shape."""
+    jax_comm = collective_stats(jax_step_hlo)
+    got = run["train"][WORLD]["comm"]
+    assert set(jax_comm) == set(got) == {"all-reduce"}
+    assert got["all-reduce"]["count"] == jax_comm["all-reduce"]["count"] == 18
+    operands = _all_reduce_operands(jax_step_hlo)
+    assert sum(b for b, _ in operands) == jax_comm["all-reduce"]["bytes"]
+    backward = [(b, op) for b, op in operands if "transpose(" in op]
+    weights = sum(b for b, op in backward if op.endswith(("conv_general_dilated", "dot_general")))
+    forward_moments = sum(b for b, op in operands
+                          if "transpose(" not in op and "Patch2Pix" in op and b > 4)
+    sent = _spied_all_reduces(dryrun.train_batches(WORLD)[WORLD], monkeypatch)
+    assert weights == sent["weights"]
+    assert forward_moments == sum(sent["forward moments"])
+    # most of the rest: each regressor's second conv's backward sum over
+    # the batch, all-reduced before the sum over its 8x8 positions
+    partials = [b for b, op in backward if op.endswith("conv1/reduce_sum")]
+    assert partials == [4 * 8 * 8 * 512] * 2
 
 
 def test_dryrun_batched_matcher_equals_world_one(run, tmp_path):
@@ -136,6 +237,22 @@ def test_dryrun_dist_ba_equals_world_one(run):
     exact = np.random.default_rng(1).uniform([-1, -1, 4], [1, 1, 8], (X.shape[0], 3))
     floor = float(cost(build_problem(Rs, ts, exact, cam_idx, pt_idx, uv, device="cpu")))
     assert np.isfinite(got) and 0 < floor < 0.1 * want
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=floor)
+
+
+def test_dryrun_dist_ba_matches_jax(run):
+    """The dist BA at mesh 2 against JAX's ``run_dist_ba`` on the same
+    problem, as JAX's ``dryrun_multichip`` runs it (3 LM steps, the debug
+    checks), on a mesh of 2 fake CPU devices."""
+    got = run["ba"][WORLD]["cost"]
+    Rs, ts, X, cam_idx, pt_idx, uv = dryrun.ba_problems(WORLD)[WORLD]
+    want = jax_dist.run_dist_ba(
+        jax_dist.shard_problem(Rs, ts, X, cam_idx, pt_idx, uv, n_shards=WORLD),
+        JaxMesh(np.asarray(jax.devices()[:WORLD]), ("ba",)), max_iters=3,
+        debug_checks=True)[3]
+    exact = np.random.default_rng(1).uniform([-1, -1, 4], [1, 1, 8], (X.shape[0], 3))
+    floor = float(cost(build_problem(Rs, ts, exact, cam_idx, pt_idx, uv, device="cpu")))
+    assert np.isfinite(want) and 0 < floor < 0.1 * want
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=floor)
 
 

@@ -10,7 +10,8 @@ and rank 0 writes the results to ``{out_dir}/results.pkl``:
   * ``("run", sp, kwargs)``: :func:`run_dist_ba` -> (R, t, X, cost).
 
 :func:`failing_rank` is a group whose rank 0 raises while the others
-wait in a collective (``tests/test_torch_dryrun.py``, over gloo).
+wait in a collective (``tests/test_torch_dryrun.py`` over gloo,
+``tests/test_torch_card.py`` over NCCL).
 """
 
 import os
@@ -25,10 +26,13 @@ from patch2pix_tpu_torch.parallel.mesh import process_group
 from patch2pix_tpu_torch.sfm.dist_ba import local_problem, make_dist_ba_step, run_dist_ba
 
 
-def failing_rank(rank, world, store_dir, timeout_s):
-    """Join the gloo group, pass a barrier, then rank 0 raises while the
-    other ranks wait in a second barrier."""
-    with process_group(world, rank, "gloo", store_dir, timeout=timedelta(seconds=timeout_s)):
+def failing_rank(rank, world, store_dir, timeout_s, backend="gloo"):
+    """Join the group (gloo, or NCCL with one card a rank), pass a
+    barrier, then rank 0 raises while the other ranks wait in a second
+    barrier."""
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    with process_group(world, rank, backend, store_dir, timeout=timedelta(seconds=timeout_s)):
         dist.barrier()
         if rank == 0:
             raise RuntimeError("rank 0 fails inside its group")
