@@ -47,12 +47,45 @@
 // partial0 into them under its first chunk's products, whose loads it
 // would otherwise wait for.
 //
-// f32: SIMT fmaf, never TF32, one block per proposal, F threads (one
-// output channel each); the conv input of the current segment (16 x 16
-// x C') or X1 (8 x 8 x F) sits in shared memory and the K loop walks
-// (tap, channel chunk) through two buffers: while the threads multiply
-// one chunk, the block gathers the next chunk's 64 x KC im2col rows
-// k-major and copies its KC x F weight rows with cp.async.
+// f32: the same two launches at float32 accuracy on the tensor cores by
+// 3xTF32 (fine_head_tf32x3_kernel). It replaced a SIMT fmaf kernel of
+// one proposal a block (62.03 ms at M = 2400 on the H100, where cuDNN's
+// conv-BN-conv-BN-ReLU-max chain on B3's patches takes 38.78 ms). Bounds
+// for the 1.450 TFLOP: 21.64 ms on the f32 SIMT pipes (67 TFLOP/s), the
+// bound of that kernel; three TF32 products of each at the 495 TFLOP/s
+// dense TF32 peak, 8.79 ms, the bound of this one.
+//
+// Error: each operand x splits into hi = x rounded to TF32 (10 mantissa
+// bits, to nearest) and lo = x - hi, exact, |lo| <= 2^-11 |x|. The
+// tensor cores sum hi hi' + hi lo' + lo hi' into f32 accumulators; what
+// is dropped is lo lo' (<= 2^-22 |x x'|) and lo and lo' truncated to
+// TF32 as the tensor cores read them (<= 2^-21 |x x'| each): about 2^-20
+// of each product, against the 2e-4 rule that holds the kernel to the
+// plain version (float32 products, TF32 off). The tensor cores' own
+// accumulation rounds less accurately than an f32 add, and over all
+// 3 x 9 x 512 products of an output it cost more than the split did:
+// so each 32-channel chunk's 3 x 9 x 32 products accumulate on the
+// tensor cores from zero, and the chunk sums are added in f32 registers.
+//
+// Design: a block is 2 proposals (one per consumer warpgroup) x 128
+// output channels. The weights' hi and lo parts, split once per call by
+// the wrapper and K-major, come by TMA as 32-channel x 128-column tiles
+// (128-byte rows, the 128-byte swizzle) through a 3-stage ring, 32 KB a
+// stage, that one producer thread keeps full; each weight byte that
+// leaves L2 feeds both proposals. That is 2 x 2 x 18.9 MB per column
+// tile and proposal pair, 45 GB a call at M = 2400 and F = 512 (as much
+// as the SIMT kernel read, now under three times the products), about
+// 9.6 ms at the ~4.7 TB/s of L2 -> SM delivery read on this card: the
+// bytes into the SMs, not the tensor cores, are the nearer limit. conv0
+// stages every window of its proposal whole, as in bf16 (62 KB for the
+// fine stage's levels in 32-channel f32 rows); conv1's X1 (128 KB of f32
+// a proposal) streams through eight 8 KB chunk slots by cp.async. The A
+// fragments come by ldmatrix, are scaled (conv0) and split in registers.
+// Shared memory: the 96 KB ring + 2 x 64 KB A tiles + 1 KB, one block an
+// SM. Registers: the chunk's m64n128 accumulator and the running f32
+// sum are 64 a thread each, the split fragments 32; ptxas fits them in
+// the 168 a thread that 384 threads a block allow (conv0 spills a word;
+// the producer warpgroup hands its registers on with setmaxnreg).
 
 #include <cuda_bf16.h>
 
@@ -83,17 +116,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>  // wait until at most N of this thread's groups are pending
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Offset of pixel (p, q)'s channel 0 inside proposal m's level rows (B3's
-// window indexing); y0, x0 >= 0.
-__device__ __forceinline__ int64_t pixel_offset(int m, int p, int q, int y0, int x0, int t,
-                                                int c) {
-  const int ds = PS / t;
-  const int iy = (y0 + p) / ds - (y0 / PS) * t;
-  const int ix = (x0 + q) / ds - (x0 / PS) * t;
-  const int tile = (iy / t) * 2 + ix / t;
-  return ((((int64_t)m * 4 + tile) * t + iy % t) * t + ix % t) * c;
 }
 
 // ------------------------------------------------------------------ bf16
@@ -498,187 +520,374 @@ fine_head_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
 
 // ------------------------------------------------------------------ f32
 
-constexpr int MAX_SEG = 8;
+constexpr int KBF = 32;           // K block: one tap of one 32-channel chunk
+constexpr int BNF = 128;          // output channels per block (the wgmma N)
+constexpr int STAGES_F = 3;       // weight ring depth, each stage a hi and a lo tile
+constexpr int MAX_CHUNKS_F = 32;  // conv0 input channels up to 1024
+constexpr uint32_t ROW_F = KBF * 4;                // one cell or pixel of a chunk, 128 B
+constexpr uint32_t B_TILE_F = BNF * ROW_F;         // 16 KB
+constexpr uint32_t B_STAGE_F = 2 * B_TILE_F;       // the hi and lo tiles of one K block
+constexpr uint32_t X1_CHUNK_F = NPOS * ROW_F;      // one conv1 chunk, 8 KB
+constexpr int X1_SLOTS = A_WG_BYTES / X1_CHUNK_F;  // conv1 chunks staged at once
+// 1 KB of slack aligns the ring to the swizzle's 1024 bytes; the zero
+// row follows the A tiles
+constexpr uint32_t SMEM_F = 1024 + STAGES_F * B_STAGE_F + 2 * A_WG_BYTES + ROW_F;
 
-struct Seg {
-  const void* rows[2];  // per side: the level's (M, 4, t, t*c) rows
-  const void* w;        // (9, cseg, F) conv0 weights of this segment
-  int t, c;             // the level's tile side and channels
-  int kind;             // 0: both sides paired, 1: side 1 only, 2: side 2 only
-  int cseg;             // the segment's channels: 2c if paired, else c
+struct ChunkF {
+  const float* rows;  // the level's (M, 4, t, t*c) rows of this chunk's side
+  int log_t, c;       // log2 of the level's tile side; its channels
+  int coff;           // the chunk's first channel within the level
+  int side;           // 0 or 1
+  int smem;           // offset of its window in the warpgroup's A tile
 };
 
-struct Args {
-  Seg seg[MAX_SEG];
-  int n_seg;
+struct HeadArgsF {
+  ChunkF chunk[MAX_CHUNKS_F];  // conv0's K chunks in weight order
+  int n_chunks;
   const int* y[2];
   const int* x[2];
-  const float* inv[2];    // (M, 16, 16) f32
-  const float* partial0;  // (M, 8, 8, F) f32
-  const void* wc1;        // (9, F, F)
-  const float* bn0s;
-  const float* bn0t;
-  const float* bn1s;
-  const float* bn1t;
-  void* out;  // (M, F)
-  int f;
-  int x_elems;  // elements of the shared conv-input tile
+  const float* inv[2];    // (M, 16, 16)
+  const float* partial0;  // (M, 8, 8, F)
+  const float* bn_s;      // this conv's BatchNorm affine, (F,)
+  const float* bn_t;
+  float* x1;   // (M, 64, F): conv0's output, conv1's input
+  float* out;  // (M, F)
+  int m, f;
 };
 
-// Stage segment s's scaled expansion: X[pix * cseg + ch].
-__device__ __forceinline__ void stage_segment(const Seg& s, float* X, const float* inv_s, int m,
-                                              const int* ys, const int* xs) {
-  for (int e = threadIdx.x; e < NPIX * s.cseg; e += blockDim.x) {
-    const int pix = e / s.cseg, ch = e % s.cseg;
-    const int side = s.kind == 0 ? ch / s.c : s.kind - 1;
-    const int k = s.kind == 0 ? ch % s.c : ch;
-    const float* rows = (const float*)s.rows[side];
-    const float v = rows[pixel_offset(m, pix / PS, pix % PS, ys[side], xs[side], s.t, s.c) + k];
-    X[e] = __fmul_rn(v, inv_s[side * NPIX + pix]);
-  }
+// x rounded to TF32, to nearest with ties away from zero: the low 13
+// mantissa bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// The input pixel of conv output position pos at tap (dy, dx), or -1 in
-// the zero padding: stride 2 over the 16 x 16 patch, or 1 over 8 x 8.
-__device__ __forceinline__ int tap_pixel(int pos, int dy, int dx, int stride, int side) {
-  const int py = stride * (pos / OH) - 1 + dy, px = stride * (pos % OH) - 1 + dx;
-  return (py >= 0 && py < side && px >= 0 && px < side) ? py * side + px : -1;
+// d += A (64 x 8, registers) * B (128 x 8, K-major, swizzled smem)^T in
+// TF32: each operand's low 13 mantissa bits are not read
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Stage K chunk c = (tap, channels [kc, kc + KC)) of one conv into one
-// buffer: the 64 im2col rows from the shared tile X (side x side x cin,
-// zero outside it) k-major into As[k * lda + pos], and the weight rows
-// W[tap][kc + k][0:f] into Bs[k * ldb + n] with 16-byte cp.async copies
-// (committed as one group).
-template <int KC>
-__device__ __forceinline__ void stage_chunk(int c, int cin, int stride, int side, const float* X,
-                                            const float* W, int f, int lda, int ldb, float* As,
-                                            float* Bs) {
-  const int nk = cin / KC;
-  const int tap = c / nk, kc = (c % nk) * KC;
-  const int dy = tap / 3, dx = tap % 3;
-  constexpr int VEC = 16 / sizeof(float);  // elements per 16-byte copy
-  for (int e = threadIdx.x; e < NPOS * KC; e += blockDim.x) {
-    const int pos = e / KC, k = e % KC;
-    const int pix = tap_pixel(pos, dy, dx, stride, side);
-    As[k * lda + pos] = pix >= 0 ? X[pix * cin + kc + k] : 0.0f;
+// The float32 instance: the bf16 kernel's structure at float32 accuracy
+// by 3xTF32 products. conv0 (CONV1 false): X1[m] = BN0(partial0[m] +
+// conv3x3/2 of the scaled expansion); conv1: out[m] = max_pos
+// relu(BN1(conv3x3/1 X1)). Block b covers proposals 2 (b / n_tiles) +
+// {0, 1} (one per consumer warpgroup) and output channels 128 (b %
+// n_tiles) + [0, 128). map_hi / map_lo: the weights' TF32 parts (F, 9
+// C'), K ordered (32-channel chunk, tap, channel); a stage of the ring
+// holds both parts of one K block.
+//
+// A tiles: conv0 keeps, per 32-channel chunk, the (t+1) x (t+1) window
+// cells of its level and side unexpanded and unscaled (62 KB for the
+// fine stage's levels), both sides' inverse norms beside them; conv1
+// streams X1[m] through X1_SLOTS slots of 64 pixels, a chunk each.
+// Cells and pixels are 128-byte rows swizzled as in the bf16 kernel:
+// ldmatrix reads 16-byte units, which for 32-bit values are the TF32
+// fragments' layout (row lane / 4 and 8 more, column lane % 4 and 4
+// more). Each thread scales its fragments (conv0), then splits each
+// value x into hi = rna(x) and lo = x - hi in registers; per k8 step
+// three wgmma add lo * B_hi, hi * B_lo and hi * B_hi.
+template <bool CONV1>
+__global__ void __launch_bounds__(THREADS, 1)
+fine_head_tf32x3_kernel(const __grid_constant__ CUtensorMap map_hi,
+                        const __grid_constant__ CUtensorMap map_lo,
+                        const __grid_constant__ HeadArgsF a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES_F], empty[STAGES_F];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* a_tiles = ring + STAGES_F * B_STAGE_F;
+  uint8_t* zero = a_tiles + 2 * A_WG_BYTES;
+
+  const int n_tiles = (a.f + BNF - 1) / BNF;
+  const int pair = blockIdx.x / n_tiles, nt = blockIdx.x % n_tiles;
+  const int n_chunks = CONV1 ? a.f / KBF : a.n_chunks;
+  const int nkb = 9 * n_chunks;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_F; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // blockDim.x == f: each pass copies blockDim.x / per_row = VEC rows
-  const int per_row = f / VEC;
-  const int n = (threadIdx.x % per_row) * VEC;
-  const float* wsrc = W + ((int64_t)tap * cin + kc) * f;
-  for (int k = threadIdx.x / per_row; k < KC; k += VEC)
-    cp_async16(&Bs[k * ldb + n], &wsrc[(int64_t)k * f + n]);
-  cp_async_commit();
-}
+  if (threadIdx.x < ROW_F / 4) reinterpret_cast<uint32_t*>(zero)[threadIdx.x] = 0;
+  __syncthreads();
 
-// One conv over X (side x side x cin) against W (9, cin, F), in K chunks
-// through S buffers: chunk c + S - 1 is staged (its weights by cp.async)
-// while the warps multiply chunk c with mma(A, B); one barrier per chunk.
-template <int KC, int S, typename Mma>
-__device__ __forceinline__ void conv_pipeline(const float* X, int cin, int stride, int side,
-                                              const float* W, int f, int lda, int ldb,
-                                              float* As, float* Bs, Mma mma) {
-  const int nchunks = 9 * (cin / KC);
-  const int a_size = KC * lda, b_size = KC * ldb;
-  for (int c = 0; c < S - 1; ++c) {
-    if (c < nchunks)
-      stage_chunk<KC>(c, cin, stride, side, X, W, f, lda, ldb, As + c * a_size,
-                      Bs + c * b_size);
-    else
-      cp_async_commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<S - 2>();  // chunk c's copies have landed (this thread's)
-    __syncthreads();         // ... everyone's; and chunk c - 1's buffers are free
-    const int next = c + S - 1;
-    if (next < nchunks)
-      stage_chunk<KC>(next, cin, stride, side, X, W, f, lda, ldb, As + (next % S) * a_size,
-                      Bs + (next % S) * b_size);
-    else
-      cp_async_commit();  // an empty group keeps the count in step
-    mma(As + (c % S) * a_size, Bs + (c % S) * b_size);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the buffers and X are free for the caller
-}
-
-constexpr int KCF = 16;         // K chunk (f32)
-constexpr int LDAF = NPOS + 4;  // k-major im2col stride: 16-byte rows, 2-way writes
-
-constexpr int STAGES_F = 2;     // K-chunk buffers (f32; three do not fit)
-
-// One conv into acc[64] (this thread's output channel n). As holds the
-// im2col chunk k-major, so a warp reads four positions as one broadcast
-// float4.
-__device__ __forceinline__ void conv_f32(float (&acc)[NPOS], const float* X, int cin,
-                                         int stride, int side, const float* W, int f, float* As,
-                                         float* Bs) {
-  const int n = threadIdx.x;
-  conv_pipeline<KCF, STAGES_F>(
-      X, cin, stride, side, W, f, LDAF, f, As, Bs, [&](const float* A, const float* B) {
-#pragma unroll 4
-        for (int k = 0; k < KCF; ++k) {
-          const float b = B[k * f + n];
-          const float4* a4 = reinterpret_cast<const float4*>(A + k * LDAF);
-#pragma unroll
-          for (int p4 = 0; p4 < NPOS / 4; ++p4) {
-            const float4 v = a4[p4];
-            acc[4 * p4 + 0] = fmaf(v.x, b, acc[4 * p4 + 0]);
-            acc[4 * p4 + 1] = fmaf(v.y, b, acc[4 * p4 + 1]);
-            acc[4 * p4 + 2] = fmaf(v.z, b, acc[4 * p4 + 2]);
-            acc[4 * p4 + 3] = fmaf(v.w, b, acc[4 * p4 + 3]);
-          }
+  if (warp >= 8) {
+    // producer: one thread keeps the weight ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      uint32_t phase = 0;
+      int stage = 0;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], B_STAGE_F);
+        uint8_t* dst = ring + stage * B_STAGE_F;
+        tma_load_2d(dst, &map_hi, &full[stage], kb * KBF, nt * BNF);
+        tma_load_2d(dst + B_TILE_F, &map_lo, &full[stage], kb * KBF, nt * BNF);
+        if (++stage == STAGES_F) {
+          stage = 0;
+          phase ^= 1;
         }
-      });
-}
-
-__global__ void __launch_bounds__(512) fine_head_f32_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int f = a.f, m = blockIdx.x, n = threadIdx.x;
-  float* X = (float*)smem;
-  size_t off = ((size_t)a.x_elems * sizeof(float) + 127) / 128 * 128;
-  float* inv_s = (float*)(smem + off);
-  off += 2 * NPIX * sizeof(float);
-  float* As = (float*)(smem + off);
-  off += STAGES_F * KCF * LDAF * sizeof(float);
-  float* Bs = (float*)(smem + off);
-
-  int ys[2], xs[2];
-  for (int side = 0; side < 2; ++side) {
-    ys[side] = max(a.y[side][m], 0);
-    xs[side] = max(a.x[side][m], 0);
-  }
-  for (int e = threadIdx.x; e < 2 * NPIX; e += blockDim.x)
-    inv_s[e] = a.inv[e / NPIX][(int64_t)m * NPIX + e % NPIX];
-
-  float acc[NPOS];
-#pragma unroll
-  for (int pos = 0; pos < NPOS; ++pos) acc[pos] = a.partial0[((int64_t)m * NPOS + pos) * f + n];
-  __syncthreads();
-
-  for (int s = 0; s < a.n_seg; ++s) {
-    stage_segment(a.seg[s], X, inv_s, m, ys, xs);
-    __syncthreads();
-    conv_f32(acc, X, a.seg[s].cseg, 2, PS, (const float*)a.seg[s].w, f, As, Bs);
+      }
+    }
+    return;
   }
 
-  const float s0 = a.bn0s[n], t0 = a.bn0t[n];
+  // consumers: warpgroup wg owns proposal m_raw's 64 rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4, wq = warp % 4, tid = threadIdx.x % 128;
+  const int m_raw = 2 * pair + wg;
+  const int m = min(m_raw, a.m - 1);  // a missing second proposal repeats the last
+  uint8_t* tile = a_tiles + wg * A_WG_BYTES;
+  const float* inv_s = reinterpret_cast<const float*>(tile + A_WG_BYTES - INV_BYTES);
+  const uint32_t tile_u32 = smem_u32(tile), zero_u32 = smem_u32(zero);
+  const uint32_t ring_u32 = smem_u32(ring);
+  // this lane's ldmatrix row (lanes 0-15 at k 0-3, 16-31 at k 4-7 of a
+  // k8 step) and its fragments' rows (lane / 4 and 8 more)
+  const int pos = 16 * wq + (lane & 15), oy = pos / OH, ox = pos % OH, khalf = lane >> 4;
+  const int frag_oy = 2 * wq, frag_ox = lane >> 2;
+  const int n_base = nt * BNF + 2 * (lane & 3);  // this thread's first column
+
+  // acc[4 i + 2 h + c] is row 16 wq + (lane >> 2) + 8 h and column
+  // n_base + 8 i + c of the warpgroup's 64 x 128 product, summed in f32
+  // on the CUDA cores (conv0 from partial0); d, in the same layout,
+  // takes one chunk's products on the tensor cores, whose accumulation
+  // rounds less accurately than an f32 add, and is added into acc after
+  // each chunk
+  float acc[64], d[64];
 #pragma unroll
-  for (int pos = 0; pos < NPOS; ++pos) {
-    X[pos * f + n] = __fadd_rn(__fmul_rn(acc[pos], s0), t0);
-    acc[pos] = 0.0f;
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n_base + 8 * i;
+      float2 v = make_float2(0.0f, 0.0f);
+      if (!CONV1 && n < a.f)
+        v = *reinterpret_cast<const float2*>(
+            a.partial0 + ((int64_t)m * NPOS + 16 * wq + (lane >> 2) + 8 * h) * a.f + n);
+      acc[4 * i + 2 * h] = v.x;
+      acc[4 * i + 2 * h + 1] = v.y;
+    }
   }
-  __syncthreads();
 
-  conv_f32(acc, X, f, 1, OH, (const float*)a.wc1, f, As, Bs);
+  // conv1: X1[m]'s chunk q into slot q % X1_SLOTS, 16-byte units in
+  // device-memory order
+  auto stage_x1 = [&](int q) {
+    const float* src = a.x1 + (int64_t)m * NPOS * a.f + KBF * q;
+    uint8_t* dst = tile + (q % X1_SLOTS) * X1_CHUNK_F;
+    for (int e = tid; e < NPOS * 8; e += 128) {
+      const int p = e / 8, j = e % 8;
+      cp_async16(dst + p * ROW_F + ((j ^ (p % OH)) << 4), src + (int64_t)p * a.f + 4 * j);
+    }
+  };
+  if (CONV1) {
+    // chunks 0 .. X1_SLOTS - 2, one cp.async group each (empty past the last)
+    for (int q = 0; q < X1_SLOTS - 1; ++q) {
+      if (q < n_chunks) stage_x1(q);
+      cp_async_commit();
+    }
+  } else {
+    // every chunk's window cells (L1-cached: a neighbouring proposal of
+    // the same image may share them): chunk 0 with both inverse-norm rows
+    // as one cp.async group, the rest as a second
+    for (int q = 0; q < n_chunks; ++q) {
+      const ChunkF& ch = a.chunk[q];
+      const int t = 1 << ch.log_t, side = t + 1;
+      const Window w = window_of(max(a.y[ch.side][m], 0), max(a.x[ch.side][m], 0), ch.log_t);
+      for (int e = tid; e < side * side * 8; e += 128) {
+        const int cell = e / 8, j = e % 8, cy = cell / side, cx = cell % side;
+        const int sy = w.wy + cy, sx = w.wx + cx;  // superblock cell
+        const int64_t off =
+            ((((int64_t)m * 4 + (sy >> ch.log_t) * 2 + (sx >> ch.log_t)) * t + (sy & (t - 1))) *
+                 t + (sx & (t - 1))) * ch.c + ch.coff + 4 * j;
+        cp_async16_ca(tile + ch.smem + cell * ROW_F + ((j ^ (cx & 7)) << 4), ch.rows + off);
+      }
+      if (q == 0) {
+        for (int e = tid; e < INV_BYTES / 16; e += 128) {
+          const int side = e / (NPIX / 4), u = e % (NPIX / 4);
+          cp_async16(tile + A_WG_BYTES - INV_BYTES + e * 16,
+                     a.inv[side] + (int64_t)m * NPIX + 4 * u);
+        }
+        cp_async_commit();
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    bar_sync_wg(wg);
+  }
 
-  const float s1 = a.bn1s[n], t1 = a.bn1t[n];
-  float best = 0.0f;
+  uint32_t phase = 0;
+  int stage = 0;
+  for (int q = 0; q < n_chunks; ++q) {
+    Window w{};
+    uint32_t base;
+    int wside = 0, inv_side = 0;
+    if (CONV1) {
+      cp_async_wait<X1_SLOTS - 2>();  // chunk q has landed (this thread's part)
+      bar_sync_wg(wg);                // ... everyone's; chunk q - 1's slot is free
+      if (q + X1_SLOTS - 1 < n_chunks) stage_x1(q + X1_SLOTS - 1);
+      cp_async_commit();
+      base = tile_u32 + (q % X1_SLOTS) * X1_CHUNK_F;
+    } else {
+      if (q == 1) {  // the second cp.async group: the other chunks
+        cp_async_wait<0>();
+        bar_sync_wg(wg);
+      }
+      const ChunkF& ch = a.chunk[q];
+      w = window_of(max(a.y[ch.side][m], 0), max(a.x[ch.side][m], 0), ch.log_t);
+      base = tile_u32 + ch.smem;
+      wside = (1 << ch.log_t) + 1;
+      inv_side = ch.side * NPIX;
+    }
 #pragma unroll
-  for (int pos = 0; pos < NPOS; ++pos)
-    best = fmaxf(best, __fadd_rn(__fmul_rn(acc[pos], s1), t1));
-  ((float*)a.out)[(int64_t)m * f + n] = best;
+    for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      // the lane's ldmatrix row address, or the zero row in the padding
+      uint32_t row = zero_u32;
+      int swz = 0;
+      if (CONV1) {
+        const int iy = oy + dy - 1, ix = ox + dx - 1;
+        if (iy >= 0 && iy < OH && ix >= 0 && ix < OH) {
+          row = base + (iy * OH + ix) * ROW_F;
+          swz = ix;
+        }
+      } else {
+        const int py = 2 * oy + dy - 1, px = 2 * ox + dx - 1;
+        if (py >= 0 && px >= 0) {
+          const int cy = ((w.by + py) >> w.log_ds) - w.wy, cx = ((w.bx + px) >> w.log_ds) - w.wx;
+          row = base + (cy * wside + cx) * ROW_F;
+          swz = cx & 7;
+        }
+      }
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(hi[kk], row == zero_u32 ? row : row + (((2 * kk + khalf) ^ swz) << 4));
+      // the fragments' rows' inverse norms (conv0; any finite value in
+      // the padding, whose cells read zero): registers 0 and 2 hold row
+      // lane / 4, 1 and 3 the row 8 further (the next output row)
+      float sa = 1.0f, sb = 1.0f;
+      if (!CONV1) {
+        const int py = 2 * frag_oy + dy - 1, px = max(2 * frag_ox + dx - 1, 0);
+        sa = inv_s[inv_side + max(py, 0) * PS + px];
+        sb = inv_s[inv_side + (py + 2) * PS + px];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float x = __uint_as_float(hi[kk][r]);
+          if (!CONV1) x = __fmul_rn(x, (r & 1) ? sb : sa);
+          hi[kk][r] = tf32_rna(x);
+          lo[kk][r] = __float_as_uint(__fsub_rn(x, __uint_as_float(hi[kk][r])));
+        }
+      }
+      mbar_wait(&full[stage], phase);
+      fence_acc(d);
+      wgmma_fence();
+      const uint32_t b_hi = ring_u32 + stage * B_STAGE_F, b_lo = b_hi + B_TILE_F;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // the small products first
+        wgmma_m64n128k8_tf32_rs(d, lo[kk], sw128_desc(b_hi + kk * 32));
+        wgmma_m64n128k8_tf32_rs(d, hi[kk], sw128_desc(b_lo + kk * 32));
+        wgmma_m64n128k8_tf32_rs(d, hi[kk], sw128_desc(b_hi + kk * 32));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(d);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == STAGES_F) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+  }
+
+  if constexpr (!CONV1) {
+    // BN0 into X1
+    if (m_raw >= a.m) return;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int n = n_base + 8 * i;
+      if (n >= a.f) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * wq + (lane >> 2) + 8 * h;
+        *reinterpret_cast<float2*>(a.x1 + ((int64_t)m * NPOS + p) * a.f + n) =
+            make_float2(__fadd_rn(__fmul_rn(acc[4 * i + 2 * h], a.bn_s[n]), a.bn_t[n]),
+                        __fadd_rn(__fmul_rn(acc[4 * i + 2 * h + 1], a.bn_s[n + 1]),
+                                  a.bn_t[n + 1]));
+      }
+    }
+  } else {
+    // conv1: BN1, ReLU, then the max over the 64 positions: over a
+    // thread's two rows, the warp's eight row groups (lanes ^ 4, 8, 16),
+    // then the four warps through shared memory (the X1 slots are free).
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int n = min(n_base + 8 * i, a.f - 2);  // columns past F are dropped below
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float s = a.bn_s[n + c], t = a.bn_t[n + c];
+        float best = 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          best = fmaxf(best, __fadd_rn(__fmul_rn(acc[4 * i + 2 * h + c], s), t));
+        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 4));
+        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 8));
+        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 16));
+        acc[4 * i + c] = best;
+      }
+    }
+    float* red = reinterpret_cast<float*>(tile);  // [4 warps][128 columns]
+    cp_async_wait<0>();
+    bar_sync_wg(wg);  // every warp is done with the slots
+    if (lane < 4) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        red[wq * BNF + 8 * i + 2 * lane] = acc[4 * i];
+        red[wq * BNF + 8 * i + 2 * lane + 1] = acc[4 * i + 1];
+      }
+    }
+    bar_sync_wg(wg);
+    const int n = nt * BNF + 2 * tid;
+    if (tid < BNF / 2 && m_raw < a.m && n < a.f) {
+      float v[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        v[c] = fmaxf(fmaxf(red[2 * tid + c], red[BNF + 2 * tid + c]),
+                     fmaxf(red[2 * BNF + 2 * tid + c], red[3 * BNF + 2 * tid + c]));
+      *reinterpret_cast<float2*>(a.out + (int64_t)m * a.f + n) = make_float2(v[0], v[1]);
+    }
+  }
 }
 
 }  // namespace
@@ -768,41 +977,44 @@ extern "C" int p2p_fine_head_bf16(const void* const* chunk_rows, const int* chun
 // Dynamic shared memory a bf16 block asks for.
 extern "C" int p2p_fine_head_bf16_smem() { return (int)SMEM_BYTES; }
 
-// float32. Per segment (n_seg <= 8): seg_rows1/seg_rows2 the level's
-// rows of each side (the unused side may be null), seg_w its (9, cseg, F)
-// weights, seg_t/seg_c the level's tile side and channels, seg_kind 0
-// (paired, cseg = 2c), 1 or 2 (one side, cseg = c). y1, x1, y2, x2: (M,)
-// int32 padded corners; inv1, inv2: (M, 16, 16); partial0: (M, 8, 8, F);
-// wc1: (9, F, F); bn*: (F,); out: (M, F). psize must be 16; F a multiple
-// of 32 up to 512; every cseg a multiple of 32. Returns a cudaError_t.
-extern "C" int p2p_fine_head(const void* const* seg_rows1, const void* const* seg_rows2,
-                             const void* const* seg_w, const int* seg_t, const int* seg_c,
-                             const int* seg_kind, int n_seg, const void* y1, const void* x1,
-                             const void* y2, const void* x2, const void* inv1,
-                             const void* inv2, const void* partial0, const void* wc1,
-                             const void* bn0s, const void* bn0t, const void* bn1s,
-                             const void* bn1t, void* out, int m, int psize, int f,
-                             void* stream) {
-  if (n_seg <= 0 || n_seg > MAX_SEG || m <= 0 || psize != PS || f <= 0 || f % 32 != 0 ||
-      f > 512) {
+// float32, 3xTF32 on the tensor cores. Per conv0 K chunk q < n_chunks
+// (<= 32): chunk_rows[q] the level's (M, 4, t, t*c) rows of the chunk's
+// side, chunk_log_t[q] = log2 t, chunk_c[q] = c (a multiple of 4),
+// chunk_coff[q] the chunk's first channel, chunk_side[q] 0 or 1 — each
+// chunk 32 channels. y1, x1, y2, x2: (M,) int32 padded corners; inv1,
+// inv2: (M, 16, 16); partial0: (M, 8, 8, F); wt0_hi, wt0_lo: (F, 9 * 32
+// n_chunks) and wt1_hi, wt1_lo: (F, 9 F), the weights' TF32 parts
+// (hi + lo), K ordered (chunk, tap, channel); bn*: (F,); x1buf: (M, 64,
+// F) scratch; out: (M, F). F a multiple of 32, at most 512; the chunks'
+// windows ((t+1)^2 cells of 128 bytes each) fit in 62 KB. Returns a
+// cudaError_t.
+extern "C" int p2p_fine_head(const void* const* chunk_rows, const int* chunk_log_t,
+                             const int* chunk_c, const int* chunk_coff, const int* chunk_side,
+                             int n_chunks, const void* y1, const void* x1, const void* y2,
+                             const void* x2, const void* inv1, const void* inv2,
+                             const void* partial0, const void* wt0_hi, const void* wt0_lo,
+                             const void* wt1_hi, const void* wt1_lo, const void* bn0s,
+                             const void* bn0t, const void* bn1s, const void* bn1t, void* x1buf,
+                             void* out, int m, int f, void* stream) {
+  if (n_chunks <= 0 || n_chunks > MAX_CHUNKS_F || m <= 0 || f <= 0 || f % KBF != 0 || f > 512)
     return (int)cudaErrorInvalidValue;
-  }
-  Args a;
-  int cmax = 0;
-  for (int s = 0; s < n_seg; ++s) {
-    Seg& g = a.seg[s];
-    g.rows[0] = (const float*)seg_rows1[s];
-    g.rows[1] = (const float*)seg_rows2[s];
-    g.w = (const float*)seg_w[s];
-    g.t = seg_t[s];
-    g.c = seg_c[s];
-    g.kind = seg_kind[s];
-    g.cseg = g.kind == 0 ? 2 * g.c : g.c;
-    if (g.t <= 0 || PS % g.t != 0 || g.kind < 0 || g.kind > 2 || g.cseg % 32 != 0)
+  HeadArgsF a = {};
+  int window_bytes = 0;  // conv0's staged windows, chunk after chunk
+  for (int q = 0; q < n_chunks; ++q) {
+    ChunkF& ch = a.chunk[q];
+    ch.rows = (const float*)chunk_rows[q];
+    ch.log_t = chunk_log_t[q];
+    ch.c = chunk_c[q];
+    ch.coff = chunk_coff[q];
+    ch.side = chunk_side[q];
+    if (ch.log_t < 0 || ch.log_t > 4 || ch.c % 4 != 0 || ch.coff < 0 || ch.coff % 4 != 0 ||
+        ch.coff + KBF > ch.c || ch.side < 0 || ch.side > 1)
       return (int)cudaErrorInvalidValue;
-    if (g.cseg > cmax) cmax = g.cseg;
+    ch.smem = window_bytes;
+    window_bytes += ((1 << ch.log_t) + 1) * ((1 << ch.log_t) + 1) * ROW_F;
   }
-  a.n_seg = n_seg;
+  if (window_bytes > (int)(A_WG_BYTES - INV_BYTES)) return (int)cudaErrorInvalidValue;
+  a.n_chunks = n_chunks;
   a.y[0] = (const int*)y1;
   a.x[0] = (const int*)x1;
   a.y[1] = (const int*)y2;
@@ -810,20 +1022,41 @@ extern "C" int p2p_fine_head(const void* const* seg_rows1, const void* const* se
   a.inv[0] = (const float*)inv1;
   a.inv[1] = (const float*)inv2;
   a.partial0 = (const float*)partial0;
-  a.wc1 = (const float*)wc1;
-  a.bn0s = (const float*)bn0s;
-  a.bn0t = (const float*)bn0t;
-  a.bn1s = (const float*)bn1s;
-  a.bn1t = (const float*)bn1t;
+  a.x1 = (float*)x1buf;
   a.out = (float*)out;
+  a.m = m;
   a.f = f;
-  a.x_elems = NPIX * cmax > NPOS * f ? NPIX * cmax : NPOS * f;
-  const size_t smem = ((size_t)a.x_elems * sizeof(float) + 127) / 128 * 128 +
-                      2 * NPIX * sizeof(float) +
-                      STAGES_F * (KCF * LDAF + (size_t)KCF * f) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fine_head_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fine_head_f32_kernel<<<m, f, smem, (cudaStream_t)stream>>>(a);
+
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t rc = cudaFuncSetAttribute(fine_head_tf32x3_kernel<false>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)SMEM_F);
+    if (rc == cudaSuccess)
+      rc = cudaFuncSetAttribute(fine_head_tf32x3_kernel<true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_F);
+    if (rc != cudaSuccess) return (int)rc;
+    attr_set = true;
+  }
+  CUtensorMap hi0, lo0, hi1, lo1;
+  const int64_t k0 = (int64_t)9 * KBF * n_chunks, k1 = (int64_t)9 * f;
+  if (!make_map_f32(&hi0, wt0_hi, f, k0, BNF) || !make_map_f32(&lo0, wt0_lo, f, k0, BNF) ||
+      !make_map_f32(&hi1, wt1_hi, f, k1, BNF) || !make_map_f32(&lo1, wt1_lo, f, k1, BNF))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t blocks = (int64_t)((m + 1) / 2) * ((f + BNF - 1) / BNF);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+
+  a.bn_s = (const float*)bn0s;
+  a.bn_t = (const float*)bn0t;
+  fine_head_tf32x3_kernel<false><<<(unsigned)blocks, THREADS, SMEM_F, st>>>(hi0, lo0, a);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  a.bn_s = (const float*)bn1s;
+  a.bn_t = (const float*)bn1t;
+  fine_head_tf32x3_kernel<true><<<(unsigned)blocks, THREADS, SMEM_F, st>>>(hi1, lo1, a);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a float32 block asks for.
+extern "C" int p2p_fine_head_smem() { return (int)SMEM_F; }

@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the port's wgmma kernels (B2, B5):
-// mbarriers, TMA tile loads and their tensor maps, the 128-byte-swizzle
-// wgmma descriptor, warpgroup fences; for a thread-block cluster, the
-// CTA's rank, the cluster barrier, arrivals on another CTA's mbarrier
-// and TMA loads multicast to several CTAs.
+// mbarriers, TMA tile loads and their bf16 and float32 tensor maps, the
+// 128-byte-swizzle wgmma descriptor, warpgroup fences; for a thread-block
+// cluster, the CTA's rank, the cluster barrier, arrivals on another
+// CTA's mbarrier and TMA loads multicast to several CTAs.
 
 #pragma once
 
@@ -174,6 +174,20 @@ inline bool make_map(CUtensorMap* map, const void* base, int64_t rows, int64_t c
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same for float32: (32, box_rows) boxes, 128-byte rows.
+inline bool make_map_f32(CUtensorMap* map, const void* base, int64_t rows, int64_t cols,
+                         int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

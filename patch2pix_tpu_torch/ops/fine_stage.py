@@ -26,8 +26,11 @@ counterpart of ``tools/try_fine_stage.py``.
 Rounding points, as in ``_head_kernel``: the expansion in the rows'
 dtype, times ``inv`` rounded to ``out_dtype``, rounded to ``out_dtype``;
 conv0 sums in float32 from ``partial0``; BN0, then rounded; conv1 sums in
-float32; BN1, ReLU and the max in ``out_dtype``. Inference only, and
-never dispatched by ``Patch2Pix.predict_fine``.
+float32; BN1, ReLU and the max in ``out_dtype``. The float32 kernel
+forms each product from TF32 parts (three tensor-core products of
+:func:`tf32_split`'s hi and lo, about 2^-20 of the product away from
+the float32 one). Inference only, and never dispatched by
+``Patch2Pix.predict_fine``.
 """
 
 from __future__ import annotations
@@ -43,10 +46,19 @@ from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops.patch_expand import EPS, expand_level, expand_level_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"p2p_fine_head": "pppppp" "i" "pppp" "ppp" "p" "pppp" "p" "iii" "p",
+_SIGNATURES = {"p2p_fine_head": "ppppp" "i" "pppp" "ppp" "pppp" "pppp" "pp" "ii" "p",
                "p2p_fine_head_bf16": "ppppp" "i" "pppp" "ppp" "pp" "pppp" "pp" "iii" "p",
-               "p2p_fine_head_bf16_smem": ""}
+               "p2p_fine_head_smem": "", "p2p_fine_head_bf16_smem": ""}
 PAIRED_C = 64  # levels whose two sides share one 2C-channel conv0 segment
+
+# The kernels' blocks (csrc/fine_head.cu: KB, BN, STAGES; KBF, BNF,
+# STAGES_F): K-block channels (one 128-byte row), output channels, ring
+# stages and weight tiles a stage (float32: the TF32 hi and lo parts).
+# Each of the two consumer warpgroups has a 64 KB A tile: conv0's
+# windows and both sides' (16, 16) float32 inverse norms.
+KERNEL_PLAN = {torch.bfloat16: (64, 256, 3, 1), torch.float32: (32, 128, 3, 2)}
+A_TILE_BYTES = 64 * 1024
+WINDOW_BYTES = A_TILE_BYTES - 2 * 16 * 16 * 4
 
 
 def bn_affine(scale, bias, mean, var, eps: float = 1e-5):
@@ -134,6 +146,26 @@ def fused_fine_head_plain(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
     return torch.clamp_min(y, 0).amax(dim=(1, 2))
 
 
+def smem_bytes(dtype) -> int:
+    """Dynamic shared memory a block of the ``dtype`` kernel asks for: 1 KB
+    of slack that aligns the ring to the swizzle's 1024 bytes, the ring,
+    both consumer warpgroups' A tiles and a zero row."""
+    kb, bn, stages, tiles = KERNEL_PLAN[dtype]
+    row = kb * dtype.itemsize
+    return 1024 + stages * tiles * bn * row + 2 * A_TILE_BYTES + row
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Finite float32 ``x`` (below the largest float's TF32 rounding
+    point) -> ``(hi, lo)``: ``hi`` is x rounded to TF32, its 13 low
+    mantissa bits zero (to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``); ``lo = x - hi``, exact, so ``hi + lo == x``
+    bit for bit (a zero's ``lo`` carries its sign)."""
+    hi = ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = x - hi
+    return hi, torch.where(lo == 0, torch.copysign(torch.zeros_like(x), x), lo)
+
+
 def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
                     w0_segs, wc1, bn0, bn1, psize: int, out_dtype=torch.bfloat16):
     """rows*: the C >= 64 levels' ``(M, 4, t, t*C)`` superblock rows in
@@ -141,9 +173,11 @@ def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
     partial0: from :func:`head_prolog`; w0_segs: :func:`segment_weights`;
     wc1: ``(9, F, F)`` im2col'd conv1 kernel; bn0/bn1: (scale, shift)
     float32 pairs. Returns the pooled ``(M, F)`` features in
-    ``out_dtype``. The card's kernels take psize 16 and F up to 512; in
-    bf16 F a multiple of 8 and every level wider than 64 channels a
-    multiple of 64, in float32 F and every segment a multiple of 32."""
+    ``out_dtype``. The card's kernels take psize 16, F up to 512 (in
+    bf16 a multiple of 8, in float32 of 32), levels whose channels are a
+    multiple of the K block (bf16 64, float32 32), at most 1024 conv0
+    channels, and one proposal's windows in 62 KB (``WINDOW_BYTES``;
+    the fine stage's levels take 31 KB in bf16, all 62 in float32)."""
     rows1, rows2 = tuple(rows1), tuple(rows2)
     args = (rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bn0, bn1)
     tensors = (rows1 + rows2 + (y1, x1, y2, x2, inv1, inv2, partial0) + tuple(w0_segs)
@@ -183,8 +217,8 @@ def fused_fine_head(rows1, rows2, y1, x1, y2, x2, inv1, inv2, partial0,
         levels.append((r1, r2, t, c))
     if next(w_iter, None) is not None:
         raise ValueError("fused_fine_head: more weight segments than row segments")
-    launch = _launch_bf16 if out_dtype == torch.bfloat16 else _launch_f32
-    out = launch(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f)
+    out = _launch(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f,
+                  out_dtype)
     fused_fine_head.launches += 1
     return out
 
@@ -197,48 +231,49 @@ def _dense(t, dtype, shape):
     return t if t.data_ptr() % 256 == 0 else t.clone()
 
 
-def head_chunks(levels):
-    """The bf16 kernels' conv0 K chunks, in :func:`segment_weights`'
-    channel order: ``[(level, side, first channel)]``, 64 channels each —
-    a paired C=64 level gives its two sides, a wider level each side's
-    64-channel runs."""
+def head_chunks(levels, width: int = 64):
+    """The kernels' conv0 K chunks, in :func:`segment_weights`' channel
+    order: ``[(level, side, first channel)]``, ``width`` channels each
+    (bf16 64, float32 32): each side's runs of its level, a paired C=64
+    level's first side first."""
     out = []
     for li, (_, _, _, c) in enumerate(levels):
-        if c != PAIRED_C and c % 64:
-            raise ValueError(f"fused_fine_head: bf16 takes levels of 64 or a multiple of "
-                             f"64 channels, not {c}")
-        offs = (0,) if c == PAIRED_C else range(0, c, 64)
-        out += [(li, side, off) for side in (0, 1) for off in offs]
+        if c % width:
+            raise ValueError(f"fused_fine_head: the kernel takes levels of a multiple of "
+                             f"{width} channels, not {c}")
+        out += [(li, side, off) for side in (0, 1) for off in range(0, c, width)]
     return out
 
 
-def kmajor_weights(w9: torch.Tensor, cin_pad: int) -> torch.Tensor:
-    """``(9, C, F)`` im2col'd conv weights -> the bf16 kernels' ``(F, 9 *
-    Cp)``: K ordered (64-channel chunk, tap, channel), the channels zero-
-    padded to ``cin_pad`` (a multiple of 64)."""
+def kmajor_weights(w9: torch.Tensor, cin_pad: int, width: int = 64) -> torch.Tensor:
+    """``(9, C, F)`` im2col'd conv weights -> the kernels' ``(F, 9 *
+    Cp)``: K ordered (``width``-channel chunk, tap, channel), the channels
+    zero-padded to ``cin_pad`` (a multiple of ``width``)."""
     _, c, f = w9.shape
     if cin_pad != c:
         w9 = torch.cat([w9, w9.new_zeros((9, cin_pad - c, f))], dim=1)
-    return (w9.reshape(9, cin_pad // 64, 64, f).permute(3, 1, 0, 2).reshape(f, 9 * cin_pad)
-            .contiguous())
+    return (w9.reshape(9, cin_pad // width, width, f).permute(3, 1, 0, 2)
+            .reshape(f, 9 * cin_pad).contiguous())
 
 
-def _launch_bf16(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f):
-    chunks = head_chunks(levels)
+def _launch(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f, dtype):
+    kb = KERNEL_PLAN[dtype][0]
+    chunks = head_chunks(levels, kb)
     window_bytes = sum((levels[li][2] + 1) ** 2 * 128 for li, _, _ in chunks)
-    if len(chunks) > 16 or window_bytes > 62 * 1024:
-        raise ValueError(f"fused_fine_head: {64 * len(chunks)} conv0 channels (at most 1024) "
-                         f"in {window_bytes} B of windows (at most 62 KB)")
+    if kb * len(chunks) > 1024 or window_bytes > WINDOW_BYTES:
+        raise ValueError(f"fused_fine_head: {kb * len(chunks)} conv0 channels (at most 1024) "
+                         f"in {window_bytes} B of windows (at most {WINDOW_BYTES})")
     rows = []
     for li, side, off in chunks:
         r = levels[li][side]
         rows.append(r if r.data_ptr() % 16 == 0 else r.clone())
-    fp = -(-f // 64) * 64
-    wt0 = kmajor_weights(torch.cat([w.to(torch.bfloat16) for w in w0_segs], dim=1),
-                         64 * len(chunks))
-    wt1 = kmajor_weights(wc1.to(torch.bfloat16), fp)
-    x1buf = torch.empty((m, 64, fp), dtype=torch.bfloat16, device=y1.device)
-    out = torch.empty((m, f), dtype=torch.bfloat16, device=y1.device)
+    fp = -(-f // kb) * kb
+    wt0 = kmajor_weights(torch.cat([w.to(dtype) for w in w0_segs], dim=1), kb * len(chunks), kb)
+    wt1 = kmajor_weights(wc1.to(dtype), fp, kb)
+    # bf16: one weight tensor a conv; float32: its TF32 hi and lo parts
+    weights = (wt0, wt1) if dtype == torch.bfloat16 else (*tf32_split(wt0), *tf32_split(wt1))
+    x1buf = torch.empty((m, 64, fp), dtype=dtype, device=y1.device)
+    out = torch.empty((m, f), dtype=dtype, device=y1.device)
     n = len(chunks)
     cols = ([r.data_ptr() for r in rows],
             [levels[li][2].bit_length() - 1 for li, _, _ in chunks],
@@ -246,40 +281,13 @@ def _launch_bf16(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns
             [side for _, side, _ in chunks])
     arrays = [(ctypes.c_void_p * n)(*cols[0])] + [(ctypes.c_int * n)(*c) for c in cols[1:]]
     lib = _build.library("fine_head", _SIGNATURES)
-    rc = lib.p2p_fine_head_bf16(
+    entry = lib.p2p_fine_head_bf16 if dtype == torch.bfloat16 else lib.p2p_fine_head
+    sizes = (m, f, fp) if dtype == torch.bfloat16 else (m, f)
+    rc = entry(
         *(ctypes.addressof(a) for a in arrays), n,
         y1.data_ptr(), x1.data_ptr(), y2.data_ptr(), x2.data_ptr(),
-        inv1.data_ptr(), inv2.data_ptr(), partial0.data_ptr(), wt0.data_ptr(), wt1.data_ptr(),
-        *(b.data_ptr() for b in bns), x1buf.data_ptr(), out.data_ptr(), m, f, fp,
-        _build.current_stream(y1.device),
-    )
-    _build.check_launch(rc, "fused_fine_head")
-    return out
-
-
-def _launch_f32(levels, y1, x1, y2, x2, inv1, inv2, partial0, w0_segs, wc1, bns, m, f):
-    segs = []  # (rows1, rows2, weights, t, c, kind)
-    w_iter = iter(w0_segs)
-    for r1, r2, t, c in levels:
-        for kind in ((0,) if c == PAIRED_C else (1, 2)):
-            w = _dense(next(w_iter), torch.float32, (9, 2 * c if kind == 0 else c, f))
-            segs.append((r1.data_ptr(), r2.data_ptr(), w, t, c, kind))
-    if any(s[2].shape[1] % 32 for s in segs) or len(segs) > 8:
-        raise ValueError(f"fused_fine_head: {len(segs)} segments (at most 8, multiples of "
-                         f"32 channels)")
-    wc1 = _dense(wc1, torch.float32, (9, f, f))
-    out = torch.empty((m, f), dtype=torch.float32, device=y1.device)
-    n = len(segs)
-    cols = list(zip(*segs))
-    arrays = ([(ctypes.c_void_p * n)(*cols[0]), (ctypes.c_void_p * n)(*cols[1]),
-               (ctypes.c_void_p * n)(*(w.data_ptr() for w in cols[2]))]
-              + [(ctypes.c_int * n)(*col) for col in cols[3:]])
-    lib = _build.library("fine_head", _SIGNATURES)
-    rc = lib.p2p_fine_head(
-        *(ctypes.addressof(a) for a in arrays), n,
-        y1.data_ptr(), x1.data_ptr(), y2.data_ptr(), x2.data_ptr(),
-        inv1.data_ptr(), inv2.data_ptr(), partial0.data_ptr(), wc1.data_ptr(),
-        *(b.data_ptr() for b in bns), out.data_ptr(), m, 16, f,
+        inv1.data_ptr(), inv2.data_ptr(), partial0.data_ptr(), *(w.data_ptr() for w in weights),
+        *(b.data_ptr() for b in bns), x1buf.data_ptr(), out.data_ptr(), *sizes,
         _build.current_stream(y1.device),
     )
     _build.check_launch(rc, "fused_fine_head")

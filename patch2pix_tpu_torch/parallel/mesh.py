@@ -155,8 +155,11 @@ def process_group(world_size: int, rank: int, backend: str, store_dir: Optional[
                   timeout: Optional[timedelta] = None):
     """Initialise the default process group from a ``file://`` store in
     ``store_dir`` (a fresh temporary directory when None, which only a
-    group of one rank can use), and destroy it on exit. Yields the
-    group. ``timeout`` as for :func:`initialize_multihost`."""
+    group of one rank can use). Yields the group. On a normal exit the
+    group is destroyed; when the body raises it is aborted
+    (:func:`abort_process_group`), so that the error reaches the caller
+    at once, while the other ranks may still wait in a collective.
+    ``timeout`` as for :func:`initialize_multihost`."""
     with contextlib.ExitStack() as stack:
         if store_dir is None:
             store_dir = stack.enter_context(tempfile.TemporaryDirectory())
@@ -164,20 +167,30 @@ def process_group(world_size: int, rank: int, backend: str, store_dir: Optional[
                                 world_size=world_size, rank=rank, **_timeout_kw(timeout))
         try:
             yield dist.group.WORLD
-        finally:
-            dist.destroy_process_group()
+        except BaseException:
+            abort_process_group()
+            raise
+        dist.destroy_process_group()
+
+
+def abort_process_group() -> None:
+    """Tear down every process group of this rank without waiting for
+    the other ranks: ``ncclCommAbort`` under NCCL. Destroying an NCCL
+    group instead waits on the collectives its peers have pending, up
+    to the group's timeout. Afterwards no group is initialised, as after
+    ``dist.destroy_process_group``."""
+    dist.distributed_c10d._abort_process_group()
 
 
 def spawned_rank(rank: int, fn, *args) -> None:
     """``fn(rank, *args)`` as the body of a spawned rank
     (``torch.multiprocessing.start_processes(spawned_rank, args=(fn,
     ...))``): an error prints its traceback and ends the process with
-    exit code 1 without tearing down its process group, and the parent
-    then terminates the other ranks. Over gloo the run ends within
-    seconds. Over NCCL it does not: a two-rank run on the card whose
-    rank 0 failed lasted past its group's timeout, for a cause not yet
-    found (``ROADMAP.md`` C7), so give every group a timeout of
-    minutes."""
+    exit code 1, and the parent then terminates the other ranks, which
+    may be waiting in a collective. The error leaves
+    :func:`process_group` through its abort, not its orderly teardown,
+    so the run ends in seconds over NCCL as over gloo; a group's timeout
+    bounds only a real hang."""
     try:
         fn(rank, *args)
     except BaseException:

@@ -24,8 +24,8 @@ atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
 cancels to near zero keeps the float32 rounding of its terms), its backward
 through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
 expand_level bit-identical (C from 1 to 256, M from 1 to 2400, every
-tile side, rows off a 16-byte boundary); fused_fine_head float32 rtol/atol 2e-4,
-bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
+tile side, rows off a 16-byte boundary); fused_fine_head float32 (3xTF32
+products) rtol/atol 2e-4, bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
 midpoint moves a BN0 output by one ulp; chip_smoke's ``bf16_ulps``),
 at M from 1 to 2399, F 64 to 512 and corners at the superblock's edges.
 The backward passes of B1-B3: the gradients through the kernel route
@@ -48,7 +48,7 @@ Schur BA step (``sfm/ba.py``, padded and not) on the card agrees with
 the CPU's by chip_smoke's phase 14 rules (old cost rtol 1e-5, new cost
 rtol 1e-3, R and t atol 1e-5; points atol 1e-4). With two cards or
 more, a two-rank NCCL group whose rank 0 fails ends at once, as over
-gloo (open fault C7 in ROADMAP.md: on the card it has not).
+gloo (fault C7 in ROADMAP.md, repaired).
 """
 
 import json
@@ -780,8 +780,9 @@ def test_failed_nccl_rank_ends_at_once(cuda, tmp_path):
     """A two-rank NCCL group, one card a rank, whose rank 0 raises
     through ``parallel.mesh.spawned_rank`` while rank 1 waits in a
     barrier (120 s timeout): the run ends with exit code 1 well inside
-    the timeout, as over gloo (``tests/test_torch_dryrun.py``). Open
-    fault C7 in ROADMAP.md: on the card it has lasted 216.5 s."""
+    the timeout, as over gloo (``tests/test_torch_dryrun.py``). Fault C7
+    in ROADMAP.md, repaired by aborting the group on the error path
+    (``parallel.mesh.process_group``): before, the run lasted 216.5 s."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     t0 = time.perf_counter()

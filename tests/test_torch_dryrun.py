@@ -36,9 +36,14 @@ ranks that import no JAX), then:
   * a spawned rank that fails (``parallel.mesh.spawned_rank``) ends at
     once with exit code 1 while its peer waits in a collective, and the
     run ends well inside the group's timeout (over gloo the peer may
-    fail first, on the closed connection).
+    fail first, on the closed connection);
+  * ``parallel.mesh.process_group`` aborts its group when the body
+    raises (the NCCL teardown would wait on the peers' collectives:
+    ROADMAP C7) and destroys it on a normal exit; either way no group is
+    left and a new one can start.
 """
 
+import contextlib
 import re
 import time
 
@@ -61,7 +66,12 @@ from patch2pix_tpu_torch.config import ModelConfig
 from patch2pix_tpu_torch.evaluation.batched import BatchedMatcher
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.parallel import dryrun, mesh as mesh_module
-from patch2pix_tpu_torch.parallel.mesh import make_mesh, rank_device, spawned_rank
+from patch2pix_tpu_torch.parallel.mesh import (
+    make_mesh,
+    process_group,
+    rank_device,
+    spawned_rank,
+)
 from patch2pix_tpu_torch.sfm.ba import build_problem, cost
 from patch2pix_tpu_torch.sfm.dist_ba import run_dist_ba_ranks, shard_problem
 from patch2pix_tpu_torch.train import step as step_module
@@ -295,3 +305,30 @@ def test_failed_rank_ends_at_once(tmp_path):
             join=True, start_method="spawn")
     assert raised.value.exit_code == 1
     assert time.perf_counter() - t0 < 60
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_process_group_aborts_on_error_and_destroys_on_exit(tmp_path, monkeypatch, fails):
+    calls = []
+    destroy, abort = mesh_module.dist.destroy_process_group, mesh_module.abort_process_group
+
+    def destroy_logged():
+        calls.append("destroy")
+        destroy()
+
+    def abort_logged():
+        calls.append("abort")
+        abort()
+
+    monkeypatch.setattr(mesh_module.dist, "destroy_process_group", destroy_logged)
+    monkeypatch.setattr(mesh_module, "abort_process_group", abort_logged)
+    with pytest.raises(RuntimeError) if fails else contextlib.nullcontext():
+        with process_group(1, 0, "gloo", str(tmp_path)):
+            torch.distributed.barrier()
+            if fails:
+                raise RuntimeError("the body fails")
+    assert calls == (["abort"] if fails else ["destroy"])
+    assert not torch.distributed.is_initialized()
+    (tmp_path / "again").mkdir()
+    with process_group(1, 0, "gloo", str(tmp_path / "again")):
+        torch.distributed.barrier()
