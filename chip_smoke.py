@@ -24,10 +24,14 @@ Phases, each fatal on failure:
      registers and spills and its cluster shape, and holds it at the card
      tests' shapes too; B4 is held and timed on the
      channels-last volume the NCN's fold-in leaves and on an NCHW view,
-     and prints its tensor-core kernel's registers and shared memory for
-     each staging and, as a yardstick the port never calls for these
-     channels,
-     ``conv4d_xla_taps``); B5's float32 kernel (3xTF32 on ``wgmma``)
+     and prints its bf16 kernel's registers and shared memory for each
+     staging and, as a yardstick the port never calls for these
+     channels, ``conv4d_xla_taps``; B4's float32 kernel (3xTF32 on
+     ``mma.sync`` m16n8k8) prints its ms on both layouts and its device
+     ms by the profiler, its share of the 3xTF32 bound and of the f32
+     SIMT bound, its registers, shared memory (the dynamic part held to
+     ``ops.conv4d_small.tf32_smem_bytes``) and spills for each staging,
+     and its max abs error under the 1e-4 rule); B5's float32 kernel (3xTF32 on ``wgmma``)
      prints its two launches' device ms, its share of the 3xTF32 bound
      and of the f32 SIMT bound, its registers, spills and shared memory
      a block (held to ``ops.fine_stage.smem_bytes``), its max abs and
@@ -51,7 +55,11 @@ Phases, each fatal on failure:
      in bf16 on the change_stride volume — B4 twice (both on its
      tensor-core kernel, staging channels-last) and B1 twice per call,
      output held against the
-     same NCN with B4's plain version; then one B4 layer's backward
+     same NCN with B4's plain version; then the same NCN in float32
+     (TF32 off for cuDNN's fold-in and fold-out): B4 twice on its 3xTF32
+     kernel, staging the fold-in's channels-last volume, B1 twice,
+     output within 1e-5 of max |ref| of the plain-B4 run, timed beside
+     it with B4's device ms; then one B4 layer's backward
      through the kernel against the CPU's, and one bf16 4->4 layer's
      backward timed at the change_stride shape;
   6. the fine-head path (the port's ``tools/try_fine_stage.py``): a
@@ -315,6 +323,7 @@ from patch2pix_tpu_torch.ops.conv4d_small import (
     conv4d_small,
     conv4d_small_plain,
     mma_fragments,
+    tf32_smem_bytes,
 )
 from patch2pix_tpu_torch.ops.corr_pool import STREAM_CLUSTER, kernel_instance
 from patch2pix_tpu_torch.ops.corr_pool import _round_up
@@ -407,8 +416,8 @@ FIXDIR = os.path.join(ROOT, "tests", "fixtures")
 # f32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# the dense TF32 tensor-core peak: B5's float32 kernel runs three TF32
-# products for each float32 one (3xTF32)
+# the dense TF32 tensor-core peak: B4's and B5's float32 kernels run three
+# TF32 products for each float32 one (3xTF32)
 TF32_FLOPS = 495e12
 
 KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
@@ -429,7 +438,7 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
 # the device functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_stream_kernel",
                      "corr_pool_f32_kernel",
-                     "expand_kernel", "expand_level_kernel", "conv4d_small_kernel",
+                     "expand_kernel", "expand_level_kernel", "conv4d_small_tf32_kernel",
                      "conv4d_small_mma_kernel", "fine_head_bf16_kernel",
                      "fine_head_tf32x3_kernel")
 
@@ -503,6 +512,7 @@ def reset_counts():
     for fn in KERNELS:
         fn.launches = 0
     conv4d_small.mma_launches = 0
+    conv4d_small.tf32_launches = 0
     conv4d_small.channels_last_launches = 0
 
 
@@ -811,16 +821,20 @@ def window_bytes(levels, corners, psize, elsize):
     return total
 
 
-def conv4d_small_attrs(cin, cout, out_dtype, mode):
+def conv4d_small_attrs(cin, cout, out_dtype, mode, dtype=torch.bfloat16):
     """Registers a thread, static shared memory and spill bytes a block of
-    B4's bf16 (tensor-core) kernel with staging ``mode`` (0: any strides,
-    1: channels-last Cin 4)."""
+    B4's kernel for ``dtype`` input (bf16: m16n8k16; float32: 3xTF32
+    m16n8k8, whose dynamic shared memory comes fourth) with staging
+    ``mode`` (0: any strides, 1: channels-last Cin 4)."""
     lib = _build.library("conv4d", CONV4D_SIGNATURES)
-    vals = [ctypes.c_int() for _ in range(3)]
-    rc = lib.p2p_conv4d_small_mma_attrs(cin, cout, int(out_dtype == torch.bfloat16), mode,
-                                        *(ctypes.addressof(v) for v in vals))
+    bf16 = dtype == torch.bfloat16
+    vals = [ctypes.c_int() for _ in range(3 if bf16 else 4)]
+    entry = lib.p2p_conv4d_small_mma_attrs if bf16 else lib.p2p_conv4d_small_tf32_attrs
+    rc = entry(cin, cout, int(out_dtype == torch.bfloat16), mode,
+               *(ctypes.addressof(v) for v in vals))
     _build.check_launch(rc, "conv4d_small attributes")
-    return [v.value for v in vals]
+    regs, smem, *dyn, local = [v.value for v in vals]
+    return (regs, smem, local) if bf16 else (regs, smem, local, dyn[0])
 
 
 def conv4d_small_any_strides_ms(x, w, b):
@@ -848,11 +862,11 @@ def conv4d_small_any_strides_ms(x, w, b):
 
 def check_conv4d_small(dtype, gen, dev):
     """B4 at the change_stride NCN volume: a 4->4 layer on (2, 48, 64, 48,
-    64, 4); bf16 in and out (the NCN's intermediate; the tensor-core
-    kernel), or float32 (the SIMT kernel). Held and timed on two layouts
-    of the same values: the contiguous channels-last volume, which the
-    NCN's fold-in leaves (the conv4d path's input, phase 5; its time is the
-    kernel's number), and the NCHW-per-cell view."""
+    64, 4); bf16 in and out (the NCN's intermediate; the m16n8k16
+    kernel), or float32 (the 3xTF32 m16n8k8 kernel). Held and timed on
+    two layouts of the same values: the contiguous channels-last volume,
+    which the NCN's fold-in leaves (the conv4d path's input, phase 5; its
+    time is the kernel's number), and the NCHW-per-cell view."""
     cin = cout = 4
     dims = (BATCH, H // 16, W // 16, H // 16, W // 16)
     x = torch.randn(dims + (cin,), generator=gen, device=dev).to(dtype)
@@ -865,9 +879,11 @@ def check_conv4d_small(dtype, gen, dev):
     errs, times, notes = [], [], []
     for xin, layout, mode in ((x, "channels-last", 1), (nchw, "NCHW", 0)):
         mma0, cl0 = conv4d_small.mma_launches, conv4d_small.channels_last_launches
+        tf0 = conv4d_small.tf32_launches
         got = conv4d_small(xin, w, b, dtype)
         if (conv4d_small.mma_launches - mma0 != mma
-                or conv4d_small.channels_last_launches - cl0 != mma * mode):
+                or conv4d_small.tf32_launches - tf0 != 1 - mma
+                or conv4d_small.channels_last_launches - cl0 != mode):
             fail(f"conv4d_small {dtype} {layout}: the wrong kernel or staging ran")
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -887,6 +903,20 @@ def check_conv4d_small(dtype, gen, dev):
             note += (f" ({int((diff > 0).sum())} of {diff.numel()} values one ulp off; "
                      f"staging mode {mode}: {regs} registers a thread, {smem} B shared "
                      f"memory a block, {local} B spilled)")
+        else:
+            regs, smem, local, dyn = conv4d_small_attrs(cin, cout, dtype, mode, dtype)
+            if dyn != tf32_smem_bytes(cin, cout):
+                fail(f"conv4d_small f32: the kernel launches with {dyn} B of dynamic shared "
+                     f"memory, the plan in ops/conv4d_small.py {tf32_smem_bytes(cin, cout)}")
+            dev_ms = sum(v for k, v in device_ms(lambda: conv4d_small(xin, w, b, dtype)).items()
+                         if "conv4d_small_tf32_kernel" in k)
+            ptx = ptxas_entry(PTXAS.get("conv4d", ""),
+                              f"conv4d_small_tf32_kernelIfLi{cin}ELi{cout}ELi{mode}E")
+            spills = ("spills not in this run's build" if ptx is None
+                      else f"spill stores {ptx[1]} B, spill loads {ptx[2]} B")
+            note += (f" (device {dev_ms:.4f} ms; {errs[-1] / 1e-4:.3g} of the 1e-4 rule; "
+                     f"staging mode {mode}: {regs} registers a thread, {dyn} B dynamic + "
+                     f"{smem} B static shared memory a block, {local} B local, {spills})")
         notes.append(note)
     ms = times[0]
     if mma:
@@ -901,6 +931,15 @@ def check_conv4d_small(dtype, gen, dev):
     taps_ms = time_ms(lambda: conv4d_module.conv4d_xla_taps(x, w, b).to(dtype), iters=10)
     flops = 2 * (x.numel() // cin) * 81 * cin * cout
     b_ms, b_by = bound(nbytes(x, w, b, want), flops, dtype)
+    if not mma:
+        # 3xTF32: bound by three TF32 products a float32 one (or the
+        # bytes); the SIMT kernel it replaced, by the f32 pipes
+        simt_ms = b_ms
+        b_ms, b_by = max((nbytes(x, w, b, want) / HBM_BPS * 1e3, "bytes"),
+                         (3 * flops / TF32_FLOPS * 1e3, "operations"))
+        notes.append(f"3xTF32 on mma.sync m16n8k8: channels-last "
+                     f"{100 * simt_ms / ms:.1f}% of the f32 SIMT bound {simt_ms:.4f} ms, "
+                     f"NCHW {100 * b_ms / times[1]:.1f}% of the 3xTF32 bound")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None,
                 shape=f"x {tuple(x.shape)} {dtype} -> 4 channels {want.dtype}; "
@@ -1267,11 +1306,12 @@ class plain_b4:
         conv4d_module.conv4d_small = self.saved
 
 
-def seeded_ncn(dev, channels=(4, 4, 1), seed=3):
-    """A symmetric bf16 NeighConsensus with seeded fan-in-scaled weights."""
+def seeded_ncn(dev, channels=(4, 4, 1), seed=3, dtype=torch.bfloat16):
+    """A symmetric NeighConsensus in ``dtype`` with seeded fan-in-scaled
+    weights."""
     rs = np.random.RandomState(seed)
     ncn = NeighConsensus(kernel_sizes=(3,) * len(channels), channels=channels,
-                         dtype=torch.bfloat16, device=dev)
+                         dtype=dtype, device=dev)
     sd, cin = {}, 1
     for li, cout in enumerate(channels):
         w = rs.randn(3, cout, cin, 3, 3, 3) * (2.0 / (81 * cin)) ** 0.5
@@ -1326,6 +1366,7 @@ def conv4d_path(dev):
         f"plain-B4 run {err:.3g} (max |ref| {scale:.3g}), "
         f"{off} of {diff.numel()} values off by more than 2^-7 of it; "
         f"{ms:.3f} ms per call (plain B4 {plain_ms:.3f} ms)")
+    conv4d_path_f32(dev, corr)
 
     # one B4 layer's backward through the kernel against the CPU's
     rs = np.random.RandomState(6)
@@ -1358,6 +1399,46 @@ def conv4d_path(dev):
     log(f"conv4d_small backward [{tuple(x.shape)} bf16, 4->4]: plain PyTorch (per-tap "
         f"convs for dx, 81 contractions for dw), {bwd_ms:.4f} ms per call")
     return launches
+
+
+def conv4d_path_f32(dev, corr):
+    """Phase 5 in float32 (TF32 off for cuDNN's fold-in and fold-out): the
+    same NCN (4, 4, 1) on the same volume; B4 twice on its 3xTF32 kernel,
+    staging the fold-in's channels-last volume, and B1 twice. Rule, as
+    ``tests/test_torch_conv4d_small.py::test_ncn_441_matches_jax`` on the
+    CPU: max abs err to the plain-B4 run <= 1e-5 of max |ref|."""
+    ncn = seeded_ncn(dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        got = ncn(corr)
+    torch.cuda.synchronize()
+    launches = counts()
+    expect = {**{k: 0 for k in launches}, "conv4d_small": 2, "tap_sum": 2}
+    tf32, staged = conv4d_small.tf32_launches, conv4d_small.channels_last_launches
+    if launches != expect or tf32 != 2 or staged != 2:
+        fail(f"conv4d path f32: launches {launches} ({tf32} through B4's 3xTF32 kernel, "
+             f"{staged} staging channels-last), expected {expect}, both B4 launches on the "
+             f"3xTF32 kernel staging the fold-in's channels-last volume")
+    if got.shape != corr.shape or got.dtype != torch.float32 or not torch.isfinite(got).all():
+        fail(f"conv4d path f32: output {tuple(got.shape)} {got.dtype} or non-finite values")
+    with torch.no_grad(), plain_b4():
+        want = ncn(corr)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not err <= 1e-5 * scale:
+        fail(f"conv4d path f32: max abs err {err} > 1e-5 of max |ref| {scale}")
+    with torch.no_grad():
+        ms = time_ms(lambda: ncn(corr), iters=5)
+        b4_ms = sum(v for k, v in device_ms(lambda: ncn(corr)).items()
+                    if "conv4d_small_tf32_kernel" in k)
+        with plain_b4():
+            plain_ms = time_ms(lambda: ncn(corr), iters=2, warmup=1)
+    log(f"conv4d path [NCN (4, 4, 1) symmetric f32, TF32 off, on {tuple(corr.shape)}]: "
+        f"launches per call {launches} (both B4 launches on the 3xTF32 kernel staging "
+        f"channels-last); max abs err to the plain-B4 run {err:.3g} (max |ref| {scale:.3g}, "
+        f"{err / scale:.3g} of it; rule 1e-5); {ms:.3f} ms per call, B4 {b4_ms:.4f} device "
+        f"ms of it (plain B4 {plain_ms:.3f} ms)")
 
 
 def fine_head_path(dev):

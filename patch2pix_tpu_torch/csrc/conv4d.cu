@@ -7,8 +7,9 @@
 //   out[b,i,j,k,l,co] = bias[co] + sum_{di,dj,dk,dl,ci}
 //       x[b, i+di-1, j+dj-1, k+dk-1, l+dl-1, ci] * w[di,dj,dk,dl,ci,co]
 //
-// The filter is rounded to x's type; every product and sum is float32,
-// then the bias, then one rounding to the output type.
+// The filter is rounded to x's type; every product is float32 (exact for
+// bf16, within ~2^-21 of itself for float32: 3xTF32, below), every sum
+// float32, then the bias, then one rounding to the output type.
 //
 // Layout: the flat cell n = (b*h1 + i)*w1 + j has one (h2, w2, CIN) plane.
 // The input is read through element strides (n, ci, k, l), so both the
@@ -18,7 +19,7 @@
 // a copy. The output is written NCHW (n, co, k, l), the layout the next
 // fold-out conv reads.
 //
-// Two kernels, by the input's type.
+// Two kernels, by the input's type, both on the tensor cores.
 //
 // bfloat16 input: conv4d_small_mma_kernel, an implicit GEMM on the tensor
 // cores (mma.sync.m16n8k16, bf16 in, f32 accumulate). The Pallas kernel's
@@ -70,14 +71,42 @@
 // an inf in x turns the output rows beside it to NaN where the plain
 // version's sum would stay finite (as with the Pallas kernel's panels).
 //
-// float32 input: conv4d_small_kernel, the SIMT kernel (fmaf in (di, dj, dl,
-// ci, dk) order), bound by its 81 * CIN * COUT FMAs per output cell on the
-// f32 pipes (~49 GFLOP at 4->4, 0.73 ms at 67 TFLOP/s). One block per (cell
-// n, 16 x 32 tile of (k, l)); each thread keeps the COUT sums of R = 4
-// cells of one l column in registers. For each of the nine outer taps whose
-// source cell is inside the grid, the 18 x 34 input halo of the source plane
-// is staged through shared memory, planar per channel; the filter sits in
-// shared memory and every warp reads the same word (a broadcast).
+// float32 input: conv4d_small_tf32_kernel, the same implicit GEMM on the
+// tensor cores in TF32 (mma.sync.m16n8k8), every float32 product formed
+// from three TF32 products (3xTF32: x = hi + lo, w = hi' + lo', x * w ~
+// lo*hi' + hi*lo' + hi*hi'). It keeps the bf16 kernel's block, strip,
+// tile, rotating cell slots and banded filter; K = (4 rows, 3 dl, CIN) is
+// not paired and is padded to 8s (40 / 48 / 64 for CIN 3 / 4 / 5). The
+// wrapper splits the band once a call (ops/fine_stage.py tf32_split) and
+// lays hi and lo out as the m16n8k8 B fragments (ops/conv4d_small.py
+// tf32_fragments): one 16-byte shared load a lane and tile. The input is
+// split in registers as each A element comes from shared memory (rounded
+// as tf32_split rounds, cvt.rna.tf32.f32's bits, then lo = x - hi); each
+// split pair serves the three dj cells with three products each. Planes
+// go global -> shared by cp.async, no staging registers (16 bytes a
+// position for a channels-last CIN 4 input 16-byte aligned, the NCN's; 4
+// bytes an element for any strides), into a ring of four buffers three
+// planes ahead, one barrier a plane. At 4->4 a block has 27,648 B of fragments and 39,168 B of planes
+// (dynamic shared memory, planned in Python as tf32_smem_bytes), two
+// blocks an SM.
+//   Bound: 3 x 48.9 GFLOP at 4->4 on the change_stride volume is 0.297 ms
+// at the 495 TFLOP/s TF32 peak, above the 0.180 ms of its bytes (one
+// float32 FMA a product on the f32 pipes, the SIMT kernel this one
+// replaced, is bound at 0.730 ms). At this N it is bound by instruction
+// throughput, as the bf16 kernel is: a warp's plane is 108 MMAs (6 k-steps x 3 cells x 2
+// column groups x 3 products) among about a thousand other instructions
+// (A loads and splits, B loads, the tap's float32 adds, the branches
+// around the MMAs of a strip's edge cells), four warps a scheduler. The
+// di loop is not unrolled (only u3 picks the cells' register slots): half
+// the build time, and no slower.
+//   Numerics: lo*lo' (~2^-22 of a product) is dropped and the tensor cores
+// read lo's top 11 bits. A plane's (one outer tap's) products start from
+// zero on the tensor cores and are added into the cells' float32 sums in
+// registers, so the tensor cores' own accumulation spans 18 MMAs at most
+// (accumulating all nine taps there erred five times more on an H100).
+// An inf or NaN in x turns the outputs beside it to NaN (its lo is NaN,
+// and a pad entry of the band is 0 * x) where the plain version's sum may
+// stay finite.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,115 +114,8 @@
 
 namespace {
 
-constexpr int TH = 16, TW = 32;  // output tile (k, l) per block
-constexpr int R = 4;             // cells per thread, consecutive in k
-constexpr int NT = TW * TH / R;  // threads per block
-
 __device__ __forceinline__ void narrow(float v, float* o) { *o = v; }
 __device__ __forceinline__ void narrow(float v, __nv_bfloat16* o) { *o = __float2bfloat16_rn(v); }
-
-struct Shape {
-  int h1, w1, h2, w2, tiles_x, tiles;
-  int64_t sn, sc, sk, sl;  // input element strides of (n, ci, k, l)
-};
-
-template <typename O, int CIN, int COUT>
-__global__ void __launch_bounds__(NT)
-conv4d_small_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, O* __restrict__ out, Shape s) {
-  __shared__ float ws[81 * CIN * COUT];
-  __shared__ float xs[CIN][TH + 2][TW + 2];
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x % s.tiles;
-  const int64_t n = blockIdx.x / s.tiles;
-  const int j = (int)(n % s.w1), i = (int)((n / s.w1) % s.h1);
-  const int k0 = (tile / s.tiles_x) * TH, l0 = (tile % s.tiles_x) * TW;
-  const int r0 = (tid / TW) * R, tx = tid % TW;
-
-  for (int e = tid; e < 81 * CIN * COUT; e += NT) ws[e] = w[e];
-
-  float acc[R][COUT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) acc[r][co] = 0.0f;
-
-  constexpr int HALO = CIN * (TH + 2) * (TW + 2);
-  for (int di = 0; di < 3; ++di) {
-    if (i + di - 1 < 0 || i + di - 1 >= s.h1) continue;
-    for (int dj = 0; dj < 3; ++dj) {
-      if (j + dj - 1 < 0 || j + dj - 1 >= s.w1) continue;
-      const float* src = x + (n + (int64_t)(di - 1) * s.w1 + (dj - 1)) * s.sn;
-      __syncthreads();  // the previous tap's reads are done (and ws is loaded)
-      for (int e = tid; e < HALO; e += NT) {
-        int ci, r, c;
-        if (s.sc == 1) {  // channels innermost in memory: ci fastest
-          ci = e % CIN;
-          c = (e / CIN) % (TW + 2);
-          r = e / (CIN * (TW + 2));
-        } else {          // planar input: l fastest
-          c = e % (TW + 2);
-          r = (e / (TW + 2)) % (TH + 2);
-          ci = e / ((TW + 2) * (TH + 2));
-        }
-        const int gk = k0 + r - 1, gl = l0 + c - 1;
-        xs[ci][r][c] = (gk >= 0 && gk < s.h2 && gl >= 0 && gl < s.w2)
-                           ? src[ci * s.sc + gk * s.sk + gl * s.sl]
-                           : 0.0f;
-      }
-      __syncthreads();
-      const float* wt = ws + (di * 3 + dj) * 9 * CIN * COUT;
-#pragma unroll
-      for (int dl = 0; dl < 3; ++dl) {
-#pragma unroll
-        for (int ci = 0; ci < CIN; ++ci) {
-          float xv[R + 2];
-#pragma unroll
-          for (int r = 0; r < R + 2; ++r) xv[r] = xs[ci][r0 + r][tx + dl];
-#pragma unroll
-          for (int dk = 0; dk < 3; ++dk) {
-            const float* wr = wt + ((dk * 3 + dl) * CIN + ci) * COUT;
-#pragma unroll
-            for (int co = 0; co < COUT; ++co) {
-              const float wv = wr[co];
-#pragma unroll
-              for (int r = 0; r < R; ++r) acc[r][co] = fmaf(xv[r + dk], wv, acc[r][co]);
-            }
-          }
-        }
-      }
-    }
-  }
-  const int l = l0 + tx;
-  const int64_t plane = (int64_t)s.h2 * s.w2;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = k0 + r0 + r;
-    if (k < s.h2 && l < s.w2) {
-      O* o = out + n * COUT * plane + (int64_t)k * s.w2 + l;
-#pragma unroll
-      for (int co = 0; co < COUT; ++co) narrow(__fadd_rn(acc[r][co], bias[co]), o + co * plane);
-    }
-  }
-}
-
-template <typename O, int CIN, int COUT>
-cudaError_t launch(const void* x, const float* w, const float* bias, void* out,
-                   int64_t cells, const Shape& s, cudaStream_t st) {
-  conv4d_small_kernel<O, CIN, COUT><<<(unsigned)(cells * s.tiles), NT, 0, st>>>(
-      (const float*)x, w, bias, (O*)out, s);
-  return cudaGetLastError();
-}
-
-template <typename O>
-cudaError_t dispatch(int cin, int cout, const void* x, const float* w, const float* bias,
-                     void* out, int64_t cells, const Shape& s, cudaStream_t st) {
-#define P2P_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return launch<O, CI, CO>(x, w, bias, out, cells, s, st);
-  P2P_CASE(3, 3) P2P_CASE(3, 4) P2P_CASE(3, 5) P2P_CASE(4, 3) P2P_CASE(4, 4) P2P_CASE(5, 3)
-#undef P2P_CASE
-  return cudaErrorInvalidValue;
-}
 
 // ------------------------------------------------- bf16: tensor cores
 
@@ -203,7 +125,8 @@ constexpr int NWARP = 8;              // warps a block, one output row pair each
 constexpr int MT = 2 * NWARP;         // output rows k of a tile
 constexpr int MW = 32;                // output columns l of a tile: two m16 groups
 constexpr int GMAX = 6;               // column groups a strip: J = 3*G - 2 cells
-constexpr int ROWS = MT + 2, COLS = MW + 2;  // the staged halo of a source plane
+constexpr int ROWS = MT + 2;          // the staged halo of a source plane
+constexpr int COLS = MW + 2;
 constexpr int PITCH = 42;             // staged positions a row (bank spread)
 constexpr int NTHREADS = 32 * NWARP;
 // staging tasks, one halo position each, and tasks a thread
@@ -464,91 +387,413 @@ cudaError_t attrs(int cin, int cout, int mode, cudaFuncAttributes* a) {
   return cudaErrorInvalidValue;
 }
 
-// Whether this input may take staging mode 1 (see above).
-inline bool channels_last4(const void* x, int cin, long long sn, long long sc, long long sk,
-                           long long sl) {
-  return ((uintptr_t)x & 7) == 0 && cin == 4 && sc == 1 && sl == 4 && sn % 4 == 0 &&
+// ------------------------------------------------- float32: 3xTF32
+
+// The float32 kernel keeps the bf16 kernel's block, strip, tile and
+// banded filter; what differs is below. A staged position holds CIN
+// words (ci fastest, not padded), PITCH_F positions a row; the planes go
+// global -> shared by cp.async, no registers between, into a ring of
+// NBUF_F buffers three planes ahead of the one read.
+constexpr int PITCH_F = 34;
+constexpr int NBUF_F = 4;
+
+template <int CIN, int COUT>
+struct DimsF {
+  static constexpr int KQ = 4 * 3 * CIN;       // K as (row r, dl, ci)
+  static constexpr int KS = (KQ + 7) / 8;      // k-steps of 8
+  static constexpr int NT = (2 * COUT + 7) / 8;
+  static constexpr int NB = 9 * KS * NT;       // B tiles: (tap, k-step, n-tile)
+  static constexpr int BUF = ROWS * PITCH_F * CIN;  // words of one staged plane
+  // dynamic shared memory: the B tiles (a lane's hi and lo words, 16
+  // bytes), then the ring of staged planes
+  static constexpr int SMEM = NB * 32 * 16 + NBUF_F * BUF * 4;
+};
+
+// x rounded to TF32 as ops/fine_stage.py tf32_split rounds it: to nearest
+// with ties away from zero, the low 13 mantissa bits zero. For finite x
+// these are cvt.rna.tf32.f32's bits, in two integer instructions where
+// the cvt takes about four (8% of the kernel's time at 4->4 on an H100). An
+// inf stays inf and a NaN leaves hi or lo NaN, so NaN reaches the output.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// c += A (16 x 8, row) * B (8 x 8, col) in TF32: the low 13 mantissa
+// bits of each operand register are not read
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// BYTES (4 or 16) from global src to shared dst; with in false nothing
+// is read and dst is zero-filled
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool in) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(in ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One block: as conv4d_small_mma_kernel. Source plane q = 3*c + di goes
+// to ring buffer q % NBUF_F, copied while planes q-3 .. q-1 are read.
+// Each A element is split in registers into hi (TF32) and lo = x - hi;
+// with the wrapper's hi and lo filter fragments every product is
+// lo*hi' + hi*lo' + hi*hi' (lo*lo', ~2^-22 of it, is dropped). A plane's
+// (outer tap's) sums for the three cells start from zero on the tensor
+// cores and are added to the cells' float32 sums in registers.
+template <typename O, int CIN, int COUT, int MODE>
+__global__ void __launch_bounds__(NTHREADS, 2)
+conv4d_small_tf32_kernel(const float* __restrict__ x, const uint4* __restrict__ frag,
+                         const float* __restrict__ bias, O* __restrict__ out, Shape s) {
+  using D = DimsF<CIN, COUT>;
+  constexpr int KS = D::KS, NTL = D::NT, NB = D::NB;
+  extern __shared__ __align__(16) uint4 smem_f[];
+  uint4* bs = smem_f;  // [NB][32]: a lane's (hi b0, hi b1, lo b0, lo b1)
+  float* xs = reinterpret_cast<float*>(smem_f + NB * 32);  // [NBUF_F][BUF]
+  const uint32_t xs_u32 = (uint32_t)__cvta_generic_to_shared(xs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int rest = blockIdx.x;
+  const int tile = rest % s.tiles;
+  rest /= s.tiles;
+  const int J = 3 * s.groups - 2;
+  const int j0 = (rest % s.strips) * J;
+  const int bi = rest / s.strips;  // b*h1 + i
+  const int i = bi % s.h1;
+  const int jend = min(j0 + J, s.w1);
+  const int k0 = (tile / s.tiles_x) * MT, l0 = (tile % s.tiles_x) * MW;
+
+  // the banded filter's B fragments, all nine taps, for the block's life
+  // (read after the first plane's barrier)
+  for (int e = tid; e < NB * 32; e += NTHREADS) bs[e] = __ldg(frag + e);
+
+  // this lane's A columns: for k-step ks, registers a[2h], a[2h+1] hold K
+  // index q = 8*ks + t + 4*h = (r*3 + dl)*CIN + ci, the word of input row
+  // r, column dl, channel ci (at A rows g and g+8); -1 past the last (zero).
+  // Where CIN is a multiple of 4, t only moves ci: the offsets are
+  // constants and t goes into the lane's base.
+  constexpr bool T_IN_BASE = CIN % 4 == 0;
+  int aoff[KS][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 8 * ks + 4 * h + (T_IN_BASE ? 0 : t), rd = q / CIN;
+      aoff[ks][h] = q < D::KQ ? ((rd / 3) * PITCH_F + rd % 3) * CIN + q % CIN : -1;
+    }
+
+  // the staging tasks of this thread, the same in every plane: for halo
+  // position (kk, cc), its offset inside a source plane (-1: zero padding)
+  // and its first word in a staged plane (-1: no task)
+  int soff[PER];
+  int sdst[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = tid + u * NTHREADS;
+    const int kk = e / COLS, cc = e % COLS;
+    const int gk = k0 + kk - 1, gl = l0 + cc - 1;
+    const bool in = e < TASKS && gk >= 0 && gk < s.h2 && gl >= 0 && gl < s.w2;
+    soff[u] = in ? gk * s.sk + gl * s.sl : -1;
+    sdst[u] = e < TASKS ? (kk * PITCH_F + cc) * CIN : -1;
+  }
+
+  float acc[3][2][NTL][4];
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][lg][nt][e] = 0.0f;
+
+  const int ncols = 3 * s.groups;
+  auto valid = [&](int c, int di) {  // uniform over the block
+    const int si = i + di - 1, sj = j0 - 1 + c;
+    return c < ncols && si >= 0 && si < s.h1 && sj >= 0 && sj < s.w1;
+  };
+  // plane q's copies as one cp.async group (empty for a plane outside the
+  // grid, which is never read); zero padding is zero-filled
+  auto copy_plane = [&](int q) {
+    const int c = q / 3, di = q - 3 * c;
+    if (valid(c, di)) {
+      const float* src = x + ((int64_t)(bi + di - 1) * s.w1 + (j0 - 1 + c)) * s.sn;
+      const uint32_t dst = xs_u32 + (uint32_t)((q % NBUF_F) * D::BUF * 4);
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        if (sdst[u] < 0) continue;
+        const bool in = soff[u] >= 0;
+        const float* pos = in ? src + soff[u] : x;
+        const uint32_t d = dst + 4u * sdst[u];
+        if (MODE == 1) {  // (ci 0..3) of one position, 16 bytes
+          cp_async<16>(d, pos, in);
+        } else {
+#pragma unroll
+          for (int ci = 0; ci < CIN; ++ci) cp_async<4>(d + 4 * ci, in ? pos + ci * s.sc : x, in);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < NBUF_F - 1; ++q) copy_plane(q);
+
+  const int krow = 2 * warp;  // the warp's first output row in the tile
+  const bool rows_in = k0 + krow < s.h2;
+  const bool right = l0 + 16 < s.w2;  // the second 16-column group, uniform
+  for (int cg = 0; cg < s.groups; ++cg) {
+#pragma unroll
+    for (int u3 = 0; u3 < 3; ++u3) {
+      const int c = 3 * cg + u3;
+      // not unrolled (see the header)
+#pragma unroll 1
+      for (int di = 0; di < 3; ++di) {
+        const int q = 3 * c + di;
+        cp_async_wait<NBUF_F - 2>();  // this thread's copies of plane q are in
+        __syncthreads();  // and everyone's; plane q-1's readers are done with its buffer
+        copy_plane(q + NBUF_F - 1);  // into plane q-1's buffer
+        if (!valid(c, di) || !rows_in) continue;
+        const float* xa = xs + (q % NBUF_F) * D::BUF + (krow * PITCH_F + g) * CIN +
+                          (T_IN_BASE ? t : 0);
+        // this outer tap's sums for the cells j0+c-dj, from zero
+        float part[3][2][NTL][4];
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+          for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[dj][lg][nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+          for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int m8 = 0; m8 < 2; ++m8) {  // A rows g, g+8: 8 positions on in l
+                const int o = aoff[ks][h];
+                const float v = o >= 0 ? xa[16 * lg * CIN + o + 8 * CIN * m8] : 0.0f;
+                const uint32_t vh = tf32_round(v);
+                hi[lg][2 * h + m8] = vh;
+                lo[lg][2 * h + m8] = __float_as_uint(__fsub_rn(v, __uint_as_float(vh)));
+              }
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj) {
+            // the strip's cell j0 + c - dj reads this plane through tap (di, dj)
+            if (c - dj < 0 || c - dj >= J || j0 + c - dj >= jend) continue;
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt) {
+              const uint4 b = bs[(((di * 3 + dj) * KS + ks) * NTL + nt) * 32 + lane];
+#pragma unroll
+              for (int lg = 0; lg < 2; ++lg) {
+                if (lg == 1 && !right) continue;
+                // the small products first
+                mma_tf32(part[dj][lg][nt], lo[lg], b.x, b.y);
+                mma_tf32(part[dj][lg][nt], hi[lg], b.z, b.w);
+                mma_tf32(part[dj][lg][nt], hi[lg], b.x, b.y);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          if (c - dj < 0 || c - dj >= J || j0 + c - dj >= jend) continue;
+          float(&c4)[2][NTL][4] = acc[(u3 - dj + 3) % 3];
+#pragma unroll
+          for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                c4[lg][nt][e] = __fadd_rn(c4[lg][nt][e], part[dj][lg][nt][e]);
+        }
+      }
+      // column c completes cell j0 + c - 2: bias, one rounding, NCHW store
+      if (c >= 2 && j0 + c - 2 < jend) {
+        const int u = (u3 + 1) % 3;  // = (c - 2) % 3
+        const int64_t plane = (int64_t)s.h2 * s.w2;
+        O* o = out + ((int64_t)bi * s.w1 + j0 + c - 2) * COUT * plane;
+#pragma unroll
+        for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+          for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int n = 8 * nt + 2 * t + (e & 1), m = g + 8 * (e >> 1);
+              const int ro = n / COUT, co = n % COUT;
+              const int k = k0 + krow + ro, l = l0 + 16 * lg + m;
+              if (n < 2 * COUT && k < s.h2 && l < s.w2)
+                narrow(__fadd_rn(acc[u][lg][nt][e], __ldg(bias + co)),
+                       o + co * plane + (int64_t)k * s.w2 + l);
+            }
+      }
+      if (c >= 2) {
+        const int u = (u3 + 1) % 3;
+#pragma unroll
+        for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+          for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[u][lg][nt][e] = 0.0f;
+      }
+    }
+  }
+}
+
+template <typename O, int CIN, int COUT, int MODE>
+cudaError_t launch_tf32(const void* x, const void* frag, const float* bias, void* out,
+                        int64_t blocks, const Shape& s, cudaStream_t st) {
+  constexpr int smem = DimsF<CIN, COUT>::SMEM;
+  static bool attr_set = false;  // once per process: two blocks an SM need the
+  if (!attr_set) {               // shared-memory carveout and, above 48 KB, the size
+    cudaError_t rc = cudaFuncSetAttribute(conv4d_small_tf32_kernel<O, CIN, COUT, MODE>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc == cudaSuccess)
+      rc = cudaFuncSetAttribute(conv4d_small_tf32_kernel<O, CIN, COUT, MODE>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+    if (rc != cudaSuccess) return rc;
+    attr_set = true;
+  }
+  conv4d_small_tf32_kernel<O, CIN, COUT, MODE><<<(unsigned)blocks, NTHREADS, smem, st>>>(
+      (const float*)x, (const uint4*)frag, bias, (O*)out, s);
+  return cudaGetLastError();
+}
+
+template <typename O>
+cudaError_t dispatch_tf32(int cin, int cout, int mode, const void* x, const void* frag,
+                          const float* bias, void* out, int64_t blocks, const Shape& s,
+                          cudaStream_t st) {
+#define P2P_CASE(CI, CO, M)                   \
+  if (cin == CI && cout == CO && mode == M) \
+    return launch_tf32<O, CI, CO, M>(x, frag, bias, out, blocks, s, st);
+  P2P_MMA_CASES(P2P_CASE)
+#undef P2P_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <typename O>
+cudaError_t attrs_tf32(int cin, int cout, int mode, cudaFuncAttributes* a, int* dyn) {
+#define P2P_CASE(CI, CO, M)                                                     \
+  if (cin == CI && cout == CO && mode == M) {                                   \
+    *dyn = DimsF<CI, CO>::SMEM;                                                 \
+    return cudaFuncGetAttributes(a, conv4d_small_tf32_kernel<O, CI, CO, M>);  \
+  }
+  P2P_MMA_CASES(P2P_CASE)
+#undef P2P_CASE
+  return cudaErrorInvalidValue;
+}
+
+// Whether this input may take staging mode 1 (see above): channels-last
+// CIN 4, a position of 4 elements ``align`` bytes aligned.
+inline bool channels_last4(const void* x, int align, int cin, long long sn, long long sc,
+                           long long sk, long long sl) {
+  return ((uintptr_t)x % align) == 0 && cin == 4 && sc == 1 && sl == 4 && sn % 4 == 0 &&
          sk % 4 == 0;
 }
 
-}  // namespace mma
-
-}  // namespace
-
-// x: input read at element offset n*sn + ci*sc + k*sk + l*sl for flat
-// cell n = (b*h1 + i)*w1 + j; w: (3,3,3,3,cin,cout) float32 contiguous;
-// bias: (cout,) float32; out: (B*h1*w1, cout, h2, w2) contiguous. cin and
-// cout > 2 with cin*cout <= 16. dtype/odtype: 0 = float32, 1 = bfloat16;
-// this entry takes float32 x only (bf16 goes to p2p_conv4d_small_mma).
-// Returns a cudaError_t.
-extern "C" int p2p_conv4d_small(const void* x, const void* w, const void* bias, void* out,
-                                int batch, int h1, int w1, int h2, int w2, int cin,
-                                int cout, long long sn, long long sc, long long sk,
-                                long long sl, int dtype, int odtype, void* stream) {
-  if (batch <= 0 || h1 <= 0 || w1 <= 0 || h2 <= 0 || w2 <= 0) return (int)cudaErrorInvalidValue;
-  Shape s;
-  s.h1 = h1;
-  s.w1 = w1;
-  s.h2 = h2;
-  s.w2 = w2;
-  s.tiles_x = (w2 + TW - 1) / TW;
-  s.tiles = s.tiles_x * ((h2 + TH - 1) / TH);
-  s.sn = sn;
-  s.sc = sc;
-  s.sk = sk;
-  s.sl = sl;
-  const int64_t cells = (int64_t)batch * h1 * w1;
-  if (cells * s.tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const float* wf = (const float*)w;
-  const float* bf = (const float*)bias;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && odtype == 1)
-    return (int)dispatch<__nv_bfloat16>(cin, cout, x, wf, bf, out, cells, s, st);
-  if (dtype == 0 && odtype == 0)
-    return (int)dispatch<float>(cin, cout, x, wf, bf, out, cells, s, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The bf16 kernel: x as above, bfloat16 (dtype 1); frag: the banded
-// filter's B fragments, int32 (9, KS, NT, 2, 32) from ops/conv4d_small.py
-// mma_fragments; bias and out as above; mode: the staging (0 any strides,
-// 1 channels-last CIN 4, refused where x is not so). Returns a cudaError_t.
-extern "C" int p2p_conv4d_small_mma(const void* x, const void* frag, const void* bias,
-                                    void* out, int batch, int h1, int w1, int h2, int w2,
-                                    int cin, int cout, long long sn, long long sc,
-                                    long long sk, long long sl, int dtype, int odtype,
-                                    int mode, void* stream) {
-  if (dtype != 1 || batch <= 0 || h1 <= 0 || w1 <= 0 || h2 <= 0 || w2 <= 0 ||
-      (mode != 0 && !(mode == 1 && mma::channels_last4(x, cin, sn, sc, sk, sl))))
-    return (int)cudaErrorInvalidValue;
-  mma::Shape s;
+// Both kernels' launch geometry in s; the block count, or -1 where the
+// shape or strides are refused.
+inline int64_t plan(Shape& s, int batch, int h1, int w1, int h2, int w2, int cin, long long sn,
+                    long long sc, long long sk, long long sl) {
+  if (batch <= 0 || h1 <= 0 || w1 <= 0 || h2 <= 0 || w2 <= 0) return -1;
   s.h1 = h1;
   s.w1 = w1;
   s.h2 = h2;
   s.w2 = w2;
   // strips of J = 3*groups - 2 cells: 16 where w1 allows, fewer for a
   // narrow w1 (one cell at w1 = 1)
-  s.groups = min(mma::GMAX, (w1 + 4) / 3);
+  s.groups = min(GMAX, (w1 + 4) / 3);
   const int J = 3 * s.groups - 2;
   s.strips = (w1 + J - 1) / J;
-  s.tiles_x = (w2 + mma::MW - 1) / mma::MW;
-  s.tiles = s.tiles_x * ((h2 + mma::MT - 1) / mma::MT);
+  s.tiles_x = (w2 + MW - 1) / MW;
+  s.tiles = s.tiles_x * ((h2 + MT - 1) / MT);
   s.sn = sn;
-  // offsets inside a cell are 32-bit in the kernel
+  // offsets inside a cell are 32-bit in the kernels
   if (sc < 0 || sk < 0 || sl < 0 ||
       (cin - 1) * sc + (h2 - 1) * sk + (w2 - 1) * sl > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+    return -1;
   s.sc = (int)sc;
   s.sk = (int)sk;
   s.sl = (int)sl;
   const int64_t blocks = (int64_t)batch * h1 * s.strips * s.tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
+}  // namespace mma
+
+}  // namespace
+
+// Both entry points: x read at element offset n*sn + ci*sc + k*sk + l*sl
+// for flat cell n = (b*h1 + i)*w1 + j; bias: (cout,) float32; out: (B*h1*w1,
+// cout, h2, w2) contiguous, float32 (odtype 0) or bfloat16 (odtype 1). cin
+// and cout > 2 with cin*cout <= 16. mode: the staging (0 any strides, 1
+// channels-last CIN 4, refused where x is not so). Each returns a
+// cudaError_t.
+
+// The bf16 kernel: x bfloat16 (dtype 1); frag: the banded filter's B
+// fragments, int32 (9, KS, NT, 2, 32) from ops/conv4d_small.py
+// mma_fragments.
+extern "C" int p2p_conv4d_small_mma(const void* x, const void* frag, const void* bias,
+                                    void* out, int batch, int h1, int w1, int h2, int w2,
+                                    int cin, int cout, long long sn, long long sc,
+                                    long long sk, long long sl, int dtype, int odtype,
+                                    int mode, void* stream) {
+  if (dtype != 1 || (mode != 0 && !(mode == 1 && mma::channels_last4(x, 8, cin, sn, sc, sk, sl))))
+    return (int)cudaErrorInvalidValue;
+  mma::Shape s;
+  const int64_t blocks = mma::plan(s, batch, h1, w1, h2, w2, cin, sn, sc, sk, sl);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
   const float* bf = (const float*)bias;
   cudaStream_t st = (cudaStream_t)stream;
   if (odtype == 1)
     return (int)mma::dispatch<__nv_bfloat16>(cin, cout, mode, x, frag, bf, out, blocks, s, st);
   if (odtype == 0)
     return (int)mma::dispatch<float>(cin, cout, mode, x, frag, bf, out, blocks, s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float32 kernel: x float32 (dtype 0); frag: the banded filter's hi
+// and lo B fragments, float32 (9, KS, NT, 32, 4) from ops/conv4d_small.py
+// tf32_fragments.
+extern "C" int p2p_conv4d_small_tf32(const void* x, const void* frag, const void* bias,
+                                     void* out, int batch, int h1, int w1, int h2, int w2,
+                                     int cin, int cout, long long sn, long long sc,
+                                     long long sk, long long sl, int dtype, int odtype,
+                                     int mode, void* stream) {
+  if (dtype != 0 ||
+      (mode != 0 && !(mode == 1 && mma::channels_last4(x, 16, cin, sn, sc, sk, sl))))
+    return (int)cudaErrorInvalidValue;
+  mma::Shape s;
+  const int64_t blocks = mma::plan(s, batch, h1, w1, h2, w2, cin, sn, sc, sk, sl);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const float* bf = (const float*)bias;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (odtype == 1)
+    return (int)mma::dispatch_tf32<__nv_bfloat16>(cin, cout, mode, x, frag, bf, out, blocks,
+                                                  s, st);
+  if (odtype == 0)
+    return (int)mma::dispatch_tf32<float>(cin, cout, mode, x, frag, bf, out, blocks, s, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -562,6 +807,24 @@ extern "C" int p2p_conv4d_small_mma_attrs(int cin, int cout, int odtype, int mod
   if (rc != cudaSuccess) return (int)rc;
   *(int*)regs = a.numRegs;
   *(int*)smem = (int)a.sharedSizeBytes;
+  *(int*)local = (int)a.localSizeBytes;
+  return 0;
+}
+
+// The same for the float32 kernel, and the dynamic shared memory it
+// launches with.
+extern "C" int p2p_conv4d_small_tf32_attrs(int cin, int cout, int odtype, int mode,
+                                           void* regs, void* smem, void* dyn_smem,
+                                           void* local) {
+  cudaFuncAttributes a;
+  int dyn = 0;
+  const cudaError_t rc = odtype == 1
+                             ? mma::attrs_tf32<__nv_bfloat16>(cin, cout, mode, &a, &dyn)
+                             : mma::attrs_tf32<float>(cin, cout, mode, &a, &dyn);
+  if (rc != cudaSuccess) return (int)rc;
+  *(int*)regs = a.numRegs;
+  *(int*)smem = (int)a.sharedSizeBytes;
+  *(int*)dyn_smem = dyn;
   *(int*)local = (int)a.localSizeBytes;
   return 0;
 }

@@ -14,17 +14,23 @@ given. On CUDA tensors the forward launches ``csrc/conv4d.cu``, on CPU
 tensors it runs :func:`conv4d_small_plain`. The two add the 81*cin
 products in different orders, so they agree to float32 rounding.
 
-Two kernels, by x's dtype. bfloat16 runs on the tensor cores
-(``mma.sync.m16n8k16``): for each outer tap (di, dj) the (dk, dl, ci) ->
-co contraction of two output rows is one product with a banded filter,
+Two kernels, by x's dtype, both on the tensor cores with one design: for
+each outer tap (di, dj) the (dk, dl, ci) -> co contraction of two output
+rows is one product with a banded filter,
 ``B[tap][(r, dl, ci), (ro, co)] = w[di, dj, r - ro, dl, ci, co]`` for
 0 <= r - ro <= 2 (r one of the four input rows k-1 .. k+2 under output
-rows k, k+1), else 0. :func:`band_index` and :func:`banded_filter` build
-it and :func:`mma_fragments` lays it out as the kernel's B fragments;
-all three run here, so the CPU tests hold the packing, as they hold
-:func:`staging_mode`, the wrapper's choice of how the kernel loads the
-input's planes. float32 runs on a SIMT kernel (its 1e-4 rule leaves no
-room for TF32).
+rows k, k+1), else 0. bfloat16 runs it on ``mma.sync.m16n8k16`` with the
+channels paired; float32 on ``mma.sync.m16n8k8`` in TF32, each float32
+product formed from three TF32 products (3xTF32: both operands split by
+``ops.fine_stage.tf32_split``, the filter here once a call, the input in
+the kernel's registers), which keeps the float32 rule of 1e-4 with
+room (a single TF32 product would miss it). :func:`band_index` and
+:func:`banded_filter` build the band; :func:`mma_fragments` (bf16) and
+:func:`tf32_fragments` (float32, hi and lo) lay it out as the kernels' B
+fragments; all run here, so the CPU tests hold the packing, as they
+hold :func:`staging_mode`, the wrapper's choice of how the kernel loads
+the input's planes, and :func:`tf32_smem_bytes`, the float32 kernel's
+shared-memory plan.
 
 Differentiable: the backward is the JAX custom VJP's
 (``conv4d_pallas.py:268-302``) in plain PyTorch — dx is the conv4d of g
@@ -44,29 +50,46 @@ from patch2pix_tpu_torch.ops import _build
 
 K = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"p2p_conv4d_small": "ppppiiiiiiilllliip",
-               "p2p_conv4d_small_mma": "ppppiiiiiiilllliiip",
-               "p2p_conv4d_small_mma_attrs": "iiiippp"}
+_SIGNATURES = {"p2p_conv4d_small_mma": "ppppiiiiiiilllliiip",
+               "p2p_conv4d_small_tf32": "ppppiiiiiiilllliiip",
+               "p2p_conv4d_small_mma_attrs": "iiiippp",
+               "p2p_conv4d_small_tf32_attrs": "iiiipppp"}
 ROWS_IN = 4  # input rows k-1 .. k+2 under the output row pair (k, k+1)
+# the float32 kernel's shared-memory plan, csrc/conv4d.cu's constants (a
+# CPU test holds the two together): a staged plane is ROWS input rows of
+# PITCH_F positions of cin words, in a ring of NBUF_F planes
+TF32_PLAN = {"ROWS": 18, "PITCH_F": 34, "NBUF_F": 4}
 
 
-def mma_dims(cin, cout):
-    """(channels padded to even, k-steps of 16, n-tiles of 8) of the
-    banded filter: K = (4 rows, 3 dl, padded channels), N = (2 rows,
-    cout), each padded to the m16n8k16 tile."""
-    cinp = cin + cin % 2
-    return cinp, -(-ROWS_IN * K * cinp // 16), -(-2 * cout // 8)
+def mma_dims(cin, cout, pairs=True):
+    """(channels as staged, k-steps, n-tiles of 8) of the banded filter:
+    K = (4 rows, 3 dl, channels), N = (2 rows, cout), each padded to the
+    MMA tile. bf16 (``pairs``) pairs the channels (cin padded to even)
+    in k-steps of 16 (m16n8k16); float32 keeps cin in k-steps of 8
+    (m16n8k8 TF32)."""
+    cinp, depth = (cin + cin % 2, 16) if pairs else (cin, 8)
+    return cinp, -(-ROWS_IN * K * cinp // depth), -(-2 * cout // 8)
+
+
+def tf32_smem_bytes(cin, cout):
+    """Dynamic shared memory a block of the float32 kernel launches with:
+    the hi and lo B tiles of all nine taps (16 bytes a lane), then the
+    ring of staged planes."""
+    _, ks, nt = mma_dims(cin, cout, pairs=False)
+    p = TF32_PLAN
+    return 9 * ks * nt * 32 * 16 + p["NBUF_F"] * p["ROWS"] * p["PITCH_F"] * cin * 4
 
 
 @functools.lru_cache(maxsize=None)
-def band_index(cin, cout):
-    """int64 ``(9, KS * 16, NT * 8)``: for each outer tap di*3 + dj and
-    entry ``((r * 3 + dl) * cinp + ci, ro * cout + co)`` of the banded
-    filter, its flat index in ``w.reshape(-1)`` (``w`` of shape (3, 3, 3,
-    3, cin, cout)), that of ``w[di, dj, r - ro, dl, ci, co]``, or -1 where
-    the entry is zero (outside the band, a pad channel, row or column)."""
-    cinp, ks, nt = mma_dims(cin, cout)
-    idx = np.full((K * K, ks * 16, nt * 8), -1, np.int64)
+def band_index(cin, cout, pairs=True):
+    """int64 ``(9, KS * depth, NT * 8)`` (:func:`mma_dims`): for each
+    outer tap di*3 + dj and entry ``((r * 3 + dl) * cinp + ci, ro * cout
+    + co)`` of the banded filter, its flat index in ``w.reshape(-1)``
+    (``w`` of shape (3, 3, 3, 3, cin, cout)), that of ``w[di, dj, r - ro,
+    dl, ci, co]``, or -1 where the entry is zero (outside the band, a pad
+    channel, row or column)."""
+    cinp, ks, nt = mma_dims(cin, cout, pairs)
+    idx = np.full((K * K, ks * (16 if pairs else 8), nt * 8), -1, np.int64)
     flat = np.arange(K ** 4 * cin * cout).reshape(K * K, K, K, cin, cout)
     for r in range(ROWS_IN):
         for ro in range(2):
@@ -78,16 +101,16 @@ def band_index(cin, cout):
     return idx
 
 
-_BAND_INDEX = {}  # (cin, cout, device) -> band_index on that device
+_BAND_INDEX = {}  # (cin, cout, pairs, device) -> band_index on that device
 
 
-def banded_filter(w):
-    """``(3, 3, 3, 3, cin, cout)`` -> the banded filter ``(9, KS * 16,
+def banded_filter(w, pairs=True):
+    """``(3, 3, 3, 3, cin, cout)`` -> the banded filter ``(9, KS * depth,
     NT * 8)`` of :func:`band_index`, in w's dtype."""
-    key = (w.shape[4], w.shape[5], w.device)
+    key = (w.shape[4], w.shape[5], pairs, w.device)
     idx = _BAND_INDEX.get(key)
     if idx is None:  # one host-to-device copy per shape and device
-        idx = _BAND_INDEX[key] = torch.from_numpy(band_index(*key[:2])).to(w.device)
+        idx = _BAND_INDEX[key] = torch.from_numpy(band_index(*key[:3])).to(w.device)
     return torch.cat([w.reshape(-1), w.new_zeros(1)])[idx]
 
 
@@ -103,16 +126,35 @@ def mma_fragments(band):
     return f.view(torch.int32).reshape(taps, ks, nt, 2, 32)
 
 
+def tf32_fragments(band):
+    """float32 banded filter ``(9, KS * 8, NT * 8)`` -> the float32
+    kernel's B fragments, float32 ``(9, KS, NT, 32, 4)``: lane 4 * g + t
+    holds ``hi`` at rows ``ks * 8 + t`` and ``+ 4`` of column ``nt * 8 +
+    g`` (the m16n8k8 TF32 B registers b0, b1), then ``lo`` at the same
+    two, for :func:`..fine_stage.tf32_split`'s ``(hi, lo)``."""
+    # imported here: ops.fine_stage imports the models, whose NCN imports this module
+    from patch2pix_tpu_torch.ops.fine_stage import tf32_split
+
+    taps, kp, npad = band.shape
+    ks, nt = kp // 8, npad // 8
+    parts = []
+    for p in tf32_split(band.float()):
+        f = p.reshape(taps, ks, 2, 4, nt, 8)  # (., ks, j, t, nt, g)
+        parts.append(f.permute(0, 1, 4, 5, 3, 2).reshape(taps, ks, nt, 32, 2))
+    return torch.cat(parts, dim=-1).contiguous()
+
+
 def staging_mode(x):
-    """How the bf16 kernel stages the planes of x ``(B, h1, w1, h2, w2,
-    Cin)``, whose cells share one stride: 1 (one 8-byte load a position)
-    where x is channels-last with Cin 4 (ci contiguous, l stride 4, the j
-    and k strides multiples of 4, 8-byte aligned), as the volume the NCN's
-    fold-in leaves on the card; else 0 (any strides, one 2-byte load an
+    """How the kernel stages the planes of x ``(B, h1, w1, h2, w2, Cin)``,
+    whose cells share one stride: 1 (one load a position: 8 bytes in
+    bf16, 16 in float32) where x is channels-last with Cin 4 (ci
+    contiguous, l stride 4, the j and k strides multiples of 4, a
+    position's 4 elements aligned to their size), as the volume the NCN's
+    fold-in leaves on the card; else 0 (any strides, one load an
     element)."""
     _, _, sj, sk, sl, sc = x.stride()
     cl4 = (x.shape[5] == 4 and sc == 1 and sl == 4 and sj % 4 == 0 and sk % 4 == 0
-           and x.data_ptr() % 8 == 0)
+           and x.data_ptr() % (4 * x.element_size()) == 0)
     return int(cl4)
 
 
@@ -151,14 +193,14 @@ def _launch(x, w, b, out_dtype):
         x = x.contiguous()
         sb, si, sj, sk, sl, sc = x.stride()
     mma = x.dtype == torch.bfloat16
-    mode = staging_mode(x) if mma else 0
+    mode = staging_mode(x)
+    # the banded filter as the kernel's B fragments, from any filter
+    # layout (a permuted one from the transposed branch): bf16 9 * KS * NT
+    # * 256 B; float32 its TF32 hi and lo, 9 * KS * NT * 512 B
     if mma:
-        # bf16: the banded filter as B fragments (9 * KS * NT * 256 B);
-        # any filter layout in (a permuted one from the transposed branch)
         wf = mma_fragments(banded_filter(w.to(torch.bfloat16)))
     else:
-        # float32: the filter handed over contiguous (<= 5 KB)
-        wf = w.float().contiguous()
+        wf = tf32_fragments(banded_filter(w.float(), pairs=False))
     bias = (torch.zeros(cout, dtype=torch.float32, device=dev) if b is None
             else b.float().contiguous())
     # written NCHW per cell, (B*h1*w1, Cout, h2, w2), the layout the
@@ -168,11 +210,11 @@ def _launch(x, w, b, out_dtype):
     args = (x.data_ptr(), wf.data_ptr(), bias.data_ptr(), out.data_ptr(),
             bs, h1, w1, h2, w2, cin, cout, sj, sc, sk, sl, _DTYPES[x.dtype], _DTYPES[odt])
     stream = _build.current_stream(dev)
-    rc = (lib.p2p_conv4d_small_mma(*args, mode, stream) if mma
-          else lib.p2p_conv4d_small(*args, stream))
-    _build.check_launch(rc, "conv4d_small")
+    entry = lib.p2p_conv4d_small_mma if mma else lib.p2p_conv4d_small_tf32
+    _build.check_launch(entry(*args, mode, stream), "conv4d_small")
     conv4d_small.launches += 1
     conv4d_small.mma_launches += mma
+    conv4d_small.tf32_launches += not mma
     conv4d_small.channels_last_launches += mode
     return out.view(bs, h1, w1, cout, h2, w2).permute(0, 1, 2, 4, 5, 3)
 
@@ -221,5 +263,6 @@ def conv4d_small(x, w, b=None, out_dtype=None):
 
 
 conv4d_small.launches = 0
-conv4d_small.mma_launches = 0  # of those, the bf16 tensor-core kernel's
+conv4d_small.mma_launches = 0  # of those, the bf16 kernel's (m16n8k16)
+conv4d_small.tf32_launches = 0  # of those, the float32 kernel's (3xTF32 m16n8k8)
 conv4d_small.channels_last_launches = 0  # of those, staging channels-last Cin 4

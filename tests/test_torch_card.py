@@ -18,8 +18,9 @@ pixels whose inverse norm rounds to the neighbouring bf16 value (one in
 10^4 at most; chip_smoke's ``expand_bf16_mismatch``), with corners
 aligned to the cells and not, negative and at the superblock's edge, M
 from 1, psize 6, 8 and 16, and rows off a 16-byte boundary; conv4d_small
-(bf16 input on its tensor-core kernel, at ragged tiles and strips, h1 or
-w1 of 1, odd h2, both input layouts, with and without bias) float32
+(bf16 input on its m16n8k16 kernel, float32 on its 3xTF32 m16n8k8 one,
+at ragged tiles and strips, h1 or w1 of 1, odd h2, both input layouts,
+with and without bias) float32
 atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
 cancels to near zero keeps the float32 rounding of its terms), its backward
 through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
@@ -292,15 +293,17 @@ def test_conv4d_small_matches_plain(cuda, cin, cout, dtype, odtype, dims, with_b
     # NCHW-per-cell view
     nchw = x.reshape(-1, *dims[3:], cin).permute(0, 3, 1, 2).contiguous()
     nchw = nchw.reshape(*dims[:3], cin, *dims[3:]).permute(0, 1, 2, 4, 5, 3)
-    # bf16 channels-last Cin 4 is staged a position at a time (8-byte loads)
-    cl4 = int(dtype == torch.bfloat16 and cin == 4)
+    # channels-last Cin 4 is staged a position at a time (8-byte loads in
+    # bf16, 16-byte cp.async in float32)
+    cl4 = int(cin == 4)
     for xin, mode in ((x, cl4), (nchw, 0)):
         n0, m0 = conv4d_small.launches, conv4d_small.mma_launches
-        p0 = conv4d_small.channels_last_launches
+        t0, p0 = conv4d_small.tf32_launches, conv4d_small.channels_last_launches
         got = conv4d_small(xin, w, b, odtype)
         assert conv4d_small.launches == n0 + 1
-        # bf16 input goes through the tensor-core kernel, float32 the SIMT one
+        # bf16 input goes through the m16n8k16 kernel, float32 the 3xTF32 one
         assert conv4d_small.mma_launches == m0 + (dtype == torch.bfloat16)
+        assert conv4d_small.tf32_launches == t0 + (dtype == torch.float32)
         assert conv4d_small.channels_last_launches == p0 + mode
         want = conv4d_small_plain(x, w, b, odtype)
         assert got.dtype == want.dtype and got.shape == want.shape
@@ -311,15 +314,18 @@ def test_conv4d_small_matches_plain(cuda, cin, cout, dtype, odtype, dims, with_b
 
 
 def test_conv4d_small_backward_matches_cpu(cuda):
+    """The forward on the card runs float32 through the 3xTF32 kernel."""
     rs = _rs(6)
     x, w, b = (rs.standard_normal(s).astype(np.float32) * sc for s, sc in
                (((1, 4, 5, 6, 4, 4), 1.0), ((3, 3, 3, 3, 4, 3), 0.1), ((3,), 1.0)))
     g = torch.from_numpy(rs.standard_normal((1, 4, 5, 6, 4, 3)).astype(np.float32))
     grads = []
+    t0 = conv4d_small.tf32_launches
     for dev in ("cpu", cuda):
         ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (x, w, b)]
         conv4d_small(*ts).backward(g.to(dev))
         grads.append([t.grad.cpu() for t in ts])
+    assert conv4d_small.tf32_launches == t0 + 1
     for got, want in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 

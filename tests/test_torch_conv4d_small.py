@@ -5,7 +5,13 @@ On the CPU ``conv4d_small`` runs its plain version; it is held against
 kernel's banded filter (``banded_filter``) multiplied out over im2col'd
 rows, as the kernel multiplies it, is held to both in float32 to 1e-5,
 and its B fragments (``mma_fragments``) to the m16n8k16 register layout
-bit for bit.
+bit for bit. The float32 kernel's unpaired band, multiplied out as
+three TF32 products a product (``tf32_split``'s parts, lo read as the
+tensor cores read it) and summed per outer tap in float32, is held to
+both to 1e-5, where one TF32 product misses; its hi and lo fragments
+(``tf32_fragments``) to the m16n8k8 TF32 register layout bit for bit;
+its shared-memory plan (``TF32_PLAN``, ``tf32_smem_bytes``) to the
+constants of ``csrc/conv4d.cu``.
 Tolerances: float32 atol 1e-4 (the 81*cin products summed in another
 order; the JAX interpret tests use the same bound); bf16 output within
 one bf16 ulp (the float32 sums round either way of a bf16 midpoint);
@@ -14,6 +20,8 @@ only on a CUDA card: tests/test_torch_card.py.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,14 +36,19 @@ from patch2pix_tpu.ops.conv4d_pallas import conv4d_pallas
 from patch2pix_tpu_torch.models.ncn import NeighConsensus
 from patch2pix_tpu_torch.ops.conv4d import conv4d, conv4d_route, conv4d_transpose_symmetric
 from patch2pix_tpu_torch.ops.conv4d_small import (
+    TF32_PLAN,
     banded_filter,
     conv4d_small,
     conv4d_small_plain,
     mma_dims,
     mma_fragments,
     staging_mode,
+    tf32_fragments,
+    tf32_smem_bytes,
 )
+from patch2pix_tpu_torch.ops.fine_stage import tf32_split
 from patch2pix_tpu_torch.utils.jax_import import ncn_state_dict_from_jax
+from tests.test_torch_fine_stage import _cu_constants
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
 
 # the package re-exports a function named conv4d over the module
@@ -162,14 +175,16 @@ def test_ncn_441_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-def _band_conv(x, w, b):
-    """The bf16 kernel's arithmetic in float32: for each outer tap, the
-    im2col'd rows (4 input rows, 3 dl, channels padded) of every output
-    row pair (k, k+1) and 16 columns l, times the banded filter."""
+def _band_conv(x, w, b, pairs=True, product=torch.matmul):
+    """The kernels' arithmetic in float32: for each outer tap, the
+    im2col'd rows (4 input rows, 3 dl, channels: padded to even where the
+    bf16 kernel ``pairs`` them) of every output row pair (k, k+1) and 16
+    columns l, times the banded filter by ``product``; the taps' sums
+    added in float32."""
     bs, h1, w1, h2, w2, cin = x.shape
     cout = w.shape[-1]
-    cinp, ks, _ = mma_dims(cin, cout)
-    band = banded_filter(w)
+    cinp, ks, _ = mma_dims(cin, cout, pairs)
+    band = banded_filter(w, pairs)
     h2p = h2 + h2 % 2  # an odd h2 cuts the last row pair
     xp = F.pad(x, (0, cinp - cin, 1, 1, 1, 1 + h2p - h2, 1, 1, 1, 1))
     acc = 0
@@ -179,8 +194,8 @@ def _band_conv(x, w, b):
         a = torch.stack([torch.stack([src[:, :, :, r:r + h2p:2, dl:dl + w2] for dl in range(3)],
                                      dim=-2) for r in range(4)], dim=-3)
         a = a.reshape(bs, h1, w1, h2p // 2, w2, 12 * cinp)
-        a = F.pad(a, (0, 16 * ks - 12 * cinp))
-        acc = acc + torch.matmul(a, band[tap])[..., :2 * cout]
+        a = F.pad(a, (0, band.shape[1] - 12 * cinp))
+        acc = acc + product(a, band[tap])[..., :2 * cout]
     out = acc.reshape(bs, h1, w1, h2p // 2, w2, 2, cout).permute(0, 1, 2, 3, 5, 4, 6)
     return out.reshape(bs, h1, w1, h2p, w2, cout)[:, :, :, :h2] + b
 
@@ -213,6 +228,97 @@ def test_mma_fragments_follow_the_register_layout(cin, cout):
     np.testing.assert_array_equal(frag >> 16, bits[tap, k + 1, n])
 
 
+def _tf32(x):
+    """x as the tensor cores read a float32 register for a TF32 product:
+    the 13 low mantissa bits cut."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _three_tf32(a, b):
+    """The float32 kernel's product: A split in registers, the band by
+    the wrapper, lo*hi' + hi*lo' + hi*hi' summed in float32."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (torch.matmul(_tf32(a_lo), b_hi) + torch.matmul(a_hi, _tf32(b_lo))
+            + torch.matmul(a_hi, b_hi))
+
+
+def _one_tf32(a, b):
+    return torch.matmul(tf32_split(a)[0], tf32_split(b)[0])
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3)])
+def test_3xtf32_band_matches_plain_and_pallas(cin, cout):
+    """The float32 kernel's arithmetic on the unpaired band (K 40 / 48 /
+    64 for cin 3 / 4 / 5), odd h2: within 1e-5 of the plain version and
+    of the Pallas kernel, ten times inside the card's 1e-4 rule."""
+    dims = (1, 3, 4, 5, 6)
+    x, w, b = _inputs(cin * 10 + cout + 1, dims, cin, cout)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    got = _band_conv(xt, wt, bt, pairs=False, product=_three_tf32).numpy()
+    assert got.shape == dims + (cout,)
+    np.testing.assert_allclose(got, conv4d_small_plain(xt, wt, bt).numpy(), rtol=0, atol=1e-5)
+    pallas = conv4d_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3)])
+def test_one_tf32_product_misses_the_float32_rule(cin, cout):
+    """Why three: on the same inputs one TF32 product (hi*hi') errs
+    beyond 1e-5, tens of times more than three."""
+    x, w, b = _inputs(cin * 10 + cout + 1, (1, 3, 4, 5, 6), cin, cout)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    want = conv4d_small_plain(xt, wt, bt)
+    one = (_band_conv(xt, wt, bt, pairs=False, product=_one_tf32) - want).abs().max().item()
+    three = (_band_conv(xt, wt, bt, pairs=False, product=_three_tf32)
+             - want).abs().max().item()
+    assert one > max(1e-5, 20 * three), (one, three)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3)])
+def test_tf32_fragments_follow_the_register_layout(cin, cout):
+    """mma.sync m16n8k8 TF32 B: lane 4g + t holds b0 = (row 8ks + t, column
+    8nt + g) and b1 = (row 8ks + t + 4, same column), hi then lo."""
+    _, w, _ = _inputs(cin + cout, (1,), cin, cout)
+    band = banded_filter(torch.from_numpy(w), pairs=False)
+    assert band.shape[1:] == ({3: 40, 4: 48, 5: 64}[cin], 16 if cout > 4 else 8)
+    hi, lo = (p.view(torch.int32).numpy() for p in tf32_split(band))
+    frag = tf32_fragments(band)
+    assert frag.dtype == torch.float32 and frag.is_contiguous()
+    frag = frag.view(torch.int32).numpy()
+    tap, ks, nt, lane, word = np.indices(frag.shape)
+    k = 8 * ks + lane % 4 + 4 * (word % 2)
+    n = 8 * nt + lane // 4
+    np.testing.assert_array_equal(frag, np.where(word < 2, hi[tap, k, n], lo[tap, k, n]))
+
+
+def test_tf32_plan_matches_the_kernels_constants():
+    """TF32_PLAN and tf32_smem_bytes against csrc/conv4d.cu: the staged
+    plane's rows and pitch, the ring, and DimsF's shared memory for every
+    instance the kernel is built for (its formula evaluated here), which
+    leaves room for two blocks an SM (228 KB, 1 KB of it reserved a
+    block) and 16-byte aligned planes."""
+    path = Path(conv4d_small.__code__.co_filename).parents[1] / "csrc" / "conv4d.cu"
+    src, k = path.read_text(), _cu_constants(path)
+    assert TF32_PLAN == {name: k[name] for name in TF32_PLAN}
+    assert k["ROWS"] == k["MT"] + 2 and k["PITCH_F"] >= k["COLS"] == k["MW"] + 2
+    body = re.search(r"struct DimsF \{(.*?)\};", src, re.S).group(1)
+    dims = re.findall(r"static constexpr int (\w+) = ([^;]+);", body)
+    cases = re.findall(r"F\((\d), (\d), (\d)\)", re.search(
+        r"#define P2P_MMA_CASES\(F\)(.*?)\n\n", src, re.S).group(1))
+    assert sorted({(int(a), int(b)) for a, b, _ in cases}) == [
+        (3, 3), (3, 4), (3, 5), (4, 3), (4, 4), (5, 3)]
+    for cin, cout, _ in cases:
+        env = {**k, "CIN": int(cin), "COUT": int(cout)}
+        for name, expr in dims:
+            env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+        smem = tf32_smem_bytes(int(cin), int(cout))
+        assert env["SMEM"] == smem
+        assert (env["KS"], env["NT"]) == mma_dims(int(cin), int(cout), pairs=False)[1:]
+        assert 2 * (smem + 1024) <= 233472 and env["NB"] * 512 % 16 == 0
+    assert tf32_smem_bytes(4, 4) == 27648 + 39168
+
+
 def _nchw_view(x):
     """The NCHW-per-cell view of x (B, h1, w1, h2, w2, C): planar per cell
     in memory, channels-last in shape."""
@@ -228,12 +334,32 @@ def _nchw_view(x):
     ("nchw", 4, 0),            # the NCHW-per-cell view: one 2-byte load an element
 ])
 def test_staging_mode(layout, cin, mode):
+    assert staging_mode(_staged(layout, cin, torch.bfloat16)) == mode
+
+
+def _staged(layout, cin, dtype):
+    """A (1, 2, 3, 4, 6, cin) input in ``layout``; "offset": bf16 2 bytes
+    past an 8-byte boundary, float32 8 bytes past a 16-byte one."""
     dims = (1, 2, 3, 4, 6)
-    x = torch.zeros(dims + (cin,), dtype=torch.bfloat16)
+    x = torch.zeros(dims + (cin,), dtype=dtype)
     if layout == "nchw":
         x = _nchw_view(x)
     elif layout == "offset":
-        base = torch.zeros(x.numel() + 8, dtype=torch.bfloat16)
-        off = (-base.data_ptr() % 8) // 2 + 1  # elements: 2 bytes past a boundary
+        size = x.element_size()
+        base = torch.zeros(x.numel() + 8, dtype=dtype)
+        off = (-base.data_ptr() % (4 * size)) // size + (1 if size == 2 else 2)
         x = base[off:off + x.numel()].view(x.shape)
+    return x
+
+
+@pytest.mark.parametrize("layout,cin,mode", [
+    ("channels_last", 4, 1),   # the fold-in's volume: one 16-byte load a position
+    ("channels_last", 3, 0),   # 12-byte positions
+    ("offset", 4, 0),          # 8 bytes off a 16-byte boundary (bf16's rule would take it)
+    ("nchw", 4, 0),            # the NCHW-per-cell view: one 4-byte load an element
+])
+def test_staging_mode_float32(layout, cin, mode):
+    x = _staged(layout, cin, torch.float32)
+    if layout == "offset":
+        assert x.data_ptr() % 16 == 8
     assert staging_mode(x) == mode
