@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # phases 1-17 on one card
     python3 chip_smoke.py --cards 4    # phase 1, then phase 18 on 4 cards
+    python3 chip_smoke.py --cards 2    # the same on 2 cards (two hosts of one)
 
 Phases, each fatal on failure:
 
@@ -250,10 +251,38 @@ Phases, each fatal on failure:
      collectives per LM iteration (k = 6 minus k = 2) beside a group of
      rank 0 alone; then the scale demo with ``--mesh N`` at its defaults
      by phase 14's rules; (e) the training CLI with ``--mesh N`` (phase
-     10's fixture and setting, 1 epoch of 3 steps, the validation on):
+     10's fixture and setting, 1 epoch of 1 step, the validation on):
      ``Mesh:`` in the log, ``last.pt`` and ``immatch_best``, no failed
      validation pair, frozen tensors bit-identical to the ``.pth``, every
-     tensor and epoch loss finite; (f) ``parallel.dryrun.dryrun_multichip(N)``
+     tensor and epoch loss finite; (g1) and (g2) the multi-host entry
+     points, the N cards split into two hosts of N / 2 by
+     ``CUDA_VISIBLE_DEVICES`` (``--cards 2``: hosts of one card; at
+     ``--cards 1`` they print that and run nothing), every process of
+     theirs ended at ``MULTI_TIMEOUT`` or as soon as one of them fails,
+     a free port picked by binding to port 0 (once more on another where
+     it was taken), each rank printing its host, global rank, card
+     (``cuda:i`` of its visible cards and the physical index) and
+     launches, and no two ranks on one card: (g1) the training CLI under
+     a two-node ``torchrun`` (two ``python -m torch.distributed.run
+     --nnodes 2 --nproc-per-node N/2 --node-rank k`` launchers, static
+     rendezvous at 127.0.0.1, each in a working directory of its own;
+     each rank runs ``train.cli.main`` with (e)'s argv and ``--no_eval``
+     as ``python -m patch2pix_tpu_torch.train.cli`` would, through
+     ``chip_smoke.py --cli-rank``, which adds phase 18's group timeout and
+     the rank's report): ``Mesh: N-rank data parallel`` in the log, node
+     0's rank 0 alone writing the run directory, B1 and B3 launched on
+     every rank, ``last.pt`` held to (e)'s by
+     ``tests/test_torch_train_cli.py::test_cli_mesh2_equals_mesh1``'s rule
+     (metrics rtol 1e-5, gradients from Adam's first moment within 1e-4
+     of the largest, Adam's bound, running averages rtol 1e-5, frozen
+     tensors bit-identical), and whether every tensor is ``torch.equal``
+     to (e)'s; (g2) ``initialize_multihost("127.0.0.1:P", N, rank)`` and
+     ``make_mesh(N)`` in N processes (``chip_smoke.py --tcp-rank``; no
+     ``LOCAL_RANK``, so each rank takes its rank modulo its host's cards):
+     ``BatchedMatcher`` in f32 on 8 of (b)'s pairs (4 at 1024x768, 4 at
+     640x480) at per_chip_batch 1, both strides, by (b)'s rules, B1-B3
+     launched on every rank;
+     (f) ``parallel.dryrun.dryrun_multichip(N)``
      and its ``[dryrun]`` lines, each rank on its own card. It ends with
      the result line, ``count`` the cards driven.
 
@@ -271,12 +300,15 @@ checkout; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import importlib
 import json
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -370,6 +402,8 @@ from patch2pix_tpu_torch.parallel import volume_sharding as volume_sharding_modu
 from patch2pix_tpu_torch.parallel.comm_stats import format_comm_table, record_collectives
 from patch2pix_tpu_torch.parallel.dryrun import dryrun_multichip
 from patch2pix_tpu_torch.parallel.mesh import (
+    abort_process_group,
+    initialize_multihost,
     make_mesh,
     process_group,
     shard_batch,
@@ -1995,12 +2029,12 @@ def split_line(epochs):
         for i, e in enumerate(epochs))
 
 
-def cli_argv(fixture, out_dir, epochs, *extra):
+def cli_argv(fixture, out_dir, epochs, *extra, steps=CLI_STEPS):
     data_root, pair_root, npy, _ = fixture
     return ["--data_root", data_root, "--pair_root", pair_root, "--match_npy", npy,
             "--out_dir", out_dir, "--change_stride", "--batch", str(TRAIN_BATCH), "--ptmax",
             str(PTMAX), "--ksize", "2", "--dtype", "bfloat16", "--no_eval", "--epochs",
-            str(epochs), "--steps_per_epoch", str(CLI_STEPS), *extra]
+            str(epochs), "--steps_per_epoch", str(steps), *extra]
 
 
 def epoch_seconds(run_dir):
@@ -3459,33 +3493,46 @@ def multi_train(rank, n, dev, mesh, sd):
             f"training pairs/s")
 
 
+def batched_parity(tag, rank, n, dev, mesh, sd, cs, pairs, sizes, per_chip_batch=None):
+    """(b)'s f32 rules for ``BatchedMatcher`` over ``mesh`` on ``pairs``
+    (``sizes``: how many at which size, as text; ``per_chip_batch``:
+    ``BatchedMatcher``'s, its default where None):
+    every pair equals ``Matcher.estimate_matches`` on rank 0's card by the
+    goldens' rules, nothing is recorded but the results' final
+    ``all_gather_object``, and B1-B3 launch on every rank."""
+    kw = dict(ksize=2, io_thres=0.25, imsize=1024, fine_cap=FINE_CAP)
+    model = build_model(cs, sd, "float32", dev)
+    bm = BatchedMatcher(model, mesh=mesh, per_chip_batch=per_chip_batch, **kw)
+    reset_counts()
+    with record_collectives() as comm:
+        out = bm.match_pairs(pairs)
+    gather_only(tag, comm, n)
+    every = rank_launches(tag, ("tap_sum", "corr_pool", "expand_scale_pair"))
+
+    def parity():
+        matcher = Matcher(model, device=dev, **kw)
+        return [hold_pair_parity(f"{tag} f32 pair {i}", got, matcher.estimate_matches(*pair))
+                for i, (got, pair) in enumerate(zip(out, pairs))]
+
+    errs = solo(rank, parity)
+    if rank == 0 and errs:
+        log(f"{tag} [f32, TF32 off, imsize 1024, per_chip_batch {bm.per_chip_batch}, "
+            f"{len(pairs)} pairs: {sizes}]: every pair equals Matcher.estimate_matches on "
+            f"rank 0's card (rows " + " ".join(str(e[0]) for e in errs) + f"; max coord err "
+            f"{max(e[1] for e in errs):.3g} px, max score err {max(e[2] for e in errs):.3g}"
+            f"); nothing recorded while matching, then the results' "
+            f"{format_comm_table(comm)}; launches per rank {every}")
+    del model, bm, out
+    torch.cuda.empty_cache()
+
+
 def multi_batched(rank, n, dev, mesh, sd, pairs):
     """Phase 18 (b): ``BatchedMatcher`` on ``MULTI_PAIRS`` over the ranks."""
     kw = dict(ksize=2, io_thres=0.25, imsize=1024, fine_cap=FINE_CAP)
     sizes = " and ".join(f"{c} at {w}x{h}" for w, h, c in MULTI_PAIRS)
     for cs in (True, False):
         tag = f"multi batched {'change_stride' if cs else 'upsample 16'} [world {n}]"
-        model = build_model(cs, sd, "float32", dev)
-        bm = BatchedMatcher(model, mesh=mesh, **kw)
-        with record_collectives() as comm:
-            out = bm.match_pairs(pairs)
-        gather_only(tag, comm, n)
-
-        def parity():
-            matcher = Matcher(model, device=dev, **kw)
-            return [hold_pair_parity(f"{tag} f32 pair {i}", got, matcher.estimate_matches(*pair))
-                    for i, (got, pair) in enumerate(zip(out, pairs))]
-
-        errs = solo(rank, parity)
-        if rank == 0 and errs:
-            log(f"{tag} [f32, TF32 off, imsize 1024, per_chip_batch {bm.per_chip_batch}, "
-                f"{len(pairs)} pairs: {sizes}]: every pair equals Matcher.estimate_matches on "
-                f"card 0 (rows " + " ".join(str(e[0]) for e in errs) + f"; max coord err "
-                f"{max(e[1] for e in errs):.3g} px, max score err {max(e[2] for e in errs):.3g}"
-                f"); nothing recorded while matching, then the results' "
-                f"{format_comm_table(comm)}")
-        del model, bm, out
-        torch.cuda.empty_cache()
+        batched_parity(tag, rank, n, dev, mesh, sd, cs, pairs, sizes)
 
         model = build_model(cs, sd, "bfloat16", dev)
 
@@ -3685,7 +3732,8 @@ def multi_rank(rank, n, store, pairs, t_spawn):
 
 def multi_cli(n):
     """Phase 18 (e): the training CLI with ``--mesh n``, phase 10's
-    fixture and setting, one epoch of 3 steps and its validation."""
+    fixture and setting, one epoch of one step and its validation.
+    Returns the run directory and the argv, which (g1) repeats."""
     root = os.path.join(MULTI_DIR, "cli")
     fixture = write_megadepth_fixture(os.path.join(root, "fixture"), CLI_PAIRS, TRAIN_H,
                                       TRAIN_W, seed=0)
@@ -3695,7 +3743,8 @@ def multi_cli(n):
     torch.save({"state_dict": pre}, pth)
     write_val_dense_fixture(os.path.join(fixture[0], "immatch_benchmark", "val_dense"), 2, H,
                             W, seed=1)
-    argv = cli_argv(fixture, os.path.join(root, "out"), 1, "--pretrain", pth, "--mesh", str(n))
+    argv = cli_argv(fixture, os.path.join(root, "out"), 1, "--pretrain", pth, "--mesh", str(n),
+                    steps=1)
     argv.remove("--no_eval")
     t0 = time.perf_counter()
     run = train_cli.main(argv, group_timeout=MULTI_TIMEOUT)
@@ -3717,17 +3766,18 @@ def multi_cli(n):
     with open(os.path.join(run, "metrics.jsonl")) as f:
         means = json.loads(f.readlines()[-1])
     losses = {k: v for k, v in means.items() if k.startswith("loss")}
-    if (changed or bad or ckpt["step"] != CLI_STEPS or not losses
+    if (changed or bad or ckpt["step"] != 1 or not losses
             or not all(np.isfinite(v) for v in losses.values())):
         fail(f"multi cli --mesh {n}: frozen tensors changed {changed}, non-finite {bad}, "
              f"step {ckpt['step']}, losses {losses}")
     log(f"multi cli [train.cli.main --mesh {n}, phase 10's setting and fixture, batch "
-        f"{TRAIN_BATCH} ({TRAIN_BATCH // n} a rank), 1 epoch x {CLI_STEPS} steps, the "
+        f"{TRAIN_BATCH} ({TRAIN_BATCH // n} a rank), 1 epoch x 1 step, the "
         f"immatch validation on 2 pairs at {W}x{H}]: {secs:.1f} s in all (ranks spawned, the "
         f"protocol {float(pairs.group(1)):.2f} s on rank 0); every rank passed the epoch's "
         f"barrier; rank 0 wrote last.pt (step {ckpt['step']}) and immatch_best; "
         f"{len(frozen)} frozen tensors bit-identical to the .pth, every tensor finite; epoch "
         f"means " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
+    return run, argv
 
 
 def multi_dryrun(n):
@@ -3741,6 +3791,284 @@ def multi_dryrun(n):
                                          for m, v in out["ba"].items())
         + "; wall s from the spawn to each stage's end on rank 0: "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+
+
+# (g): the multi-host entry points, the cards split into two hosts of n / 2
+# by CUDA_VISIBLE_DEVICES. (g2)'s pairs: (b)'s first 4 at the main path's
+# size and its 4 at 640x480
+TCP_PAIRS = os.path.join(MULTI_DIR, "tcp_pairs.json")
+TCP_SIZES = f"4 at {W}x{H} and 4 at 640x480"
+# the variables of a torchrun rank, which no process of (g) inherits
+RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+            "MASTER_ADDR", "MASTER_PORT", "TORCHELASTIC_RUN_ID")
+
+
+def host_cards(n):
+    """The physical cards of each of two hosts of ``n // 2`` cards."""
+    return [list(range(n // 2)), list(range(n // 2, n))]
+
+
+def host_env(cards):
+    env = {k: v for k, v in os.environ.items() if k not in RANK_ENV}
+    env["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, cards))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    return env
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listened on a moment ago."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_hosts(tag, make_specs):
+    """Run the processes ``make_specs(port)`` gives ([(argv, env, cwd),
+    ...]) at once, each in a session of its own, on a free port; returns
+    their outputs. When one exits non-zero, or ``MULTI_TIMEOUT`` passes,
+    every session still running (a launcher and its ranks) is killed and
+    the phase fails; a port found taken is given up for another once."""
+    for attempt in range(2):
+        specs = make_specs(free_port())
+        logs = [os.path.join(MULTI_DIR, f"{tag}.{i}.log") for i in range(len(specs))]
+        procs = []
+        for (argv, env, cwd), path in zip(specs, logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(argv, env=env, cwd=cwd, stdout=f,
+                                              stderr=subprocess.STDOUT, start_new_session=True))
+        deadline = time.monotonic() + MULTI_TIMEOUT.total_seconds()
+        try:
+            while True:
+                codes = [p.poll() for p in procs]
+                if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
+                    break
+                if all(c == 0 for c in codes):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        texts = []
+        for path in logs:
+            with open(path) as f:
+                texts.append(f.read())
+        if all(c == 0 for c in codes):
+            return texts
+        taken = any("address already in use" in t.lower() for t in texts)
+        if attempt or not taken:
+            fail(f"{tag}: exit codes {codes} (None: killed after one failed or at "
+                 f"MULTI_TIMEOUT); the tail of each process's output:\n"
+                 + "\n".join(f"--- {i}:\n{t[-3000:]}" for i, t in enumerate(texts)))
+        log(f"{tag}: port taken, again on another")
+
+
+def rank_lines(texts):
+    """Each rank's report: the JSON after ``multi rank report `` in the
+    outputs, by global rank."""
+    out = {}
+    for t in texts:
+        for m in re.finditer(r"^multi rank report (\{.*\})$", t, re.M):
+            r = json.loads(m.group(1))
+            out[r["rank"]] = r
+    return dict(sorted(out.items()))
+
+
+def report_ranks(tag, n, reports, need):
+    """Log each rank's host, global rank and physical card; fail unless
+    the n ranks each reported once, on n distinct cards, and each
+    launched every kernel of ``need``. Returns the spread of the ranks'
+    start and of their join, in s."""
+    for r in reports.values():
+        log(f"{tag} host {r['host']} rank {r['rank']}: cuda:{r['index']} of "
+            f"CUDA_VISIBLE_DEVICES={r['visible']} -> physical card {r['card']}, {r['name']}; "
+            f"wall s from the launch: up {r['up']:.1f}, joined {r['joined']:.1f}, done "
+            f"{r['done']:.1f}; launches {r['launches']}")
+    cards = [r["card"] for r in reports.values()]
+    if list(reports) != list(range(n)) or len(set(cards)) != n:
+        fail(f"{tag}: ranks {list(reports)} on physical cards {cards}; ranks 0-{n - 1} on "
+             f"{n} cards expected")
+    short = {r["rank"]: r["launches"] for r in reports.values()
+             if not all(r["launches"].get(k, 0) > 0 for k in need)}
+    if short:
+        fail(f"{tag}: {need} must launch on every rank; launches {short}")
+    return tuple(max(r[k] for r in reports.values()) - min(r[k] for r in reports.values())
+                 for k in ("up", "joined"))
+
+
+def rank_report(host, rank, t_launch, marks):
+    """Print this rank's line for :func:`rank_lines`."""
+    index = torch.cuda.current_device()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+    print("multi rank report " + json.dumps({
+        "host": host, "rank": rank, "index": index, "visible": visible,
+        "card": int(visible.split(",")[index]), "name": torch.cuda.get_device_name(index),
+        "launches": {k: v for k, v in counts().items() if v},
+        **{k: v - t_launch for k, v in marks.items()}}), flush=True)
+
+
+def tcp_rank(host, rank, n, address, t_launch):
+    """(g2) one rank, a process of its own on its host's cards (no
+    ``LOCAL_RANK``): ``initialize_multihost`` over TCP, ``make_mesh(n)``
+    (``rank_device``'s card: the rank modulo the visible cards), then
+    (b)'s f32 rules on ``TCP_PAIRS``, both strides."""
+    marks = {"up": time.time()}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, sd = load_golden("cs_1024")
+    with open(TCP_PAIRS) as f:
+        pairs = [tuple(p) for p in json.load(f)]
+    initialize_multihost(address, n, rank, timeout=MULTI_TIMEOUT)
+    try:
+        mesh = make_mesh(n)
+        marks["joined"] = time.time()
+        for cs in (True, False):
+            tag = (f"multi tcp batched {'change_stride' if cs else 'upsample 16'} [world {n}, "
+                   f"2 hosts]")
+            # one pair a rank a call: each bucket has work for every rank
+            batched_parity(tag, rank, n, mesh.device, mesh, sd, cs, pairs, TCP_SIZES,
+                           per_chip_batch=1)
+        marks["done"] = time.time()
+        rank_report(host, rank, t_launch, marks)
+    except BaseException:
+        abort_process_group()
+        raise
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_tcp(n, pairs):
+    """Phase 18 (g2): ``initialize_multihost`` over TCP, n ranks as
+    processes of two hosts."""
+    tag = f"multi tcp [world {n}, 2 hosts]"
+    with open(TCP_PAIRS, "w") as f:
+        json.dump(pairs[:4] + pairs[MULTI_PAIRS[0][2]:][:4], f)
+    cards = host_cards(n)
+    t_launch = time.time()
+
+    def specs(port):
+        return [([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tcp-rank", str(k),
+                  str(k * len(cards[0]) + i), str(n), f"127.0.0.1:{port}", str(t_launch)],
+                 host_env(cards[k]), ROOT)
+                for k in range(2) for i in range(len(cards[k]))]
+
+    texts = run_hosts("tcp", specs)
+    for t in texts:  # rank 0's results
+        for line in t.splitlines():
+            if line.startswith("multi tcp batched"):
+                log(line)
+    spread = report_ranks(tag, n, rank_lines(texts), ("tap_sum", "corr_pool",
+                                                      "expand_scale_pair"))
+    log(f"{tag}: hosts {cards} by CUDA_VISIBLE_DEVICES, initialize_multihost over "
+        f"tcp://127.0.0.1 (NCCL), make_mesh({n}); the ranks started within {spread[0]:.1f} s "
+        f"and joined within {spread[1]:.1f} s of each other")
+
+
+def cli_rank(t_launch, argv):
+    """(g1) one torchrun rank: ``train.cli.main(argv)`` as ``python -m
+    patch2pix_tpu_torch.train.cli`` runs it, with phase 18's group
+    timeout, then its report (host: torchrun's node rank)."""
+    marks = {"up": time.time()}
+    join = train_cli.initialize_multihost
+
+    def timed_join(*a, **kw):
+        join(*a, **kw)
+        marks["joined"] = time.time()
+
+    train_cli.initialize_multihost = timed_join
+    train_cli.main(argv, group_timeout=MULTI_TIMEOUT)
+    marks["done"] = time.time()
+    rank_report(int(os.environ["GROUP_RANK"]), int(os.environ["RANK"]), t_launch, marks)
+    return 0
+
+
+def hold_cli_run(tag, got_dir, want_dir, argv):
+    """``tests/test_torch_train_cli.py::test_cli_mesh2_equals_mesh1``'s
+    rule for two runs of one step: the step count, the metrics line (rtol
+    1e-5, atol 1e-6), the gradients (Adam's first moment over 0.1) within
+    1e-4 of the largest, the parameters within Adam's bound, running
+    averages rtol 1e-5 (atol 1e-6), frozen tensors bit-identical. Returns
+    the largest errors and whether every tensor is ``torch.equal``."""
+    got, want = checkpoint_model(got_dir), checkpoint_model(want_dir)
+    met = []
+    for d in (got_dir, want_dir):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            met.append(json.loads(f.read()))
+    off = {k: (met[0].get(k), v) for k, v in met[1].items() if not isinstance(v, str)
+           and not abs(met[0].get(k, np.inf) - v) <= 1e-6 + 1e-5 * abs(v)}
+    cfg = train_cli.build_configs(train_cli.parse_args(argv))[0]
+    names = [k for k, _ in Patch2Pix(cfg, device="cpu").named_parameters()
+             if k.startswith("regress_")]
+    grads = [{k: s["exp_avg"] / 0.1 for k, s in zip(names, ck["optimizer"]["state"].values())}
+             for ck in (got, want)]
+    scale = max(float(g.abs().max()) for g in grads[1].values())
+    errs = {"grad / largest": max(float((grads[0][k] - grads[1][k]).abs().max())
+                                  for k in names) / scale,
+            "Adam excess": max(adam_step_excess(got["model"][k], want["model"][k], grads[0][k],
+                                                grads[1][k]) for k in names)}
+    running = [k for k in want["model"] if "running" in k]
+    errs["running abs"] = max(float((got["model"][k] - want["model"][k]).abs().max())
+                              for k in running)
+    far = [k for k in running if not torch.allclose(got["model"][k], want["model"][k],
+                                                    rtol=1e-5, atol=1e-6)]
+    changed = [k for k in want["model"] if k.startswith(("extract.", "ncn."))
+               and "running" not in k and not torch.equal(got["model"][k], want["model"][k])]
+    if (got["step"] != want["step"] or off or met[0].keys() != met[1].keys()
+            or errs["grad / largest"] > 1e-4 or errs["Adam excess"] > 0 or far or changed):
+        fail(f"{tag}: steps {got['step']} / {want['step']}, {errs}; metrics off (got, want) "
+             f"{off}; running averages off {far}; frozen tensors changed {changed}")
+    equal = (all(torch.equal(got["model"][k], v) for k, v in want["model"].items())
+             and all(torch.equal(got["optimizer"]["state"][i][k], v)
+                     for i, st in want["optimizer"]["state"].items() for k, v in st.items()))
+    return errs, equal
+
+
+def multi_torchrun(n, e_run, e_argv):
+    """Phase 18 (g1): the training CLI under a two-node ``torchrun``, (e)'s
+    argv with ``--no_eval``, held to (e)'s run."""
+    tag = f"multi torchrun [world {n}, 2 nodes]"
+    cards = host_cards(n)
+    root = os.path.join(MULTI_DIR, "torchrun")
+    argv = list(e_argv)
+    argv[argv.index("--out_dir") + 1] = "out"  # each host's own directory
+    argv.append("--no_eval")
+    hosts = [os.path.join(root, f"host{k}") for k in range(2)]
+    for h in hosts:
+        os.makedirs(h)
+    t_launch = time.time()
+
+    def specs(port):
+        return [([sys.executable, "-m", "torch.distributed.run", "--nnodes", "2",
+                  "--nproc-per-node", str(len(cards[k])), "--node-rank", str(k),
+                  "--master-addr", "127.0.0.1", "--master-port", str(port),
+                  os.path.join(ROOT, "chip_smoke.py"), "--cli-rank", str(t_launch), *argv],
+                 host_env(cards[k]), hosts[k])
+                for k in range(2)]
+
+    t0 = time.perf_counter()
+    texts = run_hosts("torchrun", specs)
+    secs = time.perf_counter() - t0
+    run = os.path.join(hosts[0], train_cli.run_dir_tags(train_cli.parse_args(argv)))
+    with open(os.path.join(run, "log.txt")) as f:
+        text = f.read()
+    if (f"Mesh: {n}-rank data parallel" not in text or "Finished" not in text
+            or os.path.exists(os.path.join(hosts[1], "out"))):
+        fail(f"{tag}: node 1 wrote {os.path.exists(os.path.join(hosts[1], 'out'))}; log:\n"
+             + text[-2000:])
+    spread = report_ranks(tag, n, rank_lines(texts), ("tap_sum", "expand_scale_pair"))
+    errs, equal = hold_cli_run(tag, run, e_run, argv)
+    log(f"{tag} [python -m torch.distributed.run --nnodes 2 --nproc-per-node {n // 2}, static "
+        f"rendezvous at 127.0.0.1, hosts {cards} by CUDA_VISIBLE_DEVICES; train.cli.main with "
+        f"(e)'s argv and --no_eval, --mesh {n}]: {secs:.1f} s from the launch to both "
+        f"launchers' exit, the ranks started within {spread[0]:.1f} s and joined within "
+        f"{spread[1]:.1f} s of each other; 'Mesh: "
+        f"{n}-rank data parallel' in the log; node 0's rank 0 alone wrote the run directory; "
+        f"last.pt against (e)'s by test_cli_mesh2_equals_mesh1's rule: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (rules: gradients within 1e-4 of the largest, Adam's bound <= 0, running "
+        f"averages rtol 1e-5, metrics rtol 1e-5, frozen tensors bit-identical); every tensor "
+        f"and moment torch.equal to (e)'s: {equal}")
 
 
 def multi_card_main(n):
@@ -3768,9 +4096,15 @@ def multi_card_main(n):
                                               args=(multi_rank, n, store, pairs, t_spawn),
                                               nprocs=n, join=True, start_method="spawn")
         log(f"multi spawn: every rank joined {time.time() - t_spawn:.1f} s after the spawn")
+        e_run = []
         for part, run in (("d, the scale demo",
                            lambda: sfm_demo_path(mesh=n, group_timeout=MULTI_TIMEOUT)),
-                          ("e", lambda: multi_cli(n)), ("f", lambda: multi_dryrun(n))):
+                          ("e", lambda: e_run.extend(multi_cli(n))),
+                          ("g1", lambda: multi_torchrun(n, *e_run)),
+                          ("g2", lambda: multi_tcp(n, pairs)), ("f", lambda: multi_dryrun(n))):
+            if part.startswith("g") and n < 2:
+                log(f"multi part ({part}): two hosts need two cards; not run at --cards {n}")
+                continue
             t0 = time.perf_counter()
             run()
             log(f"multi part ({part}): {time.perf_counter() - t0:.1f} s")
@@ -3788,6 +4122,10 @@ def parse_args(argv=None):
     ap.add_argument("--cards", type=int, default=None,
                     help="phase 1, then phase 18 alone on this many cards (1 rehearses it "
                     "at world size 1 on one card)")
+    # phase 18 (g)'s rank processes
+    ap.add_argument("--tcp-rank", nargs=5, metavar=("HOST", "RANK", "WORLD", "ADDRESS", "T0"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--cli-rank", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.cards is not None and args.cards < 1:
         ap.error("--cards N takes N >= 1")
@@ -3816,6 +4154,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 2
+    if args.tcp_rank:
+        host, rank, world, address, t0 = args.tcp_rank
+        return tcp_rank(int(host), int(rank), int(world), address, float(t0))
+    if args.cli_rank:  # as (e)'s spawned ranks run: torch's default TF32 settings
+        return cli_rank(float(args.cli_rank[0]), args.cli_rank[1:])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.cards is not None:

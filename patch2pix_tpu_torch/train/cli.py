@@ -20,14 +20,18 @@ there is logged (``Failed to eval immatch``) and training goes on, as in
 JAX.
 
 ``--mesh N`` trains data-parallel over N ranks with the step over a
-mesh (``train/step.make_train_step(..., mesh=)``): it joins a ``torchrun``-style
-environment (``WORLD_SIZE`` = N, ``RANK``, ``LOCAL_RANK``,
-``MASTER_ADDR``/``MASTER_PORT``) through
-``parallel.mesh.initialize_multihost``, or else spawns N ranks from a
-``file://`` store, one card each (gloo processes with ``--device cpu``).
-``--mesh 0`` is every visible card, 1 on the CPU. It raises at start-up
-when N exceeds the cards or does not divide ``--batch``. Every rank reads
-the same global batch order and takes its rows; rank 0 alone writes the
+mesh (``train/step.make_train_step(..., mesh=)``). Under ``torchrun``
+(``RANK`` and ``WORLD_SIZE`` set; ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` too) every rank joins the job's group through
+``parallel.mesh.initialize_multihost``, on its host's card ``LOCAL_RANK``:
+the mesh is the job's world, across hosts too, so ``--mesh 0`` is
+``WORLD_SIZE`` and another N raises. A rank of such a job never spawns
+ranks of its own. Otherwise ``--mesh N`` spawns N ranks from a
+``file://`` store, one card each (gloo processes with ``--device cpu``),
+and ``--mesh 0`` is every visible card, 1 on the CPU. It raises at
+start-up when N exceeds this host's cards or does not divide
+``--batch``. Every rank reads the same global batch order and takes its
+rows; rank 0 alone writes the
 checkpoints, metrics and log, and runs the validation, while the other
 ranks wait at a barrier at the epoch's end. The process group's timeout,
 ``GROUP_TIMEOUT`` (``main(..., group_timeout=)``), bounds that wait.
@@ -50,6 +54,7 @@ from patch2pix_tpu_torch.data.megadepth import MegaDepthPairDataset, batch_itera
 from patch2pix_tpu_torch.data.prefetch import prefetch_to_device
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.parallel.mesh import (
+    abort_process_group,
     initialize_multihost,
     make_mesh,
     process_group,
@@ -194,13 +199,34 @@ def build_configs(args):
 GROUP_TIMEOUT = timedelta(hours=6)
 
 
+def torchrun_world():
+    """``WORLD_SIZE`` where this process is a rank of a ``torchrun`` job
+    (``RANK`` and ``WORLD_SIZE`` set), else None."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return None
+
+
 def mesh_size(args, device) -> int:
-    """The ranks ``--mesh`` asks for (0: every visible card, 1 on the
-    CPU); raises when they exceed the cards or do not divide ``--batch``."""
+    """The ranks ``--mesh`` asks for. Under ``torchrun`` the mesh is the
+    job's world, which may span hosts: ``--mesh 0`` is ``WORLD_SIZE``,
+    and another N than ``WORLD_SIZE`` raises, as does a ``LOCAL_RANK``
+    beyond this host's cards. Otherwise 0 is every visible card (1 on
+    the CPU), and N may not exceed them. Raises too where N does not
+    divide ``--batch``."""
     cards = torch.cuda.device_count() if device.type == "cuda" else None
-    n = args.mesh or (cards or 1)
-    if cards is not None and n > cards:
-        raise ValueError(f"--mesh {n}: {cards} CUDA card(s) visible")
+    world = torchrun_world()
+    if world is not None:
+        n = args.mesh or world
+        if n != world:
+            raise ValueError(f"--mesh {n} under torchrun: WORLD_SIZE {world}")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        if cards is not None and local >= cards:
+            raise ValueError(f"LOCAL_RANK {local}: {cards} CUDA card(s) visible")
+    else:
+        n = args.mesh or (cards or 1)
+        if cards is not None and n > cards:
+            raise ValueError(f"--mesh {n}: {cards} CUDA card(s) visible")
     if args.batch % n:
         raise ValueError(f"--mesh {n} does not divide --batch {args.batch}")
     return n
@@ -270,16 +296,19 @@ def main(argv=None, group_timeout: timedelta = GROUP_TIMEOUT) -> str:
     if n == 1:
         return train(args, device)
     backend = "nccl" if device.type == "cuda" else "gloo"
-    if int(os.environ.get("WORLD_SIZE", "1")) == n and "RANK" in os.environ:
+    if torchrun_world() is not None:
         if device.type == "cuda":
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
             torch.cuda.set_device(device)
         initialize_multihost(None, n, int(os.environ["RANK"]), backend=backend,
                              timeout=group_timeout)
         try:
-            return train(args, device, make_mesh(n, device=device))
-        finally:
-            torch.distributed.destroy_process_group()
+            run = train(args, device, make_mesh(n, device=device))
+        except BaseException:
+            abort_process_group()
+            raise
+        torch.distributed.destroy_process_group()
+        return run
     with tempfile.TemporaryDirectory() as store:
         torch.multiprocessing.start_processes(
             spawned_rank, args=(_rank_main, n, backend, store, args, group_timeout), nprocs=n,

@@ -244,18 +244,20 @@ def test_cli_validates_each_epoch(tmp_path):
             == open(os.path.join(plain, "metrics.jsonl")).read())
 
 
-def test_cli_mesh2_equals_mesh1(tmp_path):
+def assert_runs_close(got_dir, want_dir):
+    """The checkpoint in ``got_dir`` against the one in ``want_dir``, both
+    after one step (so their Adam state holds the gradient): the step
+    count and metrics line equal (rtol 1e-5), the gradients within 1e-4
+    of the largest, the parameters within the difference those gradients
+    make to Adam's first step, running averages rtol 1e-5, frozen weights
+    equal."""
     from tests.test_torch_train import assert_adam_step_close
 
-    fixture = write_megadepth_fixture(str(tmp_path / "fx"), 2, 64, 96, seed=7)
-    runs = {n: cli.main(_cli_args(fixture, str(tmp_path / f"m{n}"), 1, "--mesh", str(n),
-                                  "--steps_per_epoch", "1"))
-            for n in (1, 2)}
-    assert "Mesh: 2-rank data parallel" in open(os.path.join(runs[2], "log.txt")).read()
-    got, want = (torch.load(os.path.join(runs[n], "last.pt"), weights_only=True)
-                 for n in (2, 1))
+    got, want = (torch.load(os.path.join(d, "last.pt"), weights_only=True)
+                 for d in (got_dir, want_dir))
     assert got["step"] == want["step"] == 1
-    met = [json.loads(open(os.path.join(runs[n], "metrics.jsonl")).read()) for n in (2, 1)]
+    met = [json.loads(open(os.path.join(d, "metrics.jsonl")).read())
+           for d in (got_dir, want_dir)]
     assert met[0].keys() == met[1].keys()
     for k, v in met[1].items():
         if not isinstance(v, str):
@@ -277,6 +279,15 @@ def test_cli_mesh2_equals_mesh1(tmp_path):
                                        atol=1e-6, err_msg=k)
         elif k.startswith(("extract.", "ncn.")):
             assert torch.equal(got["model"][k], v), k
+
+
+def test_cli_mesh2_equals_mesh1(tmp_path):
+    fixture = write_megadepth_fixture(str(tmp_path / "fx"), 2, 64, 96, seed=7)
+    runs = {n: cli.main(_cli_args(fixture, str(tmp_path / f"m{n}"), 1, "--mesh", str(n),
+                                  "--steps_per_epoch", "1"))
+            for n in (1, 2)}
+    assert "Mesh: 2-rank data parallel" in open(os.path.join(runs[2], "log.txt")).read()
+    assert_runs_close(runs[2], runs[1])
 
 
 def test_cli_mesh2_validates_each_epoch(tmp_path):
