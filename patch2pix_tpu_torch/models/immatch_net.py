@@ -36,6 +36,7 @@ from patch2pix_tpu_torch.ops.correlation import (
     maxpool4d,
     mutual_matching,
 )
+from patch2pix_tpu_torch.utils import profiling
 
 TRUNKS = ("vgg", "resnet101", "resnet34", "densenet201")
 
@@ -72,20 +73,22 @@ class ImMatchNet(nn.Module):
         self.normalize_features = normalize_features
         self.relocalization_k_size = relocalization_k_size
         self.dtype = dtype
-        if cnn == "vgg":
-            self.FeatureExtraction = FeatureExtraction(
-                VGG16Features(last_layer or "pool4", dtype, device))
-        elif cnn in ("resnet101", "ResNet101", "resnet34", "ResNet34"):
-            key = "ResNet101" if "101" in cnn else "ResNet34"
-            self.extract = BACKBONES[key](False, dtype, device)
-        elif cnn == "densenet201":
-            self.FeatureExtraction = FeatureExtraction(DenseNetFeatures(dtype=dtype,
-                                                                        device=device))
-        else:
-            raise ValueError(f"unsupported feature_extraction_cnn {cnn!r}; "
-                             f"available: {', '.join(TRUNKS)}")
-        self.NeighConsensus = NeighConsensus(tuple(ncons_kernel_sizes), tuple(ncons_channels),
-                                             dtype=dtype, device=device)
+        with profiling.span("setup.construct"):
+            if cnn == "vgg":
+                self.FeatureExtraction = FeatureExtraction(
+                    VGG16Features(last_layer or "pool4", dtype, device))
+            elif cnn in ("resnet101", "ResNet101", "resnet34", "ResNet34"):
+                key = "ResNet101" if "101" in cnn else "ResNet34"
+                self.extract = BACKBONES[key](False, dtype, device)
+            elif cnn == "densenet201":
+                self.FeatureExtraction = FeatureExtraction(DenseNetFeatures(dtype=dtype,
+                                                                            device=device))
+            else:
+                raise ValueError(f"unsupported feature_extraction_cnn {cnn!r}; "
+                                 f"available: {', '.join(TRUNKS)}")
+            self.NeighConsensus = NeighConsensus(tuple(ncons_kernel_sizes),
+                                                 tuple(ncons_channels), dtype=dtype,
+                                                 device=device)
         self.eval()
 
     def trunk(self) -> nn.Module:
@@ -96,7 +99,11 @@ class ImMatchNet(nn.Module):
         return l2_normalize(f) if self.normalize_features else f
 
     def forward(self, imA, imB) -> Tuple[torch.Tensor, Optional[Tuple]]:
-        return self._match(self.features(imA), self.features(imB))
+        with profiling.span("immatch"):
+            with profiling.span("backbone"):
+                fa, fb = self.features(imA), self.features(imB)
+            with profiling.span("coarse"):
+                return self._match(fa, fb)
 
     def forward_feat(self, featA, featB, normalize: bool = True):
         """Match precomputed NHWC feature maps (the reference's

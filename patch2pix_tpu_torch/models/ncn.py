@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from patch2pix_tpu_torch.ops.conv4d import conv4d, conv4d_transpose_symmetric
+from patch2pix_tpu_torch.utils import profiling
 
 
 class Conv4dParams(nn.Module):
@@ -66,8 +67,9 @@ class NeighConsensus(nn.Module):
                                   layer.bias, out_dtype=od))
             return x
 
-        x = corr[..., None]
-        y = stack(x, False)
-        if self.symmetric_mode:
-            y = y + stack(x, True)
-        return y[..., 0].float()
+        with profiling.span("coarse.ncn"):
+            x = corr[..., None]
+            y = stack(x, False)
+            if self.symmetric_mode:
+                y = y + stack(x, True)
+            return y[..., 0].float()

@@ -62,6 +62,7 @@ from patch2pix_tpu_torch.ops.patch_gather import (
     make_padded_tiles_levels,
     tileable,
 )
+from patch2pix_tpu_torch.utils import profiling
 
 
 def shift_to_anchors(coords: torch.Tensor, pshift: int, panc: int) -> torch.Tensor:
@@ -121,17 +122,18 @@ class Patch2Pix(nn.Module):
         if config.backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {config.backbone!r}; available: "
                              f"{list(BACKBONES)}")
-        self.extract = BACKBONES[config.backbone](config.change_stride, dtype, device)
-        self.ncn = NeighConsensus((3, 3), (16, 1), dtype=dtype, device=device)
-        r = config.regressor
-        if r is not None:
-            kw = dict(feat_dim=r.feat_dim, conv_dims=r.conv_dims,
-                      conv_kers=r.conv_kers, conv_strs=r.conv_strs,
-                      fc_dims=r.fc_dims, feat_comb=r.feat_comb, dtype=dtype,
-                      device=device)
-            self.regress_mid = FeatRegressNet(psize=r.psize[0], **kw)
-            self.regress_fine = (self.regress_mid if r.shared
-                                 else FeatRegressNet(psize=r.psize[1], **kw))
+        with profiling.span("setup.construct"):
+            self.extract = BACKBONES[config.backbone](config.change_stride, dtype, device)
+            self.ncn = NeighConsensus((3, 3), (16, 1), dtype=dtype, device=device)
+            r = config.regressor
+            if r is not None:
+                kw = dict(feat_dim=r.feat_dim, conv_dims=r.conv_dims,
+                          conv_kers=r.conv_kers, conv_strs=r.conv_strs,
+                          fc_dims=r.fc_dims, feat_comb=r.feat_comb, dtype=dtype,
+                          device=device)
+                self.regress_mid = FeatRegressNet(psize=r.psize[0], **kw)
+                self.regress_fine = (self.regress_mid if r.shared
+                                     else FeatRegressNet(psize=r.psize[1], **kw))
         self.eval()
 
     # ---------------- coarse stage ----------------
@@ -157,19 +159,20 @@ class Patch2Pix(nn.Module):
 
     def coarse_corr(self, feat1, feat2, ksize: int = 1):
         """L2norm -> correlate (+ 2^4 pool) -> mutual -> NCN -> mutual."""
-        feat1 = l2_normalize(feat1.contiguous())
-        feat2 = l2_normalize(feat2.contiguous())
-        delta4d = None
-        if ksize > 1 and corr_pool_supported(feat1, feat2, ksize):
-            corr = corr_pool(feat1, feat2)
-            delta4d = ("feats", feat1, feat2)
-        elif ksize > 1:
-            corr = feat_correlation(feat1, feat2)
-            delta4d = corr
-            corr = maxpool4d_values(corr, ksize)
-        else:
-            corr = feat_correlation(feat1, feat2)
-        corr = mutual_matching(corr)
+        with profiling.span("coarse.corr"):
+            feat1 = l2_normalize(feat1.contiguous())
+            feat2 = l2_normalize(feat2.contiguous())
+            delta4d = None
+            if ksize > 1 and corr_pool_supported(feat1, feat2, ksize):
+                corr = corr_pool(feat1, feat2)
+                delta4d = ("feats", feat1, feat2)
+            elif ksize > 1:
+                corr = feat_correlation(feat1, feat2)
+                delta4d = corr
+                corr = maxpool4d_values(corr, ksize)
+            else:
+                corr = feat_correlation(feat1, feat2)
+            corr = mutual_matching(corr)
         corr = self.ncn(corr)
         corr = mutual_matching(corr)
         return corr, delta4d
@@ -318,30 +321,42 @@ class Patch2Pix(nn.Module):
         ``stack_backbone=False``: one backbone call per side, the JAX
         package's choice on a sharded batch (its API; a rank of the port
         holds whole pairs, and its callers stack); the same output."""
-        feats1, feats2 = self.extract_pyramid_pair(im1, im2, stack=stack_backbone)
-        corr, delta4d = self.coarse_corr(feats1[-1], feats2[-1], ksize)
-        cm = self.coarse_matches(corr, delta4d, ksize, mutual, ncn_thres)
-        if mutual:
-            # every valid row lives in the direction-1 half
-            nb = corr.shape[3] * corr.shape[4]
-            cm = Matches(cm.coords[:, :nb], cm.scores[:, :nb], cm.valid[:, :nb])
-        if fine_cap is not None and fine_cap < cm.coords.shape[1]:
-            rank = torch.where(cm.valid, cm.scores,
-                               torch.full_like(cm.scores, float("-inf")))
-            order = torch.argsort(-rank, dim=1, stable=True)[:, :fine_cap]
-            cm = Matches(
-                torch.gather(cm.coords, 1, order[..., None].expand(-1, -1, 4)),
-                torch.gather(cm.scores, 1, order),
-                torch.gather(cm.valid, 1, order),
-            )
-        r = self.config.regressor
-        aligned = self.config.upsample == r.psize[0]
-        tiles1, tiles2 = self._shared_tiles(feats1, feats2)
-        mid_matches, mid_probs = self.fine_match(
-            feats1, feats2, cm.coords, "mid", grid_aligned=aligned,
-            tiles1=tiles1, tiles2=tiles2)
-        fine_matches, fine_probs = self.fine_match(
-            feats1, feats2, mid_matches, "fine", tiles1=tiles1, tiles2=tiles2)
+        with profiling.span("predict_fine"):
+            with profiling.span("backbone"):
+                feats1, feats2 = self.extract_pyramid_pair(im1, im2, stack=stack_backbone)
+            with profiling.span("coarse"):
+                corr, delta4d = self.coarse_corr(feats1[-1], feats2[-1], ksize)
+                cm = self.coarse_matches(corr, delta4d, ksize, mutual, ncn_thres)
+                if mutual:
+                    # every valid row lives in the direction-1 half
+                    nb = corr.shape[3] * corr.shape[4]
+                    cm = Matches(cm.coords[:, :nb], cm.scores[:, :nb], cm.valid[:, :nb])
+                profiling.count("coarse.valid_rows", cm.valid)
+            with profiling.span("fine"):
+                if fine_cap is not None and fine_cap < cm.coords.shape[1]:
+                    with profiling.span("fine.cap"):
+                        rank = torch.where(cm.valid, cm.scores,
+                                           torch.full_like(cm.scores, float("-inf")))
+                        order = torch.argsort(-rank, dim=1, stable=True)[:, :fine_cap]
+                        cm = Matches(
+                            torch.gather(cm.coords, 1, order[..., None].expand(-1, -1, 4)),
+                            torch.gather(cm.scores, 1, order),
+                            torch.gather(cm.valid, 1, order),
+                        )
+                r = self.config.regressor
+                aligned = self.config.upsample == r.psize[0]
+                tiles1, tiles2 = self._shared_tiles(feats1, feats2)
+                with profiling.span("fine.mid"):
+                    profiling.count("fine.rows", cm.valid.numel())
+                    profiling.count("fine.valid_rows", cm.valid)
+                    mid_matches, mid_probs = self.fine_match(
+                        feats1, feats2, cm.coords, "mid", grid_aligned=aligned,
+                        tiles1=tiles1, tiles2=tiles2)
+                with profiling.span("fine.fine"):
+                    profiling.count("fine.rows", cm.valid.numel())
+                    profiling.count("fine.valid_rows", cm.valid)
+                    fine_matches, fine_probs = self.fine_match(
+                        feats1, feats2, mid_matches, "fine", tiles1=tiles1, tiles2=tiles2)
         return (Matches(fine_matches, fine_probs, cm.valid),
                 Matches(mid_matches, mid_probs, cm.valid), cm)
 

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+from patch2pix_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("tap_sum", "corr_pool", "patch_expand", "conv4d", "fine_head")
@@ -57,25 +59,27 @@ def build(names: Iterable[str] = KERNELS) -> Tuple[float, Dict[str, str]]:
     started together. Returns (wall seconds, {name: ptxas report})."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, target)
+    todo = [name for name in names if not library_path(name).exists()]
     reports = {}
     failed = []
-    for name, (proc, tmp, target) in procs.items():
-        out, _ = proc.communicate()
-        reports[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
-            continue
-        os.replace(tmp, target)
+    if todo:
+        with profiling.span("setup.nvcc"):
+            procs = {}
+            for name in todo:
+                target = library_path(name)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ), tmp, target)
+            for name, (proc, tmp, target) in procs.items():
+                out, _ = proc.communicate()
+                reports[name] = out
+                if proc.returncode != 0:
+                    failed.append(f"{name}:\n{out}")
+                    continue
+                os.replace(tmp, target)
+        profiling.count("kernels.nvcc_runs", len(todo))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0, reports
@@ -88,13 +92,14 @@ def library(name: str, signatures: Dict[str, str]) -> ctypes.CDLL:
     code as int."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, codes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = [_CTYPES[c] for c in codes]
-            f.restype = ctypes.c_int
-        _loaded[name] = lib
+        with profiling.span("setup.kernel_load." + name):
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, codes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = [_CTYPES[c] for c in codes]
+                f.restype = ctypes.c_int
+            _loaded[name] = lib
     return lib
 
 

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from patch2pix_tpu_torch.ops.correlation import decode_delta_at
+from patch2pix_tpu_torch.utils import profiling
 
 
 class Matches(NamedTuple):
@@ -45,35 +46,36 @@ def corr_to_matches(corr, delta4d=None, ksize: int = 1, do_softmax: bool = True)
     pre-pool grid (``i*ksize + di``). Returns grid ``(B, N, 4)`` int32 (xA, yA, xB,
     yB), scores ``(B, N)`` and the mutual flags ``(B, N)``.
     """
-    b, h1, w1, h2, w2 = corr.shape
-    na, nb = h1 * w1, h2 * w2
-    flat = corr.reshape(b, na, nb)
-    # argmax returns the first maximum (torch.max's index need not)
-    arg1 = torch.argmax(flat, dim=1)  # (B, nb) -> index into na
-    arg2 = torch.argmax(flat, dim=2)  # (B, na) -> index into nb
-    m1 = torch.amax(flat, dim=1)
-    m2 = torch.amax(flat, dim=2)
-    if do_softmax:
-        score1 = torch.exp(m1 - torch.logsumexp(flat, dim=1))
-        score2 = torch.exp(m2 - torch.logsumexp(flat, dim=2))
-    else:
-        score1, score2 = m1, m2
+    with profiling.span("coarse.extract"):
+        b, h1, w1, h2, w2 = corr.shape
+        na, nb = h1 * w1, h2 * w2
+        flat = corr.reshape(b, na, nb)
+        # argmax returns the first maximum (torch.max's index need not)
+        arg1 = torch.argmax(flat, dim=1)  # (B, nb) -> index into na
+        arg2 = torch.argmax(flat, dim=2)  # (B, na) -> index into nb
+        m1 = torch.amax(flat, dim=1)
+        m2 = torch.amax(flat, dim=2)
+        if do_softmax:
+            score1 = torch.exp(m1 - torch.logsumexp(flat, dim=1))
+            score2 = torch.exp(m2 - torch.logsumexp(flat, dim=2))
+        else:
+            score1, score2 = m1, m2
 
-    ids_b = torch.arange(nb, device=corr.device)[None, :]
-    ids_a = torch.arange(na, device=corr.device)[None, :]
-    mutual1 = torch.gather(arg2, 1, arg1) == ids_b
-    mutual2 = torch.gather(arg1, 1, arg2) == ids_a
+        ids_b = torch.arange(nb, device=corr.device)[None, :]
+        ids_a = torch.arange(na, device=corr.device)[None, :]
+        mutual1 = torch.gather(arg2, 1, arg1) == ids_b
+        mutual2 = torch.gather(arg1, 1, arg2) == ids_a
 
-    ia = torch.cat([_fdiv(arg1, w1), (ids_a // w1).expand(b, na)], dim=1)
-    ja = torch.cat([arg1 % w1, (ids_a % w1).expand(b, na)], dim=1)
-    ib = torch.cat([(ids_b // w2).expand(b, nb), _fdiv(arg2, w2)], dim=1)
-    jb = torch.cat([(ids_b % w2).expand(b, nb), arg2 % w2], dim=1)
-    ia, ja, ib, jb = _relocate(delta4d, ia, ja, ib, jb, ksize)
+        ia = torch.cat([_fdiv(arg1, w1), (ids_a // w1).expand(b, na)], dim=1)
+        ja = torch.cat([arg1 % w1, (ids_a % w1).expand(b, na)], dim=1)
+        ib = torch.cat([(ids_b // w2).expand(b, nb), _fdiv(arg2, w2)], dim=1)
+        jb = torch.cat([(ids_b % w2).expand(b, nb), arg2 % w2], dim=1)
+        ia, ja, ib, jb = _relocate(delta4d, ia, ja, ib, jb, ksize)
 
-    grid = torch.stack([ja, ia, jb, ib], dim=-1).to(torch.int32)
-    scores = torch.cat([score1, score2], dim=1)
-    mutual = torch.cat([mutual1, mutual2], dim=1)
-    return grid, scores, mutual
+        grid = torch.stack([ja, ia, jb, ib], dim=-1).to(torch.int32)
+        scores = torch.cat([score1, score2], dim=1)
+        mutual = torch.cat([mutual1, mutual2], dim=1)
+        return grid, scores, mutual
 
 
 def _relocate(delta4d, ia, ja, ib, jb, ksize):

@@ -42,6 +42,7 @@ from patch2pix_tpu_torch.parallel import comm_stats
 from patch2pix_tpu_torch.parallel.mesh import Mesh, replicated_divergence
 from patch2pix_tpu_torch.train.losses import patch2pix_losses
 from patch2pix_tpu_torch.train.state import Optimizer, TrainState
+from patch2pix_tpu_torch.utils import profiling
 
 # the JAX package's ``remat="auto"`` bound on B * ptmax * panc proposals
 # for running without recomputation (a measurement on a 16 GB TPU, kept
@@ -110,22 +111,29 @@ def make_train_step(
         mode = resolve_remat(remat, total, ptmax, model.config.regressor.panc, ranks)
         if rand is not None:
             rand = rand[rank * b:(rank + 1) * b]
-        with global_batch_moments(moment_sum, ranks):
-            outputs = model(batch["im1"], batch["im2"], ksize=ksize, ptmax=ptmax, train=True,
-                            backbone_train_bn=backbone_train_bn, remat=mode,
-                            generator=generator, rand=rand, rand_rows=(rank * b, total))
-            share, metrics = patch2pix_losses(outputs, batch["F"], cls_dthres=cls_dthres,
-                                              epi_dthres=epi_dthres, weight_cls=weight_cls,
-                                              weight_epi=weight_epi, pair_sum=pair_sum)
-            optimizer.zero_grad()
-            share.backward()
-        if group is not None:
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            flat = comm_stats.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
-                                         group=group)
-            for p, g in zip(params, flat.split([p.numel() for p in params])):
-                p.grad = g.view_as(p)
-        optimizer.step(state.step)
+        with profiling.span("train.step"):
+            with global_batch_moments(moment_sum, ranks):
+                with profiling.span("train.forward"):
+                    outputs = model(batch["im1"], batch["im2"], ksize=ksize, ptmax=ptmax,
+                                    train=True, backbone_train_bn=backbone_train_bn,
+                                    remat=mode, generator=generator, rand=rand,
+                                    rand_rows=(rank * b, total))
+                with profiling.span("train.loss"):
+                    share, metrics = patch2pix_losses(
+                        outputs, batch["F"], cls_dthres=cls_dthres, epi_dthres=epi_dthres,
+                        weight_cls=weight_cls, weight_epi=weight_epi, pair_sum=pair_sum)
+                with profiling.span("train.backward"):
+                    optimizer.zero_grad()
+                    share.backward()
+            if group is not None:
+                with profiling.span("train.allreduce"):
+                    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                    flat = comm_stats.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                                                 group=group)
+                    for p, g in zip(params, flat.split([p.numel() for p in params])):
+                        p.grad = g.view_as(p)
+            with profiling.span("train.optimizer"):
+                optimizer.step(state.step)
         if debug_checks:
             div = float(replicated_divergence([p.detach() for p in params], group))
             if div > 1e-5:

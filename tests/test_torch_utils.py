@@ -1,7 +1,5 @@
 """The port's utils against the JAX package's, on the CPU.
 
-  * ``Throughput`` and ``marginal_time`` give JAX's numbers under one
-    fake clock (``time.perf_counter`` replaced in both);
   * ``undo_normalize`` and ``side_by_side`` equal JAX's, also when given
     tensors; ``plot_matches`` writes a PNG (matplotlib's Agg backend),
     ``plot_epilines`` takes tensors;
@@ -11,58 +9,14 @@
 
 import json
 import os
-import time
 
 import numpy as np
-import pytest
 import torch
 
 from patch2pix_tpu.utils import logging as jax_logging
 from patch2pix_tpu.utils import plotting as jax_plotting
-from patch2pix_tpu.utils import profiling as jax_profiling
 from patch2pix_tpu_torch.utils import logging, plotting, profiling
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
-
-
-class FakeClock:
-    """``perf_counter`` that only moves when ``advance`` says."""
-
-    def __init__(self):
-        self.now = 100.0
-
-    def __call__(self):
-        return self.now
-
-    def advance(self, dt):
-        self.now += dt
-
-
-@pytest.fixture
-def clock(monkeypatch):
-    c = FakeClock()
-    monkeypatch.setattr(time, "perf_counter", c)
-    return c
-
-
-def _rates(mod, clock):
-    tp = mod.Throughput(alpha=0.3)
-    out = []
-    for n, dt in ((4, 0.5), (4, 0.25), (8, 1.0), (2, 0.1)):
-        out.append(tp.tick(n))
-        clock.advance(dt)
-    return out
-
-
-def test_throughput_equals_jax(clock):
-    assert _rates(profiling, clock) == _rates(jax_profiling, clock)
-
-
-def test_marginal_time_equals_jax(clock):
-    def loop(iters):  # 0.75 s a call plus 0.125 s an iteration
-        clock.advance(0.75 + 0.125 * iters)
-
-    got = profiling.marginal_time(loop, 2, 10, 3, device="cpu")
-    assert got == jax_profiling.marginal_time(loop, 2, 10, 3) == pytest.approx(0.125)
 
 
 def test_undo_normalize_and_side_by_side_equal_jax():
