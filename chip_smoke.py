@@ -8,7 +8,8 @@
 Phases, each fatal on failure:
 
   1. print the card's name and power limit, build the five CUDA sources
-     (one ``nvcc`` per source, in parallel) and print the build time;
+     (one ``nvcc`` per source, in parallel) and print the build time,
+     conv4d's (the slowest source) apart;
   2. for each kernel (B1 tap_sum, B2 corr_pool, B3 expand_scale_pair, B4
      conv4d_small, B5 fused_fine_head, B7 expand_level), at the shapes of
      its path (change_stride, 1024x768, B=2: the NCN volume, M = 2400
@@ -32,7 +33,12 @@ Phases, each fatal on failure:
      ms by the profiler, its share of the 3xTF32 bound and of the f32
      SIMT bound, its registers, shared memory (the dynamic part held to
      ``ops.conv4d_small.tf32_smem_bytes``) and spills for each staging,
-     and its max abs error under the 1e-4 rule); B5's float32 kernel (3xTF32 on ``wgmma``)
+     and its max abs error under the 1e-4 rule); B4's Cin-1 kernel (the
+     NCN's bf16 first layer) at 1 -> 16 on the change_stride volume and
+     1 -> 10 on ImMatchNet's, held to its plain version (one bf16 ulp +
+     1e-5), its device ms beside its bytes bound and the fold-in's ms
+     on the same inputs, its registers, shared memory and spills;
+     B5's float32 kernel (3xTF32 on ``wgmma``)
      prints its two launches' device ms, its share of the 3xTF32 bound
      and of the f32 SIMT bound, its registers, spills and shared memory
      a block (held to ``ops.fine_stage.smem_bytes``), its max abs and
@@ -47,13 +53,15 @@ Phases, each fatal on failure:
   4. the main path in bf16 at 1024x768: ``Matcher.match_arrays`` on one
      pair, then ``Patch2Pix.predict_fine`` at B=2, fine_cap 1200, for
      change_stride and upsample 16: output checks, kernel launches per
-     call, pairs/s over 10 calls back to back, the median latency of 10
+     call (B4 twice: the NCN's first layer on its Cin-1 kernel), pairs/s
+     over 10 calls back to back, the median latency of 10
      calls each waited for, peak device memory; then, per stride, the
      top device kernels (and the port's own wherever they rank) and the
      device busy share over 3 calls under torch.profiler (after the
      launch counts are read);
   5. the conv4d path: a symmetric NeighConsensus with channels (4, 4, 1)
-     in bf16 on the change_stride volume — B4 twice (both on its
+     in bf16 on the change_stride volume — B4 four times (the 1 -> 4
+     layer twice on its Cin-1 kernel, the 4 -> 4 layer twice on its
      tensor-core kernel, staging channels-last) and B1 twice per call,
      output held against the
      same NCN with B4's plain version; then the same NCN in float32
@@ -118,13 +126,15 @@ Phases, each fatal on failure:
      pool4, NCN (3, 3, 3)/(10, 10, 1), symmetric), seeded weights and
      images, 1024x768, B = 1, bf16: forward + ``corr_to_matches`` timed
      (latency, pairs/s, peak memory, the profiler's table and busy share),
-     B1 twice a call and its first call held as in phase 2; relocalisation
+     B1 twice a call and its first call held as in phase 2, B4's Cin-1
+     kernel twice a call (the NCN's first layer); relocalisation
      k = 2 (``maxpool4d``, both extractions, grids in the pre-pool grid);
      then float32 against ``tests/fixtures/immatch_golden_vgg_1024.npz``;
   12. the NCNet-only coarse matcher with ResNet101 (``Patch2Pix``,
      change_stride, no regressor), ``predict_coarse`` at 1024x768, B = 2,
-     ksize 2, bf16: B2 on 1024 bf16 channels once and B1 twice a call,
-     each first call held as in phase 2, timed, its match set held to the
+     ksize 2, bf16: B2 on 1024 bf16 channels once, B1 twice and B4's
+     Cin-1 kernel twice a call, B1's and B2's first calls held as in
+     phase 2, timed, its match set held to the
      same model's float32 run;
   13. evaluation: (a) the 5-point, 8-point and PnP RANSACs on a
      ``make_posed_pair`` pose at 1024x768 (1200 correspondences of
@@ -300,6 +310,7 @@ checkout; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import importlib
@@ -355,6 +366,7 @@ from patch2pix_tpu_torch.ops.conv4d_small import (
     conv4d_small,
     conv4d_small_plain,
     mma_fragments,
+    staging_mode,
     tf32_smem_bytes,
 )
 from patch2pix_tpu_torch.ops.corr_pool import STREAM_CLUSTER, kernel_instance
@@ -473,7 +485,7 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
 PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_stream_kernel",
                      "corr_pool_f32_kernel",
                      "expand_kernel", "expand_level_kernel", "conv4d_small_tf32_kernel",
-                     "conv4d_small_mma_kernel", "fine_head_bf16_kernel",
+                     "conv4d_small_mma_kernel", "conv4d_cin1_kernel", "fine_head_bf16_kernel",
                      "fine_head_tf32x3_kernel")
 
 # phase 1's ptxas reports, {source: text}, for the kernels built in this run
@@ -548,6 +560,7 @@ def reset_counts():
     conv4d_small.mma_launches = 0
     conv4d_small.tf32_launches = 0
     conv4d_small.channels_last_launches = 0
+    conv4d_small.cin1_launches = 0
 
 
 def counts():
@@ -982,6 +995,56 @@ def check_conv4d_small(dtype, gen, dev):
                       f"{taps_ms:.4f} ms")
 
 
+def check_conv4d_cin1(gen, dev):
+    """B4's Cin-1 kernel, the NCN's bf16 first layer, at the cells'
+    volumes: 1 -> 16 on (2, 48, 64, 48, 64) (Patch2Pix change_stride) and
+    1 -> 10 on (1, 48, 64, 48, 64) (ImMatchNet), bf16 in and out, staged
+    16 bytes at a time. Held against its plain version (one bf16 ulp +
+    1e-5); device ms by the profiler beside the bytes bound (the input
+    read once, the output written once); the fold-in's ms on the same
+    inputs (the route it replaces); the plain version's ms; registers,
+    shared memory and spills."""
+    lib = _build.library("conv4d", CONV4D_SIGNATURES)
+    for bs, cout in ((BATCH, 16), (1, 10)):
+        dims = (bs, H // 16, W // 16, H // 16, W // 16)
+        x = (torch.rand(dims + (1,), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        w = torch.randn((3, 3, 3, 3, 1, cout), generator=gen, device=dev) * (2 / 81) ** 0.5
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.05
+        want = conv4d_small_plain(x, w, b, torch.bfloat16)
+        c0 = conv4d_small.cin1_launches
+        got = conv4d_small(x, w, b, torch.bfloat16)
+        if conv4d_small.cin1_launches != c0 + 1 or staging_mode(x) != 2:
+            fail(f"conv4d_small 1->{cout}: the Cin-1 kernel did not run, staging 16 bytes at "
+                 f"a time")
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got.float(), want.float(), atol=1e-5)
+        if ulps.max().item() > 1:
+            fail(f"conv4d_small 1->{cout}: {int((ulps > 1).sum())} values beyond one bf16 "
+                 f"ulp + 1e-5")
+        ms = time_ms(lambda: conv4d_small(x, w, b, torch.bfloat16))
+        dev_ms = sum(v for k, v in device_ms(lambda: conv4d_small(x, w, b, torch.bfloat16))
+                     .items() if "conv4d_cin1_kernel" in k)
+        plain_ms = time_ms(lambda: conv4d_small_plain(x, w, b, torch.bfloat16), iters=2, warmup=1)
+        wb = w.to(torch.bfloat16)
+        fold_ms = time_ms(lambda: conv4d_module.conv4d_fold_in(x, wb, b, torch.bfloat16))
+        b_ms, b_by = bound(nbytes(x, w, b, want), 2 * x.numel() * 81 * cout, torch.bfloat16)
+        vals = [ctypes.c_int() for _ in range(3)]
+        _build.check_launch(lib.p2p_conv4d_cin1_attrs(cout, 1, 2, *(ctypes.addressof(v)
+                                                                    for v in vals)),
+                            "conv4d_small Cin-1 attributes")
+        regs, smem, local = (v.value for v in vals)
+        ptx = ptxas_entry(PTXAS.get("conv4d", ""),
+                          f"conv4d_cin1_kernelI13__nv_bfloat16Li{cout}ELi2E")
+        spills = ("spills not in this run's build" if ptx is None
+                  else f"spill stores {ptx[1]} B, spill loads {ptx[2]} B")
+        log(f"kernel conv4d_small Cin 1 [bfloat16] x {tuple(x.shape)} -> {cout} channels "
+            f"bf16, channels-last: max ulps {ulps.max().item():.2f}; ms {ms:.4f} (device "
+            f"{dev_ms:.4f}) bound_ms {b_ms:.4f} ({b_by}), {100 * b_ms / dev_ms:.1f}% of it "
+            f"by device ms; plain_ms {plain_ms:.4f}; the fold-in it replaces {fold_ms:.4f} ms; "
+            f"{regs} registers a "
+            f"thread, {smem} B shared memory a block, {local} B local, {spills}")
+
+
 def expand_level_attrs(elsize):
     """Registers a thread, static shared memory and spill bytes of B7's
     kernel for ``elsize``-byte values."""
@@ -1357,7 +1420,10 @@ def seeded_ncn(dev, channels=(4, 4, 1), seed=3, dtype=torch.bfloat16):
 
 
 def conv4d_path(dev):
-    """Phase 5: NCN (4, 4, 1) on the change_stride volume, bf16. Rule for
+    """Phase 5: NCN (4, 4, 1) on the change_stride volume, bf16: B4 four
+    times a call, the 1->4 first layer on its Cin-1 kernel and the 4->4
+    layer on its tensor-core kernel staging the first layer's
+    channels-last volume, once per branch each. Rule for
     the kernel run against the plain-B4 run (the final layer is float32):
     max abs err <= 2^-4 of max |ref|, and at most 1e-4 of the values off
     by more than 2^-7 of it (a bf16 rounding flip in B4's output moves
@@ -1373,13 +1439,13 @@ def conv4d_path(dev):
         got = ncn(corr)
     torch.cuda.synchronize()
     launches = counts()
-    expect = {**{k: 0 for k in launches}, "conv4d_small": 2, "tap_sum": 2}
-    staged = conv4d_small.channels_last_launches
-    if launches != expect or conv4d_small.mma_launches != 2 or staged != 2:
-        fail(f"conv4d path launches {launches} ({conv4d_small.mma_launches} through B4's "
-             f"tensor-core kernel, {staged} staging channels-last), expected {expect}, "
-             f"both B4 launches on the tensor cores staging the fold-in's channels-last "
-             f"volume")
+    expect = {**{k: 0 for k in launches}, "conv4d_small": 4, "tap_sum": 2}
+    staged, cin1 = conv4d_small.channels_last_launches, conv4d_small.cin1_launches
+    if launches != expect or conv4d_small.mma_launches != 2 or staged != 2 or cin1 != 2:
+        fail(f"conv4d path launches {launches} ({cin1} through B4's Cin-1 kernel, "
+             f"{conv4d_small.mma_launches} through its 4->4 tensor-core kernel, {staged} "
+             f"staging channels-last), expected {expect}, the first layer twice on the Cin-1 "
+             f"kernel, the 4->4 layer twice on the tensor cores staging channels-last")
     if got.shape != dims or not torch.isfinite(got).all():
         fail(f"conv4d path: output {tuple(got.shape)} or non-finite values")
     with torch.no_grad(), plain_b4():
@@ -1396,7 +1462,8 @@ def conv4d_path(dev):
         with plain_b4():
             plain_ms = time_ms(lambda: ncn(corr), iters=2, warmup=1)
     log(f"conv4d path [NCN (4, 4, 1) symmetric bf16 on {dims}]: launches per call "
-        f"{launches} (both B4 launches staging channels-last); max abs err to the "
+        f"{launches} (B4: the first layer twice on its Cin-1 kernel, the 4->4 layer twice "
+        f"staging channels-last); max abs err to the "
         f"plain-B4 run {err:.3g} (max |ref| {scale:.3g}), "
         f"{off} of {diff.numel()} values off by more than 2^-7 of it; "
         f"{ms:.3f} ms per call (plain B4 {plain_ms:.3f} ms)")
@@ -2238,8 +2305,9 @@ def immatch_path(dev):
     """Phase 11: ImMatchNet, the reference's default (VGG16 to pool4, NCN
     (3, 3, 3)/(10, 10, 1) symmetric, normalised features), seeded weights
     (the golden's ``meta``) and images, 1024x768, B = 1. bf16: forward +
-    ``corr_to_matches`` (mutual) timed, B1's launches per call (2) and
-    its first call held against its plain version, the profiler's table;
+    ``corr_to_matches`` (mutual) timed, B1's and B4's launches per call
+    (2 each; B4 the first layer on its Cin-1 kernel) and B1's first call
+    held against its plain version, the profiler's table;
     relocalisation k = 2 (``maxpool4d``, ``corr_to_matches`` with the
     offsets, equal to the pre-pool volume's relocation, and
     ``corr_to_matches_topk(topk=2)``, grids inside the pre-pool grid).
@@ -2267,9 +2335,10 @@ def immatch_path(dev):
         grid, scores, mutual = call()
         torch.cuda.synchronize()
     launches = counts()
-    expect = {**{k: 0 for k in launches}, "tap_sum": 2}
-    if launches != expect:
-        fail(f"immatch: launches per call {launches}, expected {expect}")
+    expect = {**{k: 0 for k in launches}, "tap_sum": 2, "conv4d_small": 2}
+    if launches != expect or conv4d_small.cin1_launches != 2:
+        fail(f"immatch: launches per call {launches} ({conv4d_small.cin1_launches} of B4's "
+             f"on its Cin-1 kernel), expected {expect}, both B4 launches the NCN's first layer")
     n = 2 * h1 * w1
     if (grid.shape != (b, n, 4) or not in_grid(grid, h1, w1) or not torch.isfinite(scores).all()
             or (scores < 0).any() or (scores > 1).any()):
@@ -2353,8 +2422,9 @@ def resnet101_coarse_path(dev):
     """Phase 12: the NCNet-only coarse matcher with ResNet101,
     ``Patch2Pix(backbone="ResNet101", change_stride=True, regressor=None)``,
     ``predict_coarse`` at 1024x768, B = 2, ksize 2, mutual, seeded
-    weights and images: bf16 launches B2 at C = 1024 once and B1 twice a
-    call (each first call held as in phase 2), timed; then the same
+    weights and images: bf16 launches B2 at C = 1024 once, B1 twice and
+    B4's Cin-1 kernel twice a call (B1's and B2's first calls held as in
+    phase 2), timed; then the same
     model in float32. Rules: phase 4's output checks (shapes, finite
     values, matches inside the images, scores in [0, 1]); then the same
     bf16 features through both models' coarse stages (B2 + NCN, bf16
@@ -2387,9 +2457,10 @@ def resnet101_coarse_path(dev):
         cm = call()
         torch.cuda.synchronize()
     launches = counts()
-    expect = {**{k: 0 for k in launches}, "tap_sum": 2, "corr_pool": 1}
+    expect = {**{k: 0 for k in launches}, "tap_sum": 2, "corr_pool": 1, "conv4d_small": 2}
     f1 = captured["corr_pool"][0][0]
-    if launches != expect or f1.shape[-1] != 1024 or f1.dtype != torch.bfloat16:
+    if (launches != expect or conv4d_small.cin1_launches != 2 or f1.shape[-1] != 1024
+            or f1.dtype != torch.bfloat16):
         fail(f"resnet101 coarse: launches {launches} (expected {expect}), B2 on "
              f"{tuple(f1.shape)} {f1.dtype} (expected 1024 bf16 channels)")
     check_outputs("resnet101 coarse", cm, cm, cm, BATCH, H, W)
@@ -4133,11 +4204,18 @@ def parse_args(argv=None):
 
 
 def build_phase():
-    """Phase 1: build every CUDA source, print the build time and ptxas's
-    registers and spills."""
-    secs, reports = _build.build()
+    """Phase 1: build every CUDA source, print the build time (and
+    conv4d's alone, the slowest source) and ptxas's registers and
+    spills."""
+    others = [name for name in _build.KERNELS if name != "conv4d"]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        conv4d = pool.submit(_build.build, ["conv4d"])
+        secs, reports = _build.build(others)
+        conv4d_secs, conv4d_report = conv4d.result()
+    reports.update(conv4d_report)
     PTXAS.update(reports)
-    log(f"kernel build: {secs:.1f} s ({len(reports)} sources compiled)")
+    log(f"kernel build: {max(secs, conv4d_secs):.1f} s ({len(reports)} sources compiled; "
+        f"conv4d {conv4d_secs:.1f} s)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             # every kernel's registers, spills and ptxas's performance
@@ -4205,6 +4283,8 @@ def main(argv=None):
                 log(f"backward {name} [{str(dtype)[6:]}] {shape}: kernel route torch.equal "
                     f"to the plain route; {ms:.4f} ms per call")
             torch.cuda.empty_cache()
+    check_conv4d_cin1(gen, dev)
+    torch.cuda.empty_cache()
 
     # phase 3: golden parity, f32, TF32 off
     reset_counts()
@@ -4276,12 +4356,17 @@ def main(argv=None):
             f"{np.median(times):.2f} ms/call of 10 (min {min(times):.2f}, max "
             f"{max(times):.2f}); peak device memory {peak_gb:.2f} GB; valid "
             f"matches per pair {n_valid}; launches per call {per_call[tag]}")
-    main_counts = {k: counts()[k] for k in ("tap_sum", "corr_pool", "expand_scale_pair")}
+    main_counts = {k: counts()[k]
+                   for k in ("tap_sum", "corr_pool", "expand_scale_pair", "conv4d_small")}
     log(f"main-path launches: {main_counts}")
     if min(main_counts.values()) == 0:
         fail(f"a kernel was not launched on the main path: {main_counts}")
-    # B4, B5 and B7 are off predict_fine: zero launches there
-    off_path = {"conv4d_small": 0, "fused_fine_head": 0, "expand_level": 0}
+    if conv4d_small.cin1_launches != main_counts["conv4d_small"]:
+        fail(f"B4 on the main path: {main_counts['conv4d_small']} launches, "
+             f"{conv4d_small.cin1_launches} of them the Cin-1 kernel's (the NCN's first layer)")
+    # B4 runs the NCN's first layer (its Cin-1 kernel, once per symmetric
+    # branch); B5 and B7 are off predict_fine: zero launches there
+    off_path = {"conv4d_small": 2, "fused_fine_head": 0, "expand_level": 0}
     expect = {"change_stride (upsample 8)": {"tap_sum": 2, "corr_pool": 1,
                                              "expand_scale_pair": 2, **off_path},
               "upsample 16": {"tap_sum": 2, "corr_pool": 1,
@@ -4298,7 +4383,7 @@ def main(argv=None):
 
     # phase 5: the conv4d path; phase 6: the fine-head path
     path_counts = {**main_counts}
-    path_counts["conv4d_small"] = conv4d_path(dev)["conv4d_small"]
+    path_counts["conv4d_small"] += conv4d_path(dev)["conv4d_small"]
     torch.cuda.empty_cache()
     fine_counts = fine_head_path(dev)
     path_counts.update({k: fine_counts[k] for k in ("fused_fine_head", "expand_level")})
@@ -4314,7 +4399,7 @@ def main(argv=None):
     # phase 11: ImMatchNet; phase 12: the ResNet101 NCNet-only coarse matcher
     for path in (immatch_path, resnet101_coarse_path):
         for k, v in path(dev).items():
-            if k in ("tap_sum", "corr_pool"):
+            if k in ("tap_sum", "corr_pool", "conv4d_small"):
                 path_counts[k] += v
 
     # phase 13: evaluation (the RANSACs, immatch, HPatches)

@@ -13,13 +13,12 @@
 //
 // Layout: the flat cell n = (b*h1 + i)*w1 + j has one (h2, w2, CIN) plane.
 // The input is read through element strides (n, ci, k, l), so both the
-// 6D channels-last volume (what the NCN's cuDNN fold-in conv leaves on
-// the card: its one-channel input reads as channels-last, and cuDNN
-// writes its output so) and an NCHW view (n, ci, k, l) are taken without
-// a copy. The output is written NCHW (n, co, k, l), the layout the next
-// fold-out conv reads.
+// 6D channels-last volume (what the NCN's first layer leaves on the card)
+// and an NCHW view (n, ci, k, l) are taken without a copy. The output is
+// written NCHW (n, co, k, l), except the CIN 1 kernel's (its section).
 //
-// Two kernels, by the input's type, both on the tensor cores.
+// Three kernels, all on the tensor cores: two by the input's type, and a
+// bf16 one for CIN 1, the NCN's first layer, described in its own section.
 //
 // bfloat16 input: conv4d_small_mma_kernel, an implicit GEMM on the tensor
 // cores (mma.sync.m16n8k16, bf16 in, f32 accumulate). The Pallas kernel's
@@ -387,6 +386,347 @@ cudaError_t attrs(int cin, int cout, int mode, cudaFuncAttributes* a) {
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------- bf16, CIN 1: the NCN's first layer
+
+// conv4d_cin1_kernel: the bf16 kernel's design for a one-channel input.
+// Replaces no Pallas kernel: the JAX package runs this layer as the
+// fold-in (patch2pix_tpu/ops/conv4d.py conv4d_fold_in), a 9-tap shifted
+// stack under one 9-channel conv, which on the H100 cost ~13.7 ms a
+// direction at the change_stride volume (a 9x stack copy and cuDNN's
+// generic engine). K packs (row, dl) with no channel axis: the pair of K
+// entries 2q, 2q+1 (q = 3h + dl, q < 6) is input rows 2h, 2h+1 of the
+// warp's four at column dl, so K is 12 of 16 entries in one k-step and a
+// tile of 16 positions x 2 rows costs 4 MMAs an outer tap at COUT 16 (the
+// paired layout would pad CIN to 2 and take two k-steps). A staged plane
+// holds, per row pair and position, the 32-bit word (row 2rp, row
+// 2rp+1): every A register is one aligned shared load. Staging mode 2
+// reads a plane whose l stride is 1 with 16-byte loads, 8 positions of
+// one row a lane; neighbouring lanes hold a pair's two rows and swap
+// halves by shuffle before they interleave. Mode 0 takes any strides, one
+// 2-byte load an element. The strip walk and the rotating cell slots are
+// the bf16 kernel's; a column's three planes are staged together into
+// one of two sets of buffers, one barrier a column.
+//   COUT 16 keeps 96 accumulators a thread (three cells x two 16-column
+// groups x (2 rows, 16 co)), so a block is 12 warps (24 output rows a
+// tile) at one block an SM and up to 168 registers: 8 warps ran 20%
+// slower, 8 warps at two blocks an SM spilled and ran 30% slower, 16
+// warps (128 registers) spilled and ran 50% slower (H100). The output is
+// channels-last, (B, h1, w1, h2, w2, COUT), the layout the cuDNN conv of
+// the NCN's next layer takes as it is (an NCHW-per-cell input cost the
+// 16 -> 9 fold-out conv 0.55 ms more a direction on the H100). Each warp
+// writes an output row's 32 positions x COUT channels, one contiguous run,
+// through shared memory in 16-byte stores; the sums get the float32 bias
+// and one rounding to the output type.
+//   Bound: at 1 -> 16 on the change_stride volume the bytes (37.7 MB in,
+// 604 MB out: 0.19 ms at 3.35 TB/s) bound it; the 48.9 GFLOP (87 with the
+// band's zeros) take 0.05 ms at the bf16 peak. It runs at ~40% of the
+// bytes bound: every column the 12 warps pass one barrier together, so
+// the MMAs, the epilogue (bias, rounding, shared-memory transpose of the
+// output rows) and the staging of a column do not overlap across warps;
+// deferring the stores into the next column, staging by cp.async and
+// 16-byte B loads were each measured slower (registers).
+
+constexpr int NWARP1 = 12;            // warps a block, one output row pair each
+constexpr int MT1 = 2 * NWARP1;       // output rows k of a tile
+constexpr int RP1 = MT1 / 2 + 1;      // staged row pairs: input rows k0-1 .. k0+MT1
+constexpr int PITCH1 = MW + 16;       // staged positions (words) a row pair: l0-8 .. l0+39
+constexpr int NTHREADS1 = 32 * NWARP1;
+// mode 2: a task is one 16-byte load, 8 positions of one row; the two
+// rows of a pair go to neighbouring lanes, which swap halves
+constexpr int VTASKS = 2 * RP1 * PITCH1 / 8, VWARPS = (VTASKS + 31) / 32;
+// mode 0: a task is one word, positions l0-1 .. l0+MW of a row pair
+constexpr int ETASKS = RP1 * COLS, PER1 = (ETASKS + NTHREADS1 - 1) / NTHREADS1;
+
+// The dynamic shared memory of a block, in bytes: the staged planes,
+// the B fragments, and each warp's two output rows on their way out.
+template <typename O, int COUT>
+struct Cin1Plan {
+  static constexpr int NT = (2 * COUT + 7) / 8;
+  static constexpr int NB = 9 * NT;               // B fragment tiles: (tap, n-tile)
+  static constexpr int RUN = MW * COUT;           // a tile row's outputs, one contiguous run
+  static constexpr int XS = 2 * 3 * RP1 * PITCH1 * 4;  // two columns of three planes
+  static constexpr int BS = NB * 32 * 8;
+  static constexpr int SMEM = XS + BS + NWARP1 * 2 * RUN * (int)sizeof(O);
+};
+
+__device__ __forceinline__ void narrow2(float a, float b, float* o) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void narrow2(float a, float b, __nv_bfloat16* o) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+
+// One block: strip (b*h1 + i, j0 .. j0+J-1) x one MT1 x MW tile of (k, l),
+// as conv4d_small_mma_kernel. Warp w computes output rows k0+2w, k0+2w+1.
+template <typename O, int COUT, int MODE>
+__global__ void __launch_bounds__(NTHREADS1, 1)
+conv4d_cin1_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ frag,
+                   const float* __restrict__ bias, O* __restrict__ out, Shape s) {
+  using P = Cin1Plan<O, COUT>;
+  constexpr int NTL = P::NT, NB = P::NB, RUN = P::RUN;
+  constexpr int VEC = 16 / (int)sizeof(O);       // outputs a 16-byte store
+  extern __shared__ __align__(16) uint4 smem1[];
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem1);                       // [3][RP1 * PITCH1]
+  uint2* bs = reinterpret_cast<uint2*>(reinterpret_cast<char*>(smem1) + P::XS);  // [NB][32]
+  O* scr = reinterpret_cast<O*>(reinterpret_cast<char*>(smem1) + P::XS + P::BS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int rest = blockIdx.x;
+  const int tile = rest % s.tiles;
+  rest /= s.tiles;
+  const int J = 3 * s.groups - 2;
+  const int j0 = (rest % s.strips) * J;
+  const int bi = rest / s.strips;  // b*h1 + i
+  const int i = bi % s.h1;
+  const int jend = min(j0 + J, s.w1);
+  const int k0 = (tile / s.tiles_x) * MT1, l0 = (tile % s.tiles_x) * MW;
+
+  for (int e = tid; e < NB * 32; e += NTHREADS1)
+    bs[e] = make_uint2(frag[(e / 32) * 64 + e % 32], frag[(e / 32) * 64 + 32 + e % 32]);
+
+  // this lane's A words: K pair t (a0, a1) is (h, dl) = (t / 3, t % 3); K
+  // pair t + 4 (a2, a3) is (1, t + 1) for t < 2, else past K (zero)
+  const int off0 = (t / 3) * PITCH1 + t % 3;
+  const int off1 = t < 2 ? PITCH1 + 1 + t : -1;
+
+  // the staging tasks of this thread, the same in every plane: the
+  // offset of each task's input inside a source plane (-1: zero padding)
+  // and its first shared word (-1: no task)
+  constexpr int PER = MODE == 2 ? 1 : PER1;
+  int soff[PER][2];
+  int sdst[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = tid + u * NTHREADS1;
+    if (MODE == 2) {
+      const int rp = (e >> 1) / (PITCH1 / 8), v = (e >> 1) % (PITCH1 / 8), rr = e & 1;
+      const int gk = k0 - 1 + 2 * rp + rr, gl = l0 - 8 + 8 * v;
+      // w2 % 8 == 0: the 8 positions are all in or all out
+      const bool in = e < VTASKS && gk >= 0 && gk < s.h2 && gl >= 0 && gl < s.w2;
+      soff[u][0] = in ? gk * s.sk + gl : -1;
+      soff[u][1] = -1;
+      sdst[u] = e < VTASKS ? rp * PITCH1 + 8 * v + 4 * rr : -1;
+    } else {
+      const int rp = e / COLS, gl = l0 - 1 + e % COLS;
+      sdst[u] = e < ETASKS ? rp * PITCH1 + 7 + e % COLS : -1;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int gk = k0 - 1 + 2 * rp + rr;
+        const bool in = sdst[u] >= 0 && gl >= 0 && gl < s.w2 && gk >= 0 && gk < s.h2;
+        soff[u][rr] = in ? gk * s.sk + gl * s.sl : -1;
+      }
+    }
+  }
+
+  float acc[3][2][NTL][4];
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][lg][nt][e] = 0.0f;
+
+  const int ncols = 3 * s.groups;
+  auto valid = [&](int c, int di) {  // uniform over the block
+    const int si = i + di - 1, sj = j0 - 1 + c;
+    return c < ncols && si >= 0 && si < s.h1 && sj >= 0 && sj < s.w1;
+  };
+  // global -> registers: mode 2 one 16-byte load, mode 0 one word a task
+  // (row 2rp low, row 2rp+1 high); a plane outside the grid is not read
+  constexpr int SW = MODE == 2 ? 4 : PER1;
+  uint32_t st[3][SW];
+  auto load = [&](int c, int di, uint32_t (&r)[SW]) {
+    const bool ok = valid(c, di);
+    const uint16_t* src = x + ((int64_t)(bi + di - 1) * s.w1 + (j0 - 1 + c)) * s.sn;
+    if (MODE == 2) {
+      const uint4 v = ok && soff[0][0] >= 0
+                          ? __ldg(reinterpret_cast<const uint4*>(src + soff[0][0]))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      r[0] = v.x;
+      r[1] = v.y;
+      r[2] = v.z;
+      r[3] = v.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const uint32_t lo = ok && soff[u][0] >= 0 ? src[soff[u][0]] : 0u;
+        const uint32_t hi = ok && soff[u][1] >= 0 ? src[soff[u][1]] : 0u;
+        r[u] = lo | (hi << 16);
+      }
+    }
+  };
+#pragma unroll
+  for (int di = 0; di < 3; ++di) load(0, di, st[di]);
+
+  const int krow = 2 * warp;  // the warp's first output row in the tile
+  const bool rows_in = k0 + krow < s.h2;
+  const bool right = l0 + 16 < s.w2;  // the second 16-column group, uniform
+  const int nl = min(MW, s.w2 - l0);  // positions of the tile's rows
+  // a tile row goes out in 16-byte stores where every row's run is 16-byte
+  // aligned, else one output at a time
+  const bool vec = (int64_t)s.w2 * COUT * (int)sizeof(O) % 16 == 0;
+  O* sc = scr + warp * 2 * RUN;  // the warp's two rows: (row, position, co), co fastest
+  for (int cg = 0; cg < s.groups; ++cg) {
+#pragma unroll
+    for (int u3 = 0; u3 < 3; ++u3) {
+      const int c = 3 * cg + u3;
+      // the column's three planes, in the buffers of its parity
+      uint32_t* xcol = xs + (c & 1) * 3 * RP1 * PITCH1;
+#pragma unroll
+      for (int di = 0; di < 3; ++di) {
+        uint32_t* xb = xcol + di * RP1 * PITCH1;
+        if (MODE == 2) {
+          if (warp < VWARPS) {  // uniform: the warps with staging tasks
+            // the even lane holds row 2rp, the odd lane row 2rp+1, of the
+            // same 8 positions: the even lane keeps positions 0-3, the odd
+            // lane 4-7, and each takes the other row's from its neighbour
+            const bool odd = lane & 1;
+            const uint32_t* v = st[di];
+            const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+            const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+            const uint32_t a0 = odd ? r0 : v[0], a1 = odd ? r1 : v[1];  // row 2rp
+            const uint32_t b0 = odd ? v[2] : r0, b1 = odd ? v[3] : r1;  // row 2rp+1
+            if (sdst[0] >= 0)  // word p = (row 2rp, row 2rp+1) at position p
+              *reinterpret_cast<uint4*>(xb + sdst[0]) =
+                  make_uint4(__byte_perm(a0, b0, 0x5410), __byte_perm(a0, b0, 0x7632),
+                             __byte_perm(a1, b1, 0x5410), __byte_perm(a1, b1, 0x7632));
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < PER; ++u)
+            if (sdst[u] >= 0) xb[sdst[u]] = st[di][u];
+        }
+      }
+      // the column is staged; the buffers it overwrote were read two
+      // columns back, before every warp reached the last barrier
+      __syncthreads();
+#pragma unroll
+      for (int di = 0; di < 3; ++di) load(c + 1, di, st[di]);  // in flight for a column
+#pragma unroll
+      for (int di = 0; di < 3; ++di) {
+        if (!valid(c, di) || !rows_in) continue;
+        const uint32_t* xb = xcol + di * RP1 * PITCH1;
+        // position m of the warp's tile reads word m + dl + 7 of its row pairs
+        const uint32_t* xa = xb + warp * PITCH1 + g + 7;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int lg = 0; lg < 2; ++lg) {
+          const uint32_t* p = xa + 16 * lg;
+          a[lg][0] = p[off0];
+          a[lg][1] = p[off0 + 8];
+          a[lg][2] = off1 >= 0 ? p[off1] : 0u;
+          a[lg][3] = off1 >= 0 ? p[off1 + 8] : 0u;
+        }
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          // the strip's cell j0 + c - dj reads this plane through tap (di, dj)
+          if (c - dj < 0 || c - dj >= J || j0 + c - dj >= jend) continue;
+#pragma unroll
+          for (int nt = 0; nt < NTL; ++nt) {
+            const uint2 bb = bs[((di * 3 + dj) * NTL + nt) * 32 + lane];
+            float(&c4)[2][NTL][4] = acc[(u3 - dj + 3) % 3];
+            mma_bf16(c4[0][nt], a[0][0], a[0][1], a[0][2], a[0][3], bb.x, bb.y);
+            if (right) mma_bf16(c4[1][nt], a[1][0], a[1][1], a[1][2], a[1][3], bb.x, bb.y);
+          }
+        }
+      }
+      // column c completes cell j0 + c - 2: bias, one rounding, store
+      if (c >= 2 && j0 + c - 2 < jend && rows_in) {
+        const int u = (u3 + 1) % 3;  // = (c - 2) % 3
+        O* o = out + (((int64_t)bi * s.w1 + j0 + c - 2) * s.h2 + k0 + krow) * s.w2 * COUT +
+               l0 * COUT;  // the warp's first row at position l0
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) {
+          const int n = 8 * nt + 2 * t;  // COUT even: columns n, n+1 in one row
+          if (n >= 2 * COUT) continue;
+          const int ro = n / COUT, co = n % COUT;
+          const float b0 = __ldg(bias + co), b1 = __ldg(bias + co + 1);
+#pragma unroll
+          for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = 16 * lg + g + 8 * h;
+              const float v0 = __fadd_rn(acc[u][lg][nt][2 * h], b0);
+              const float v1 = __fadd_rn(acc[u][lg][nt][2 * h + 1], b1);
+              if (vec)
+                narrow2(v0, v1, sc + ro * RUN + m * COUT + co);
+              else if (k0 + krow + ro < s.h2 && m < nl) {
+                narrow(v0, o + (int64_t)ro * s.w2 * COUT + m * COUT + co);
+                narrow(v1, o + (int64_t)ro * s.w2 * COUT + m * COUT + co + 1);
+              }
+            }
+        }
+        if (vec) {
+          __syncwarp();
+          const int nv = nl * COUT / VEC;  // 16-byte pieces of a row's run
+#pragma unroll
+          for (int ro = 0; ro < 2; ++ro)
+            if (k0 + krow + ro < s.h2)
+              for (int v = lane; v < nv; v += 32)
+                reinterpret_cast<uint4*>(o + (int64_t)ro * s.w2 * COUT)[v] =
+                    reinterpret_cast<const uint4*>(sc + ro * RUN)[v];
+          __syncwarp();
+        }
+      }
+      if (c >= 2) {
+        const int u = (u3 + 1) % 3;
+#pragma unroll
+        for (int lg = 0; lg < 2; ++lg)
+#pragma unroll
+          for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[u][lg][nt][e] = 0.0f;
+      }
+    }
+  }
+}
+
+template <typename O, int COUT, int MODE>
+cudaError_t launch_cin1(const void* x, const void* frag, const float* bias, void* out,
+                        int64_t blocks, const Shape& s, cudaStream_t st) {
+  constexpr int smem = Cin1Plan<O, COUT>::SMEM;
+  static bool attr_set = false;  // once per process: above 48 KB only with the attribute
+  if (!attr_set) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        conv4d_cin1_kernel<O, COUT, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return rc;
+    attr_set = true;
+  }
+  conv4d_cin1_kernel<O, COUT, MODE><<<(unsigned)blocks, NTHREADS1, smem, st>>>(
+      (const uint16_t*)x, (const uint32_t*)frag, bias, (O*)out, s);
+  return cudaGetLastError();
+}
+
+// the COUT the port's NCN configurations put after a one-channel input:
+// 16 (Patch2Pix), 10 (ImMatchNet), 4 (the (4, 4, 1) NCN); mode 0 and 2
+#define P2P_CIN1_CASES(F) F(4, 0) F(4, 2) F(10, 0) F(10, 2) F(16, 0) F(16, 2)
+
+template <typename O>
+cudaError_t dispatch_cin1(int cout, int mode, const void* x, const void* frag,
+                          const float* bias, void* out, int64_t blocks, const Shape& s,
+                          cudaStream_t st) {
+#define P2P_CASE(CO, M)             \
+  if (cout == CO && mode == M) \
+    return launch_cin1<O, CO, M>(x, frag, bias, out, blocks, s, st);
+  P2P_CIN1_CASES(P2P_CASE)
+#undef P2P_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <typename O>
+cudaError_t attrs_cin1(int cout, int mode, cudaFuncAttributes* a, int* dyn) {
+#define P2P_CASE(CO, M)                                              \
+  if (cout == CO && mode == M) {                                     \
+    *dyn = Cin1Plan<O, CO>::SMEM;                                    \
+    return cudaFuncGetAttributes(a, conv4d_cin1_kernel<O, CO, M>);  \
+  }
+  P2P_CIN1_CASES(P2P_CASE)
+#undef P2P_CASE
+  return cudaErrorInvalidValue;
+}
+
 // ------------------------------------------------- float32: 3xTF32
 
 // The float32 kernel keeps the bf16 kernel's block, strip, tile and
@@ -712,10 +1052,10 @@ inline bool channels_last4(const void* x, int align, int cin, long long sn, long
          sk % 4 == 0;
 }
 
-// Both kernels' launch geometry in s; the block count, or -1 where the
+// The kernels' launch geometry in s (mt output rows a tile); the block count, or -1 where the
 // shape or strides are refused.
-inline int64_t plan(Shape& s, int batch, int h1, int w1, int h2, int w2, int cin, long long sn,
-                    long long sc, long long sk, long long sl) {
+inline int64_t plan(Shape& s, int mt, int batch, int h1, int w1, int h2, int w2, int cin,
+                    long long sn, long long sc, long long sk, long long sl) {
   if (batch <= 0 || h1 <= 0 || w1 <= 0 || h2 <= 0 || w2 <= 0) return -1;
   s.h1 = h1;
   s.w1 = w1;
@@ -727,7 +1067,7 @@ inline int64_t plan(Shape& s, int batch, int h1, int w1, int h2, int w2, int cin
   const int J = 3 * s.groups - 2;
   s.strips = (w1 + J - 1) / J;
   s.tiles_x = (w2 + MW - 1) / MW;
-  s.tiles = s.tiles_x * ((h2 + MT - 1) / MT);
+  s.tiles = s.tiles_x * ((h2 + mt - 1) / mt);
   s.sn = sn;
   // offsets inside a cell are 32-bit in the kernels
   if (sc < 0 || sk < 0 || sl < 0 ||
@@ -744,12 +1084,12 @@ inline int64_t plan(Shape& s, int batch, int h1, int w1, int h2, int w2, int cin
 
 }  // namespace
 
-// Both entry points: x read at element offset n*sn + ci*sc + k*sk + l*sl
-// for flat cell n = (b*h1 + i)*w1 + j; bias: (cout,) float32; out: (B*h1*w1,
-// cout, h2, w2) contiguous, float32 (odtype 0) or bfloat16 (odtype 1). cin
-// and cout > 2 with cin*cout <= 16. mode: the staging (0 any strides, 1
-// channels-last CIN 4, refused where x is not so). Each returns a
-// cudaError_t.
+// Every entry point: x read at element offset n*sn + ci*sc + k*sk + l*sl
+// for flat cell n = (b*h1 + i)*w1 + j; bias: (cout,) float32; out float32
+// (odtype 0) or bfloat16 (odtype 1). Each returns a cudaError_t. The first
+// two: out (B*h1*w1, cout, h2, w2) contiguous; cin and cout > 2 with
+// cin*cout <= 16; mode: the staging (0 any strides, 1 channels-last CIN 4,
+// refused where x is not so).
 
 // The bf16 kernel: x bfloat16 (dtype 1); frag: the banded filter's B
 // fragments, int32 (9, KS, NT, 2, 32) from ops/conv4d_small.py
@@ -762,7 +1102,7 @@ extern "C" int p2p_conv4d_small_mma(const void* x, const void* frag, const void*
   if (dtype != 1 || (mode != 0 && !(mode == 1 && mma::channels_last4(x, 8, cin, sn, sc, sk, sl))))
     return (int)cudaErrorInvalidValue;
   mma::Shape s;
-  const int64_t blocks = mma::plan(s, batch, h1, w1, h2, w2, cin, sn, sc, sk, sl);
+  const int64_t blocks = mma::plan(s, mma::MT, batch, h1, w1, h2, w2, cin, sn, sc, sk, sl);
   if (blocks < 0) return (int)cudaErrorInvalidValue;
   const float* bf = (const float*)bias;
   cudaStream_t st = (cudaStream_t)stream;
@@ -785,7 +1125,7 @@ extern "C" int p2p_conv4d_small_tf32(const void* x, const void* frag, const void
       (mode != 0 && !(mode == 1 && mma::channels_last4(x, 16, cin, sn, sc, sk, sl))))
     return (int)cudaErrorInvalidValue;
   mma::Shape s;
-  const int64_t blocks = mma::plan(s, batch, h1, w1, h2, w2, cin, sn, sc, sk, sl);
+  const int64_t blocks = mma::plan(s, mma::MT, batch, h1, w1, h2, w2, cin, sn, sc, sk, sl);
   if (blocks < 0) return (int)cudaErrorInvalidValue;
   const float* bf = (const float*)bias;
   cudaStream_t st = (cudaStream_t)stream;
@@ -794,6 +1134,32 @@ extern "C" int p2p_conv4d_small_tf32(const void* x, const void* frag, const void
                                                   s, st);
   if (odtype == 0)
     return (int)mma::dispatch_tf32<float>(cin, cout, mode, x, frag, bf, out, blocks, s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernel for CIN 1 (the NCN's first layer): x bfloat16, read at
+// element offset n*sn + k*sk + l*sl; frag: the Cin-1 banded filter's B
+// fragments, int32 (9, 1, NT, 2, 32) from ops/conv4d_small.py
+// mma_fragments; out: (B, h1, w1, h2, w2, cout) contiguous, channels-last.
+// cout 4, 10 or 16. mode: the staging (0 any strides; 2 the l stride 1,
+// the cell and k strides and w2 multiples of 8, x 16-byte aligned,
+// refused where x is not so).
+extern "C" int p2p_conv4d_cin1(const void* x, const void* frag, const void* bias, void* out,
+                               int batch, int h1, int w1, int h2, int w2, int cout,
+                               long long sn, long long sk, long long sl, int odtype, int mode,
+                               void* stream) {
+  if (mode == 2 && !((uintptr_t)x % 16 == 0 && sl == 1 && sn % 8 == 0 && sk % 8 == 0 &&
+                     w2 % 8 == 0))
+    return (int)cudaErrorInvalidValue;
+  mma::Shape s;
+  const int64_t blocks = mma::plan(s, mma::MT1, batch, h1, w1, h2, w2, 1, sn, 0, sk, sl);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const float* bf = (const float*)bias;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (odtype == 1)
+    return (int)mma::dispatch_cin1<__nv_bfloat16>(cout, mode, x, frag, bf, out, blocks, s, st);
+  if (odtype == 0)
+    return (int)mma::dispatch_cin1<float>(cout, mode, x, frag, bf, out, blocks, s, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -824,6 +1190,21 @@ extern "C" int p2p_conv4d_small_tf32_attrs(int cin, int cout, int odtype, int mo
   if (rc != cudaSuccess) return (int)rc;
   *(int*)regs = a.numRegs;
   *(int*)smem = (int)a.sharedSizeBytes;
+  *(int*)dyn_smem = dyn;
+  *(int*)local = (int)a.localSizeBytes;
+  return 0;
+}
+
+// Registers a thread, dynamic shared memory and local (spill) memory
+// bytes a block of the CIN 1 kernel for (cout, odtype, staging mode).
+extern "C" int p2p_conv4d_cin1_attrs(int cout, int odtype, int mode, void* regs,
+                                     void* dyn_smem, void* local) {
+  cudaFuncAttributes a;
+  int dyn = 0;
+  const cudaError_t rc = odtype == 1 ? mma::attrs_cin1<__nv_bfloat16>(cout, mode, &a, &dyn)
+                                     : mma::attrs_cin1<float>(cout, mode, &a, &dyn);
+  if (rc != cudaSuccess) return (int)rc;
+  *(int*)regs = a.numRegs;
   *(int*)dyn_smem = dyn;
   *(int*)local = (int)a.localSizeBytes;
   return 0;

@@ -14,11 +14,15 @@ Cin for tiny Cin (:func:`conv4d_fold_in`), into Cout for tiny Cout
 (:func:`conv4d_fold_out`, whose shift-add is kernel B1). Other k=3
 layers with cin*cout <= 16 go to the direct kernel B4
 (:mod:`.conv4d_small`); the rest accumulate one 2D conv per outer tap
-(:func:`conv4d_xla_taps`). The 2D convs
-run in PyTorch's NCHW layout on the flat ``(B*h1*w1, C, h2, w2)`` view:
-for the NCN's 1- and 16-channel volumes this is the layout cuDNN gives
-naturally, and the 6D channels-last tensors the functions return are
-permuted views of it, never copies.
+(:func:`conv4d_xla_taps`). That is the JAX package's dispatch order, and
+the port's everywhere but in one case: on the card, a bfloat16 k=3 layer
+with Cin 1 and a Cout B4 is built for (the NCN's first layer), where no
+gradient is wanted, runs on B4's Cin-1 kernel instead of the fold-in
+(:func:`conv4d_route`). The 2D convs run in PyTorch's NCHW layout on the
+flat ``(B*h1*w1, C, h2, w2)`` view: for the NCN's 1- and 16-channel
+volumes this is the layout cuDNN gives naturally, and the 6D
+channels-last tensors the functions return are permuted views of it,
+never copies.
 """
 
 from __future__ import annotations
@@ -26,17 +30,26 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from patch2pix_tpu_torch.ops.conv4d_small import conv4d_small
+from patch2pix_tpu_torch.ops.conv4d_small import CIN1_COUTS, conv4d_small
 from patch2pix_tpu_torch.ops.tap_sum import flat_shift_masks, tap_sum
+from patch2pix_tpu_torch.utils import profiling
 
 K_FOLD = 3  # kernel size of the fold and small-channel formulations
 
 
-def conv4d_route(k: int, cin: int, cout: int, device_type: str) -> str:
-    """The formulation :func:`conv4d` takes, in the JAX package's
-    dispatch order (``patch2pix_tpu/ops/conv4d.py:80-90``):
-    ``fold_in``, ``fold_out``, ``small_kernel`` (B4 on a CUDA tensor),
-    ``small_plain`` (its plain version on a CPU tensor) or ``xla_taps``."""
+def conv4d_route(k: int, cin: int, cout: int, device_type: str,
+                 dtype: torch.dtype = torch.float32, needs_grad: bool = False) -> str:
+    """The formulation :func:`conv4d` takes: ``first_layer_kernel`` (B4's
+    Cin-1 kernel) for a bfloat16 CUDA input with Cin 1 and a Cout in
+    :data:`.conv4d_small.CIN1_COUTS` whose conv needs no gradient; else,
+    in the JAX package's dispatch order
+    (``patch2pix_tpu/ops/conv4d.py:80-90``), ``fold_in``, ``fold_out``,
+    ``small_kernel`` (B4 on a CUDA tensor), ``small_plain`` (its plain
+    version on a CPU tensor) or ``xla_taps``. A gradient keeps the
+    fold-in, whose backward is cuDNN's."""
+    if (k == K_FOLD and cin == 1 and cout in CIN1_COUTS and device_type == "cuda"
+            and dtype == torch.bfloat16 and not needs_grad):
+        return "first_layer_kernel"
     if k == K_FOLD and cin <= 2:
         return "fold_in"
     if k == K_FOLD and cout <= 2:
@@ -49,12 +62,15 @@ def conv4d_route(k: int, cin: int, cout: int, device_type: str) -> str:
 def conv4d(x, w, b=None, out_dtype=None):
     """SAME 4D convolution, stride 1; output in float32 unless
     ``out_dtype`` is given (accumulation is float32)."""
-    route = conv4d_route(w.shape[0], w.shape[4], w.shape[5], x.device.type)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, b))
+    route = conv4d_route(w.shape[0], w.shape[4], w.shape[5], x.device.type, x.dtype,
+                         needs_grad)
     if route == "fold_in":
         return conv4d_fold_in(x, w, b, out_dtype)
     if route == "fold_out":
         return conv4d_fold_out(x, w, b, out_dtype)
-    if route in ("small_kernel", "small_plain"):
+    if route in ("first_layer_kernel", "small_kernel", "small_plain"):
         return conv4d_small(x, w, b, out_dtype)
     out = conv4d_xla_taps(x, w, b)
     return out if out_dtype is None else out.to(out_dtype)
@@ -81,6 +97,7 @@ def conv4d_fold_in(x, w, b=None, out_dtype=None):
 
     Exact (the same contraction, reassociated); materialises the
     9-fold shifted stack, meant for Cin=1 (the NCN's first layer)."""
+    profiling.count("conv4d.fold_in", 1)
     k = w.shape[0]
     bs, h1, w1, h2, w2, cin = x.shape
     cout = w.shape[-1]

@@ -3,7 +3,10 @@
 Port of ``patch2pix_tpu.ops.conv4d_pallas.conv4d_pallas``: the path
 :func:`..conv4d.conv4d` takes for k=3 layers with cin > 2, cout > 2 and
 cin*cout <= 16 (after fold-in and fold-out), i.e. any NeighConsensus
-whose ``channels`` put a middle layer in that range.
+whose ``channels`` put a middle layer in that range; and, on the card,
+the NCN's one-channel first layer in bfloat16 where no gradient is
+wanted (Cin 1, Cout in :data:`CIN1_COUTS`), which the JAX package folds
+into Cin (``conv4d_fold_in``).
 
     out[b, i, j, k, l, co] = bias[co] + sum_{di, dj, dk, dl, ci}
         x[b, i+di-1, j+dj-1, k+dk-1, l+dl-1, ci] * w[di, dj, dk, dl, ci, co]
@@ -14,13 +17,15 @@ given. On CUDA tensors the forward launches ``csrc/conv4d.cu``, on CPU
 tensors it runs :func:`conv4d_small_plain`. The two add the 81*cin
 products in different orders, so they agree to float32 rounding.
 
-Two kernels, by x's dtype, both on the tensor cores with one design: for
+Three kernels, all on the tensor cores with one design: for
 each outer tap (di, dj) the (dk, dl, ci) -> co contraction of two output
 rows is one product with a banded filter,
 ``B[tap][(r, dl, ci), (ro, co)] = w[di, dj, r - ro, dl, ci, co]`` for
 0 <= r - ro <= 2 (r one of the four input rows k-1 .. k+2 under output
 rows k, k+1), else 0. bfloat16 runs it on ``mma.sync.m16n8k16`` with the
-channels paired; float32 on ``mma.sync.m16n8k8`` in TF32, each float32
+channels paired, or at Cin 1 with K packed as (row, dl) in one k-step
+(:func:`cin1_k_entry`; that kernel writes its output channels-last);
+float32 on ``mma.sync.m16n8k8`` in TF32, each float32
 product formed from three TF32 products (3xTF32: both operands split by
 ``ops.fine_stage.tf32_split``, the filter here once a call, the input in
 the kernel's registers), which keeps the float32 rule of 1e-4 with
@@ -47,13 +52,20 @@ import torch
 import torch.nn.functional as F
 
 from patch2pix_tpu_torch.ops import _build
+from patch2pix_tpu_torch.utils import profiling
 
 K = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"p2p_conv4d_small_mma": "ppppiiiiiiilllliiip",
                "p2p_conv4d_small_tf32": "ppppiiiiiiilllliiip",
+               "p2p_conv4d_cin1": "ppppiiiiiillliip",
                "p2p_conv4d_small_mma_attrs": "iiiippp",
-               "p2p_conv4d_small_tf32_attrs": "iiiipppp"}
+               "p2p_conv4d_small_tf32_attrs": "iiiipppp",
+               "p2p_conv4d_cin1_attrs": "iiippp"}
+# the Cout csrc/conv4d.cu's Cin-1 kernel is built for: those the port's NCN
+# configurations put after the one-channel input (Patch2Pix 16, ImMatchNet
+# 10, the (4, 4, 1) NCN 4)
+CIN1_COUTS = (4, 10, 16)
 ROWS_IN = 4  # input rows k-1 .. k+2 under the output row pair (k, k+1)
 # the float32 kernel's shared-memory plan, csrc/conv4d.cu's constants (a
 # CPU test holds the two together): a staged plane is ROWS input rows of
@@ -65,10 +77,22 @@ def mma_dims(cin, cout, pairs=True):
     """(channels as staged, k-steps, n-tiles of 8) of the banded filter:
     K = (4 rows, 3 dl, channels), N = (2 rows, cout), each padded to the
     MMA tile. bf16 (``pairs``) pairs the channels (cin padded to even)
-    in k-steps of 16 (m16n8k16); float32 keeps cin in k-steps of 8
-    (m16n8k8 TF32)."""
+    in k-steps of 16 (m16n8k16), except cin 1, whose 12 (row, dl)
+    entries fill one k-step (:func:`cin1_k_entry`); float32 keeps cin in
+    k-steps of 8 (m16n8k8 TF32)."""
+    if pairs and cin == 1:
+        return 1, 1, -(-2 * cout // 8)
     cinp, depth = (cin + cin % 2, 16) if pairs else (cin, 8)
     return cinp, -(-ROWS_IN * K * cinp // depth), -(-2 * cout // 8)
+
+
+def cin1_k_entry(k):
+    """The (input row r, dl) of entry k of the Cin-1 kernel's K, or None
+    past its 12: the pair 2q, 2q + 1 (q = 3h + dl) is rows 2h and 2h + 1
+    of the four under an output row pair at column dl, the two halves of
+    one staged 32-bit word."""
+    q, rr = divmod(k, 2)
+    return None if q >= 6 else (2 * (q // 3) + rr, q % 3)
 
 
 def tf32_smem_bytes(cin, cout):
@@ -87,10 +111,19 @@ def band_index(cin, cout, pairs=True):
     + co)`` of the banded filter, its flat index in ``w.reshape(-1)``
     (``w`` of shape (3, 3, 3, 3, cin, cout)), that of ``w[di, dj, r - ro,
     dl, ci, co]``, or -1 where the entry is zero (outside the band, a pad
-    channel, row or column)."""
+    channel, row or column). bf16 at cin 1 orders K by
+    :func:`cin1_k_entry` instead."""
     cinp, ks, nt = mma_dims(cin, cout, pairs)
     idx = np.full((K * K, ks * (16 if pairs else 8), nt * 8), -1, np.int64)
     flat = np.arange(K ** 4 * cin * cout).reshape(K * K, K, K, cin, cout)
+    if pairs and cin == 1:
+        for k in range(16):
+            if (entry := cin1_k_entry(k)) is not None:
+                r, dl = entry
+                for ro in range(2):
+                    if 0 <= r - ro < K:
+                        idx[:, k, ro * cout:(ro + 1) * cout] = flat[:, r - ro, dl, 0]
+        return idx
     for r in range(ROWS_IN):
         for ro in range(2):
             if 0 <= r - ro < K:
@@ -150,9 +183,14 @@ def staging_mode(x):
     bf16, 16 in float32) where x is channels-last with Cin 4 (ci
     contiguous, l stride 4, the j and k strides multiples of 4, a
     position's 4 elements aligned to their size), as the volume the NCN's
-    fold-in leaves on the card; else 0 (any strides, one load an
-    element)."""
+    first layer leaves on the card; 2 (16-byte loads of 8 positions along
+    l) where x is bf16 with Cin 1, l stride 1, the j and k strides and w2
+    multiples of 8 and x 16-byte aligned, as the NCN's input volume; else
+    0 (any strides, one load an element)."""
     _, _, sj, sk, sl, sc = x.stride()
+    if x.shape[5] == 1:
+        return 2 * int(x.dtype == torch.bfloat16 and sl == 1 and sj % 8 == 0 and sk % 8 == 0
+                       and x.shape[4] % 8 == 0 and x.data_ptr() % 16 == 0)
     cl4 = (x.shape[5] == 4 and sc == 1 and sl == 4 and sj % 4 == 0 and sk % 4 == 0
            and x.data_ptr() % (4 * x.element_size()) == 0)
     return int(cl4)
@@ -185,8 +223,10 @@ def _launch(x, w, b, out_dtype):
     odt = torch.float32 if out_dtype is None else out_dtype
     if x.dtype not in _DTYPES or odt not in _DTYPES:
         raise TypeError(f"conv4d_small: x {x.dtype}, out_dtype {odt}")
-    if w.shape[:4] != (K,) * 4 or w.shape[4] != cin or cin * cout > 16 or min(cin, cout) < 3:
-        raise ValueError(f"conv4d_small: filter {tuple(w.shape)}")
+    cin1 = cin == 1 and cout in CIN1_COUTS and x.dtype == torch.bfloat16
+    if w.shape[:4] != (K,) * 4 or w.shape[4] != cin or not (
+            cin1 or (cin * cout <= 16 and min(cin, cout) >= 3)):
+        raise ValueError(f"conv4d_small: filter {tuple(w.shape)} on {x.dtype}")
     sb, si, sj, sk, sl, sc = x.stride()
     if si != w1 * sj or sb != h1 * si:
         # the kernel walks the cells (b, i, j) with one stride
@@ -203,13 +243,25 @@ def _launch(x, w, b, out_dtype):
         wf = tf32_fragments(banded_filter(w.float(), pairs=False))
     bias = (torch.zeros(cout, dtype=torch.float32, device=dev) if b is None
             else b.float().contiguous())
-    # written NCHW per cell, (B*h1*w1, Cout, h2, w2), the layout the
-    # NCN's next cuDNN conv reads; returned as the 6D channels-last view
-    out = torch.empty((bs * h1 * w1, cout, h2, w2), dtype=odt, device=dev)
     lib = _build.library("conv4d", _SIGNATURES)
-    args = (x.data_ptr(), wf.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            bs, h1, w1, h2, w2, cin, cout, sj, sc, sk, sl, _DTYPES[x.dtype], _DTYPES[odt])
     stream = _build.current_stream(dev)
+    ptrs = (x.data_ptr(), wf.data_ptr(), bias.data_ptr())
+    if cin1:
+        # written channels-last, the layout the next layer's cuDNN conv
+        # takes as it is
+        out = torch.empty((bs, h1, w1, h2, w2, cout), dtype=odt, device=dev)
+        rc = lib.p2p_conv4d_cin1(*ptrs, out.data_ptr(), bs, h1, w1, h2, w2, cout, sj, sk, sl,
+                                 _DTYPES[odt], mode, stream)
+        _build.check_launch(rc, "conv4d_small (Cin 1)")
+        conv4d_small.launches += 1
+        conv4d_small.cin1_launches += 1
+        profiling.count("conv4d.first_layer_kernel", 1)
+        return out
+    # written NCHW per cell, (B*h1*w1, Cout, h2, w2); returned as the 6D
+    # channels-last view
+    out = torch.empty((bs * h1 * w1, cout, h2, w2), dtype=odt, device=dev)
+    args = (*ptrs, out.data_ptr(), bs, h1, w1, h2, w2, cin, cout, sj, sc, sk, sl,
+            _DTYPES[x.dtype], _DTYPES[odt])
     entry = lib.p2p_conv4d_small_mma if mma else lib.p2p_conv4d_small_tf32
     _build.check_launch(entry(*args, mode, stream), "conv4d_small")
     conv4d_small.launches += 1
@@ -254,11 +306,12 @@ class _Conv4dSmall(torch.autograd.Function):
 
 def conv4d_small(x, w, b=None, out_dtype=None):
     """x ``(B, h1, w1, h2, w2, Cin)`` float32 or bfloat16, w
-    ``(3, 3, 3, 3, Cin, Cout)`` with Cin, Cout > 2 and Cin*Cout <= 16
-    (any layout), bias ``(Cout,)`` -> ``(B, h1, w1, h2, w2, Cout)``
-    float32 or ``out_dtype``. On the card x may be any view whose cells
-    (b, i, j) share one stride, and the result is a permuted view of an
-    NCHW-per-cell tensor."""
+    ``(3, 3, 3, 3, Cin, Cout)`` with Cin, Cout > 2 and Cin*Cout <= 16, or
+    (bfloat16 x on the card) Cin 1 and Cout in :data:`CIN1_COUTS` (any
+    layout), bias ``(Cout,)`` -> ``(B, h1, w1, h2, w2, Cout)`` float32 or
+    ``out_dtype``. On the card x may be any view whose cells (b, i, j)
+    share one stride; the result of Cin 1 is contiguous (channels-last),
+    any other a permuted view of an NCHW-per-cell tensor."""
     return _Conv4dSmall.apply(x, w, b, out_dtype)
 
 
@@ -266,3 +319,4 @@ conv4d_small.launches = 0
 conv4d_small.mma_launches = 0  # of those, the bf16 kernel's (m16n8k16)
 conv4d_small.tf32_launches = 0  # of those, the float32 kernel's (3xTF32 m16n8k8)
 conv4d_small.channels_last_launches = 0  # of those, staging channels-last Cin 4
+conv4d_small.cin1_launches = 0  # the Cin-1 kernel's (bf16 m16n8k16), counted in launches too

@@ -23,7 +23,11 @@ at ragged tiles and strips, h1 or w1 of 1, odd h2, both input layouts,
 with and without bias) float32
 atol 1e-4, bf16 output within one bf16 ulp + 1e-5 (a sum that
 cancels to near zero keeps the float32 rounding of its terms), its backward
-through the kernel against the CPU's to rtol 1e-5 / atol 1e-4;
+through the kernel against the CPU's to rtol 1e-5 / atol 1e-4; its Cin-1
+kernel (the NCN's bf16 first layer, Cout 4, 10 and 16, both stagings, the
+transposed branch's filter) by the same rules and against the fold-in it
+replaces, a bf16 NCN (16, 1) and (10, 10, 1) against the fold-in route,
+and the first layer's counters under ``tracing()``;
 expand_level bit-identical (C from 1 to 256, M from 1 to 2400, every
 tile side, rows off a 16-byte boundary); fused_fine_head float32 (3xTF32
 products) rtol/atol 2e-4, bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
@@ -330,6 +334,116 @@ def test_conv4d_small_backward_matches_cpu(cuda):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("dims,with_bias", [
+    # ragged (k, l) tiles and a strip of 5 cells; w2 40 (16-byte staging)
+    ((2, 3, 5, 11, 40), True),
+    ((1, 1, 6, 9, 24), False),  # h1 = 1
+    ((2, 4, 1, 17, 48), True),  # w1 = 1, odd h2: the last row pair cut
+    # two row tiles and two column tiles; w1 = 17 a strip of 16 cells and one of 1
+    ((1, 3, 17, 35, 64), False),
+    ((1, 2, 3, 7, 13), True),   # w2 13: staged an element at a time, stored one at a time
+], ids=["ragged", "h1_1", "w1_1", "tiles", "odd_w2"])
+@pytest.mark.parametrize("odtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("cout", [4, 10, 16])
+def test_conv4d_cin1_matches_plain_and_fold_in(cuda, cout, odtype, dims, with_bias):
+    """B4's Cin-1 kernel (the NCN's bf16 first layer) against its plain
+    version by B4's rules, and against the fold-in it replaces on the
+    card: that rounds the bias-free sum to bf16 before adding the bias,
+    so it may lie a further half bf16 ulp of that sum away. The input
+    whole (staged 16 bytes at a time where w2 allows) and cut to w2 - 1
+    positions a row (one element at a time); the filter as given and as
+    the transposed branch permutes it."""
+    import importlib
+
+    conv4d_module = importlib.import_module("patch2pix_tpu_torch.ops.conv4d")
+    rs = _rs(7)
+    x = torch.from_numpy(rs.standard_normal(dims + (1,)).astype(np.float32)).to(cuda)
+    x = x.bfloat16()
+    w = torch.from_numpy((rs.standard_normal((3, 3, 3, 3, 1, cout)) * 0.2)
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rs.standard_normal(cout) * 0.1).astype(np.float32)).to(cuda)
+    b = b if with_bias else None
+    for xin in (x, x[:, :, :, :, :-1]):
+        for wt in (w, w.permute(2, 3, 0, 1, 4, 5)):
+            n0, c0 = conv4d_small.launches, conv4d_small.cin1_launches
+            got = conv4d_small(xin, wt, b, odtype)
+            assert conv4d_small.launches == n0 + 1 and conv4d_small.cin1_launches == c0 + 1
+            want = conv4d_small_plain(xin, wt, b, odtype)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert got.is_contiguous()  # channels-last
+            if odtype is None:
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+            else:
+                assert bf16_ulps(got.float(), want.float(), atol=1e-5).max() <= 1
+            folded = conv4d_module.conv4d_fold_in(xin, wt.to(torch.bfloat16), b, odtype)
+            ulp = lambda v: torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+            c = conv4d_small_plain(xin, wt, None)
+            tol = 1e-4 if odtype is None else ulp(want.float()) + 1e-5
+            if b is not None or odtype is None:
+                tol = tol + ulp(c) / 2
+            assert ((got.float() - folded.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("channels,batch", [((16, 1), 2), ((10, 10, 1), 1)],
+                         ids=["patch2pix", "immatch"])
+def test_ncn_first_layer_kernel_matches_fold_in(cuda, channels, batch, monkeypatch):
+    """A bf16 symmetric NeighConsensus whose first layer runs on B4's
+    Cin-1 kernel (twice a call) against the same module with the route
+    forced to the fold-in; rule of chip_smoke's phase 5: max abs err
+    within 2^-4 of max |ref|, at most 1e-4 of the values off by more
+    than 2^-7 of it (the kernel rounds the first layer once, the fold-in
+    twice: a bf16 flip there moves the next layer's sums)."""
+    import importlib
+
+    from patch2pix_tpu_torch.models.ncn import NeighConsensus
+
+    conv4d_module = importlib.import_module("patch2pix_tpu_torch.ops.conv4d")
+    torch.manual_seed(0)
+    ncn = NeighConsensus(kernel_sizes=(3,) * len(channels), channels=channels,
+                         dtype=torch.bfloat16, device=cuda)
+    corr = torch.from_numpy(_rs(8).uniform(-1, 1, (batch, 6, 9, 7, 16))
+                            .astype(np.float32)).to(cuda)
+    c0 = conv4d_small.cin1_launches
+    with torch.no_grad():
+        got = ncn(corr)
+    assert conv4d_small.cin1_launches == c0 + 2
+    route = conv4d_module.conv4d_route
+    monkeypatch.setattr(conv4d_module, "conv4d_route",
+                        lambda k, cin, cout, dev, dtype, grad: route(k, cin, cout, dev, dtype,
+                                                                     True))
+    with torch.no_grad():
+        want = ncn(corr)
+    assert conv4d_small.cin1_launches == c0 + 2
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    assert diff.max().item() <= 2 ** -4 * scale
+    assert (diff > 2 ** -7 * scale).sum().item() <= 1e-4 * diff.numel()
+
+
+@pytest.mark.parametrize("case,channels,kernels,fold_ins", [
+    ("bf16", (16, 1), 2, 0), ("bf16", (10, 10, 1), 2, 0), ("float32", (16, 1), 0, 2),
+    ("grad", (16, 1), 0, 2)])
+def test_ncn_first_layer_counters(cuda, case, channels, kernels, fold_ins):
+    """Under ``tracing()`` a symmetric NCN call (Patch2Pix's (16, 1),
+    ImMatchNet's (10, 10, 1)) counts its first layer: two launches of
+    B4's Cin-1 kernel and no fold-in in bf16 with no gradient; two
+    fold-ins in float32, and in bf16 where the weights want gradients
+    (NCN pretraining)."""
+    from patch2pix_tpu_torch.models.ncn import NeighConsensus
+    from patch2pix_tpu_torch.utils import profiling
+
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    ncn = NeighConsensus(kernel_sizes=(3,) * len(channels), channels=channels, dtype=dtype,
+                         device=cuda)
+    corr = torch.rand((1, 4, 6, 5, 8), device=cuda)
+    profiling.drain()
+    with torch.set_grad_enabled(case == "grad"), profiling.tracing():
+        ncn(corr)
+    counters = profiling.drain()["counters"]
+    assert counters.get("conv4d.first_layer_kernel", 0) == kernels
+    assert counters.get("conv4d.fold_in", 0) == fold_ins
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [1, 2, 3, 5, 8, 64, 128, 256])
 @pytest.mark.parametrize("m", [1, 29, 2400])
@@ -584,6 +698,11 @@ def test_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros((1, 2, 2, 3, 3, 4), device=cuda)
     with pytest.raises(ValueError):  # cin * cout > 16: not B4's range
         conv4d_small(x, torch.zeros((3, 3, 3, 3, 4, 5), device=cuda))
+    x1 = torch.zeros((1, 2, 2, 3, 8, 1), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # Cin 1: the kernel is built for Cout 4, 10, 16
+        conv4d_small(x1, torch.zeros((3, 3, 3, 3, 1, 8), device=cuda))
+    with pytest.raises(ValueError):  # Cin 1 in float32: no kernel
+        conv4d_small(x1.float(), torch.zeros((3, 3, 3, 3, 1, 16), device=cuda))
     with pytest.raises(TypeError):
         expand_level(torch.zeros((2, 4, 2, 2), device=cuda, dtype=torch.float64),
                      *(torch.zeros(2, device=cuda, dtype=torch.int32),) * 2, PSIZE)

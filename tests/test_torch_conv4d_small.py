@@ -5,7 +5,10 @@ On the CPU ``conv4d_small`` runs its plain version; it is held against
 kernel's banded filter (``banded_filter``) multiplied out over im2col'd
 rows, as the kernel multiplies it, is held to both in float32 to 1e-5,
 and its B fragments (``mma_fragments``) to the m16n8k16 register layout
-bit for bit. The float32 kernel's unpaired band, multiplied out as
+bit for bit; so is the Cin-1 kernel's, whose K holds the two rows of a
+column as one pair. The dispatcher's route (the Cin-1 kernel for a bf16
+first layer on the card without a gradient, else the JAX order) and the
+staging modes are held here too. The float32 kernel's unpaired band, multiplied out as
 three TF32 products a product (``tf32_split``'s parts, lo read as the
 tensor cores read it) and summed per outer tap in float32, is held to
 both to 1e-5, where one TF32 product misses; its hi and lo fragments
@@ -47,6 +50,7 @@ from patch2pix_tpu_torch.ops.conv4d_small import (
     tf32_smem_bytes,
 )
 from patch2pix_tpu_torch.ops.fine_stage import tf32_split
+from patch2pix_tpu_torch.utils import profiling
 from patch2pix_tpu_torch.utils.jax_import import ncn_state_dict_from_jax
 from tests.test_torch_fine_stage import _cu_constants
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401
@@ -120,14 +124,32 @@ def test_transpose_symmetric_matches_jax():
     (1, 16, "fold_in"), (2, 2, "fold_in"), (16, 1, "fold_out"), (3, 2, "fold_out"),
     (3, 3, "small"), (3, 4, "small"), (3, 5, "small"), (4, 3, "small"), (4, 4, "small"),
     (5, 3, "small"), (4, 5, "xla_taps"), (3, 6, "xla_taps"), (16, 16, "xla_taps"),
+    # the NCN's first layers (ImMatchNet's, the (4, 4, 1) NCN's), and Couts
+    # after one channel that B4's Cin-1 kernel is not built for
+    (1, 10, "fold_in"), (1, 4, "fold_in"), (1, 8, "fold_in"), (1, 1, "fold_in"),
 ])
 def test_dispatch_route(cin, cout, route):
     """The JAX dispatch order: fold-in, fold-out, then B4 (the kernel on
-    a CUDA tensor, its plain version on a CPU tensor), else per-tap."""
+    a CUDA tensor, its plain version on a CPU tensor), else per-tap; the
+    route in float32 on either device, on the CPU in bf16, and wherever
+    a gradient is wanted. One exception: a bf16 first layer (Cin 1, Cout
+    4, 10 or 16) on the card needing no gradient takes B4's Cin-1
+    kernel instead of the fold-in."""
+    first_layer = cin == 1 and cout in (4, 10, 16)
     for dev in ("cuda", "cpu"):
-        want = route if route != "small" else ("small_kernel" if dev == "cuda" else "small_plain")
-        assert conv4d_route(3, cin, cout, dev) == want
-    assert conv4d_route(5, cin, cout, "cuda") == "xla_taps"
+        for dtype in (torch.float32, torch.bfloat16):
+            for grad in (False, True):
+                if first_layer and (dev, dtype, grad) == ("cuda", torch.bfloat16, False):
+                    want = "first_layer_kernel"
+                elif route == "small":
+                    want = "small_kernel" if dev == "cuda" else "small_plain"
+                else:
+                    want = route
+                assert conv4d_route(3, cin, cout, dev, dtype, grad) == want
+        # float32 without a gradient by default
+        assert conv4d_route(3, cin, cout, dev) == conv4d_route(3, cin, cout, dev,
+                                                               torch.float32, False)
+    assert conv4d_route(5, cin, cout, "cuda", torch.bfloat16) == "xla_taps"
 
 
 @pytest.mark.parametrize("with_bias", [True, False])
@@ -175,6 +197,25 @@ def test_ncn_441_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ncn_first_layer_counts_fold_in_on_cpu(dtype):
+    """On the CPU the NCN's first layer stays the fold-in, in either
+    type: a symmetric (16, 1) call counts two fold-ins and no Cin-1
+    kernel under ``tracing()``, and nothing outside it."""
+    ncn = NeighConsensus(channels=(16, 1), dtype=dtype, device="cpu")
+    corr = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 3, 4, 3, 4))
+                            .astype(np.float32))
+    profiling.drain()
+    with torch.no_grad():
+        ncn(corr)
+        assert profiling.drain()["counters"] == {}
+        with profiling.tracing():
+            ncn(corr)
+    counters = profiling.drain()["counters"]
+    assert counters.get("conv4d.fold_in") == 2
+    assert "conv4d.first_layer_kernel" not in counters
+
+
 def _band_conv(x, w, b, pairs=True, product=torch.matmul):
     """The kernels' arithmetic in float32: for each outer tap, the
     im2col'd rows (4 input rows, 3 dl, channels: padded to even where the
@@ -187,12 +228,15 @@ def _band_conv(x, w, b, pairs=True, product=torch.matmul):
     band = banded_filter(w, pairs)
     h2p = h2 + h2 % 2  # an odd h2 cuts the last row pair
     xp = F.pad(x, (0, cinp - cin, 1, 1, 1, 1 + h2p - h2, 1, 1, 1, 1))
+    # K: (row r, dl, channel), channel fastest; bf16 at Cin 1: (row pair
+    # h, dl, row 2h or 2h + 1), the two rows of a column one K pair
+    rows = ([(2 * h + rr, dl) for h in range(2) for dl in range(3) for rr in range(2)]
+            if pairs and cin == 1 else [(r, dl) for r in range(4) for dl in range(3)])
     acc = 0
     for tap in range(9):
         di, dj = divmod(tap, 3)
         src = xp[:, di:di + h1, dj:dj + w1]
-        a = torch.stack([torch.stack([src[:, :, :, r:r + h2p:2, dl:dl + w2] for dl in range(3)],
-                                     dim=-2) for r in range(4)], dim=-3)
+        a = torch.stack([src[:, :, :, r:r + h2p:2, dl:dl + w2] for r, dl in rows], dim=-2)
         a = a.reshape(bs, h1, w1, h2p // 2, w2, 12 * cinp)
         a = F.pad(a, (0, band.shape[1] - 12 * cinp))
         acc = acc + product(a, band[tap])[..., :2 * cout]
@@ -200,7 +244,7 @@ def _band_conv(x, w, b, pairs=True, product=torch.matmul):
     return out.reshape(bs, h1, w1, h2p, w2, cout)[:, :, :, :h2] + b
 
 
-@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3)])
+@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3), (1, 4), (1, 10), (1, 16)])
 def test_banded_filter_matches_plain_and_pallas(cin, cout):
     """A bad band offset, pad or row-pair split shows here on the CPU."""
     dims = (1, 3, 4, 5, 6)  # odd h2
@@ -213,7 +257,7 @@ def test_banded_filter_matches_plain_and_pallas(cin, cout):
     np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3)])
+@pytest.mark.parametrize("cin,cout", [(3, 5), (4, 4), (5, 3), (1, 4), (1, 10), (1, 16)])
 def test_mma_fragments_follow_the_register_layout(cin, cout):
     """mma.sync m16n8k16 B: register j of lane 4g + t holds rows
     16ks + 8j + 2t (low half) and + 1 (high half) of column 8nt + g."""
@@ -328,35 +372,48 @@ def _nchw_view(x):
 
 
 @pytest.mark.parametrize("layout,cin,mode", [
-    ("channels_last", 4, 1),   # the fold-in's volume: one 8-byte load a position
+    ("channels_last", 4, 1),   # the first layer's volume: one 8-byte load a position
     ("channels_last", 3, 0),   # 6-byte positions
     ("offset", 4, 0),          # 2 bytes off an 8-byte boundary
     ("nchw", 4, 0),            # the NCHW-per-cell view: one 2-byte load an element
+    ("channels_last", 1, 2),   # the NCN's input: 16-byte loads of 8 positions along l
+    ("offset", 1, 0),          # 2 bytes off a 16-byte boundary
+    ("narrow", 1, 0),          # w2 7 of a row of 8: a load would cross the row's end
+    ("strided", 1, 0),         # l stride 2
 ])
 def test_staging_mode(layout, cin, mode):
     assert staging_mode(_staged(layout, cin, torch.bfloat16)) == mode
 
 
 def _staged(layout, cin, dtype):
-    """A (1, 2, 3, 4, 6, cin) input in ``layout``; "offset": bf16 2 bytes
-    past an 8-byte boundary, float32 8 bytes past a 16-byte one."""
-    dims = (1, 2, 3, 4, 6)
+    """A (1, 2, 3, 4, w2, cin) input in ``layout``, w2 6 (8 at Cin 1);
+    "offset": bf16 2 bytes past an 8-byte boundary (a 16-byte one at Cin
+    1), float32 8 bytes past a 16-byte one; "narrow": the first w2 - 1
+    positions of each row; "strided": every other position of rows of
+    2 * w2."""
+    dims = (1, 2, 3, 4, 8 if cin == 1 else 6)
     x = torch.zeros(dims + (cin,), dtype=dtype)
     if layout == "nchw":
         x = _nchw_view(x)
+    elif layout == "narrow":
+        x = x[:, :, :, :, :-1]
+    elif layout == "strided":
+        x = torch.zeros(dims[:4] + (2 * dims[4], cin), dtype=dtype)[:, :, :, :, ::2]
     elif layout == "offset":
         size = x.element_size()
         base = torch.zeros(x.numel() + 8, dtype=dtype)
-        off = (-base.data_ptr() % (4 * size)) // size + (1 if size == 2 else 2)
+        align = 16 if cin == 1 else 4 * size
+        off = (-base.data_ptr() % align) // size + (1 if size == 2 else 2)
         x = base[off:off + x.numel()].view(x.shape)
     return x
 
 
 @pytest.mark.parametrize("layout,cin,mode", [
-    ("channels_last", 4, 1),   # the fold-in's volume: one 16-byte load a position
+    ("channels_last", 4, 1),   # the first layer's volume: one 16-byte load a position
     ("channels_last", 3, 0),   # 12-byte positions
     ("offset", 4, 0),          # 8 bytes off a 16-byte boundary (bf16's rule would take it)
     ("nchw", 4, 0),            # the NCHW-per-cell view: one 4-byte load an element
+    ("channels_last", 1, 0),   # Cin 1 in float32: no kernel of B4 stages it by rows
 ])
 def test_staging_mode_float32(layout, cin, mode):
     x = _staged(layout, cin, torch.float32)
