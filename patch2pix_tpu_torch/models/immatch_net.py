@@ -113,10 +113,12 @@ class ImMatchNet(nn.Module):
         return self._match(featA, featB)
 
     def _match(self, fa, fb):
-        corr = feat_correlation(fa, fb)
+        with profiling.span("coarse.corr"):
+            corr = feat_correlation(fa, fb)
         delta4d = None
         if self.relocalization_k_size > 1:
-            corr, delta4d = maxpool4d(corr, self.relocalization_k_size)
+            with profiling.span("coarse.reloc"):
+                corr, delta4d = maxpool4d(corr, self.relocalization_k_size)
         corr = mutual_matching(corr)
         corr = self.NeighConsensus(corr)
         return mutual_matching(corr), delta4d

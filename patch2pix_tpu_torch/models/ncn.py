@@ -18,7 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from patch2pix_tpu_torch.ops.conv4d import conv4d, conv4d_transpose_symmetric
+from patch2pix_tpu_torch.ops.conv4d import conv4d, conv4d_transpose_symmetric, route_of
 from patch2pix_tpu_torch.utils import profiling
 
 
@@ -63,8 +63,11 @@ class NeighConsensus(nn.Module):
                 # intermediate volumes are stored in the compute dtype;
                 # the final layer keeps the f32 accumulator
                 od = self.dtype if li < len(convs) - 1 else None
-                x = torch.relu(op(x.to(self.dtype), layer.kernel().to(self.dtype),
-                                  layer.bias, out_dtype=od))
+                xi, w = x.to(self.dtype), layer.kernel().to(self.dtype)
+                # one span a layer and direction, named by its formulation
+                route = route_of(xi, w, layer.bias)
+                with profiling.span("coarse.ncn." + route):
+                    x = torch.relu(op(xi, w, layer.bias, out_dtype=od, route=route))
             return x
 
         with profiling.span("coarse.ncn"):

@@ -59,13 +59,18 @@ def conv4d_route(k: int, cin: int, cout: int, device_type: str,
     return "xla_taps"
 
 
-def conv4d(x, w, b=None, out_dtype=None):
-    """SAME 4D convolution, stride 1; output in float32 unless
-    ``out_dtype`` is given (accumulation is float32)."""
+def route_of(x, w, b=None) -> str:
+    """:func:`conv4d_route` of the call ``conv4d(x, w, b)``."""
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, w, b))
-    route = conv4d_route(w.shape[0], w.shape[4], w.shape[5], x.device.type, x.dtype,
-                         needs_grad)
+    return conv4d_route(w.shape[0], w.shape[4], w.shape[5], x.device.type, x.dtype, needs_grad)
+
+
+def conv4d(x, w, b=None, out_dtype=None, route=None):
+    """SAME 4D convolution, stride 1; output in float32 unless
+    ``out_dtype`` is given (accumulation is float32). ``route``: the
+    caller's :func:`route_of` of this call, if it has one."""
+    route = route or route_of(x, w, b)
     if route == "fold_in":
         return conv4d_fold_in(x, w, b, out_dtype)
     if route == "fold_out":
@@ -146,6 +151,7 @@ def conv4d_fold_out(x, w, b=None, out_dtype=None):
 def conv4d_xla_taps(x, w, b=None):
     """One 2D conv over (h2, w2) per outer (di, dj) tap, accumulated in
     float32 — the general path (never materialises the shifted stack)."""
+    profiling.count("conv4d.xla_taps", 1)
     k = w.shape[0]
     pad = k // 2
     bs, h1, w1, h2, w2, cin = x.shape
@@ -163,8 +169,8 @@ def conv4d_xla_taps(x, w, b=None):
     return _from_flat_nchw(out, bs, h1, w1)
 
 
-def conv4d_transpose_symmetric(x, w, b=None, out_dtype=None):
+def conv4d_transpose_symmetric(x, w, b=None, out_dtype=None, route=None):
     """conv4d of the A<->B transposed volume, transposed back — by the
     axis-pair symmetry of the 4D convolution this is ``conv4d(x, w')``
-    with ``w'[a, b, c, d] = w[c, d, a, b]``."""
-    return conv4d(x, w.permute(2, 3, 0, 1, 4, 5), b, out_dtype=out_dtype)
+    with ``w'[a, b, c, d] = w[c, d, a, b]`` (the same route)."""
+    return conv4d(x, w.permute(2, 3, 0, 1, 4, 5), b, out_dtype=out_dtype, route=route)

@@ -20,7 +20,8 @@ port (``device="cpu"``):
   * ``NeighConsensus`` at (3, 3, 3)/(10, 10, 1) and (5, 5, 5)/(16, 16,
     1), symmetric and not: rtol/atol 1e-5;
   * ``ImMatchNet`` end to end (vgg with relocalisation 0 and 2,
-    densenet201, resnet101, ``forward_feat``), weights carried from the
+    densenet201, resnet101, ``forward_feat``, and NCNet's InLoc model:
+    resnet101 with relocalisation 2 and the NCN (3, 3, 3)/(16, 16, 1)), weights carried from the
     JAX tree by ``load_jax_immatch_variables``: rtol 1e-4 of the
     volume's scale, offsets equal;
   * the checkpoint layouts (an NCNet dict with legacy ``.vgg.`` keys,
@@ -380,6 +381,25 @@ def test_immatch_net_matches_jax(cnn, reloc):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     else:
         assert delta is None and wdelta is None
+
+
+def test_immatch_net_inloc_matches_jax():
+    """NCNet's InLoc model: ResNet101, relocalisation 2, NCN (3, 3, 3)/(16,
+    16, 1), whose 16 -> 16 layer takes the per-tap route."""
+    kw = dict(feature_extraction_cnn="resnet101", relocalization_k_size=2,
+              ncons_kernel_sizes=(3, 3, 3), ncons_channels=(16, 16, 1))
+    port = ImMatchNet(**kw, device="cpu")
+    jm = JaxImMatchNet(**kw)
+    a, b = images(13), images(14)
+    params, stats = _jax_immatch_variables("resnet101", port)
+    variables = jax_vars(jm, params, stats, SMALL, SMALL)
+    load_jax_immatch_variables(port, variables)
+    with torch.no_grad():
+        corr, delta = port(T(a), T(b))
+    want, wdelta = jit_apply(jm)(variables, jnp.asarray(a), jnp.asarray(b))
+    close_scaled(corr, want)
+    for g, w in zip(delta, wdelta):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_immatch_forward_feat_matches_jax(rng):

@@ -9,8 +9,11 @@
   * on, ``predict_fine``'s span tree has the stage names, parents and
     one call id; every aten op of both matching paths lies inside a
     ``backbone``, ``coarse`` or ``fine`` span; the row counters equal
-    the returned ``Matches``' counts; ImMatchNet's tree nests the NCN
-    under ``coarse`` and ``corr_to_matches`` is a root of its own; the
+    the returned ``Matches``' counts; ImMatchNet's tree nests the
+    correlation, the relocalising pool and the NCN under ``coarse``, the
+    NCN holds one ``coarse.ncn.<route>`` span a layer and direction, and
+    ``corr_to_matches`` is a root of its own; ``conv4d.xla_taps`` counts
+    one per-tap layer call a direction; the
     train step has its phase spans, ``train.allreduce`` only with a
     group; a library's first load is ``setup.kernel_load.<name>`` with
     ``setup.nvcc`` and ``kernels.nvcc_runs`` when it compiles; ``drain``
@@ -27,6 +30,7 @@ import torch
 from patch2pix_tpu_torch.config import ModelConfig, OptimConfig, RegressorConfig
 from patch2pix_tpu_torch.data.synthetic import synthetic_batch
 from patch2pix_tpu_torch.models.immatch_net import ImMatchNet
+from patch2pix_tpu_torch.models.ncn import NeighConsensus
 from patch2pix_tpu_torch.models.patch2pix import Patch2Pix
 from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops.match_extract import corr_to_matches
@@ -67,6 +71,16 @@ def ncnet():
         return ImMatchNet(ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def ncnet_reloc():
+    """ImMatchNet with relocalisation and NCNet's InLoc NCN: its 16 -> 16
+    layer takes the per-tap route."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        return ImMatchNet(ncons_kernel_sizes=(3, 3, 3), ncons_channels=(16, 16, 1),
+                          relocalization_k_size=2, device="cpu")
+
+
 def _images(seed, b=2):
     g = torch.Generator().manual_seed(seed)
     base = torch.rand(b, H, W + 8, 3, generator=g)
@@ -85,7 +99,7 @@ def _run_immatch(model):
     im1, im2 = NCNET_PAIR
     with torch.inference_mode():
         corr, delta = model(im1, im2)
-        return corr_to_matches(corr, delta)
+        return corr_to_matches(corr, delta, ksize=model.relocalization_k_size or 1)
 
 
 def _run_train(model):
@@ -119,8 +133,9 @@ class FakeEvent:
         return 1.0
 
 
-@pytest.mark.parametrize("path", ["predict_fine", "immatch", "train_step"])
-def test_off_path_touches_nothing_and_equals_the_traced_run(monkeypatch, p2p, ncnet, path):
+@pytest.mark.parametrize("path", ["predict_fine", "immatch", "train_step", "immatch_reloc"])
+def test_off_path_touches_nothing_and_equals_the_traced_run(monkeypatch, p2p, ncnet, ncnet_reloc,
+                                                            path):
     entered, syncs = [], []
     real_rf = torch.profiler.record_function
 
@@ -133,7 +148,8 @@ def test_off_path_touches_nothing_and_equals_the_traced_run(monkeypatch, p2p, nc
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a))
     monkeypatch.setattr(profiling, "_cuda_in_use", lambda: True)
     run = {"predict_fine": lambda: _run_p2p(p2p), "immatch": lambda: _run_immatch(ncnet),
-           "train_step": lambda: _run_train(_p2p())}[path]
+           "train_step": lambda: _run_train(_p2p()),
+           "immatch_reloc": lambda: _run_immatch(ncnet_reloc)}[path]
     FakeEvent.made = 0
     off = _flat(run())
     assert (entered, FakeEvent.made, syncs) == ([], 0, [])
@@ -153,9 +169,11 @@ def test_predict_fine_span_tree(p2p):
     by_id = {s["id"]: s for s in spans}
     tree = [(s["name"], by_id[s["parent"]]["name"] if s["parent"] is not None else None)
             for s in spans]
+    # the NCN (3, 3)/(16, 1) in float32: a span a layer and direction
+    ncn = [("coarse.ncn.fold_in", "coarse.ncn"), ("coarse.ncn.fold_out", "coarse.ncn")] * 2
     assert tree == [("predict_fine", None), ("backbone", "predict_fine"),
                     ("coarse", "predict_fine"), ("coarse.corr", "coarse"),
-                    ("coarse.ncn", "coarse"), ("coarse.extract", "coarse"),
+                    ("coarse.ncn", "coarse"), *ncn, ("coarse.extract", "coarse"),
                     ("fine", "predict_fine"), ("fine.cap", "fine"), ("fine.mid", "fine"),
                     ("fine.fine", "fine")]
     assert {s["call"] for s in spans} == {spans[0]["id"]}
@@ -166,9 +184,10 @@ def test_predict_fine_span_tree(p2p):
             assert parent["start_ns"] <= s["start_ns"] and s["end_ns"] <= parent["end_ns"]
 
 
-@pytest.mark.parametrize("path", ["predict_fine", "immatch"])
-def test_every_op_lies_inside_a_stage(p2p, ncnet, path):
-    run = {"predict_fine": lambda: _run_p2p(p2p), "immatch": lambda: _run_immatch(ncnet)}[path]
+@pytest.mark.parametrize("path", ["predict_fine", "immatch", "immatch_reloc"])
+def test_every_op_lies_inside_a_stage(p2p, ncnet, ncnet_reloc, path):
+    run = {"predict_fine": lambda: _run_p2p(p2p), "immatch": lambda: _run_immatch(ncnet),
+           "immatch_reloc": lambda: _run_immatch(ncnet_reloc)}[path]
     with profiling.tracing(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         run()
@@ -203,9 +222,40 @@ def test_immatch_span_tree(ncnet):
     by_id = {s["id"]: s for s in spans}
     tree = [(s["name"], by_id[s["parent"]]["name"] if s["parent"] is not None else None)
             for s in spans]
+    ncn = [("coarse.ncn.fold_in", "coarse.ncn"), ("coarse.ncn.fold_out", "coarse.ncn")] * 2
     assert tree == [("immatch", None), ("backbone", "immatch"), ("coarse", "immatch"),
-                    ("coarse.ncn", "coarse"), ("coarse.extract", None)]
-    assert [s["call"] for s in spans] == [spans[0]["id"]] * 4 + [spans[4]["id"]]
+                    ("coarse.corr", "coarse"), ("coarse.ncn", "coarse"), *ncn,
+                    ("coarse.extract", None)]
+    assert [s["call"] for s in spans] == [spans[0]["id"]] * 9 + [spans[9]["id"]]
+
+
+def test_relocalising_immatch_span_tree(ncnet_reloc):
+    with profiling.tracing():
+        _run_immatch(ncnet_reloc)
+    out = profiling.drain()
+    spans = out["spans"]
+    by_id = {s["id"]: s for s in spans}
+    tree = [(s["name"], by_id[s["parent"]]["name"] if s["parent"] is not None else None)
+            for s in spans]
+    ncn = [("coarse.ncn.fold_in", "coarse.ncn"), ("coarse.ncn.xla_taps", "coarse.ncn"),
+           ("coarse.ncn.fold_out", "coarse.ncn")] * 2
+    assert tree == [("immatch", None), ("backbone", "immatch"), ("coarse", "immatch"),
+                    ("coarse.corr", "coarse"), ("coarse.reloc", "coarse"),
+                    ("coarse.ncn", "coarse"), *ncn, ("coarse.extract", None)]
+    assert out["counters"] == {"conv4d.fold_in": 2, "conv4d.xla_taps": 2}
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_xla_taps_counts_each_direction(symmetric):
+    """A (16, 16, 1) NCN call runs its 16 -> 16 layer once a direction."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        ncn = NeighConsensus((3, 3, 3), (16, 16, 1), symmetric_mode=symmetric, device="cpu")
+        corr = torch.rand(1, 3, 4, 3, 4)
+    with profiling.tracing(), torch.no_grad():
+        ncn(corr)
+    counters = profiling.drain()["counters"]
+    assert counters["conv4d.xla_taps"] == (2 if symmetric else 1)
 
 
 @pytest.mark.parametrize("group", [False, True], ids=["alone", "group"])
