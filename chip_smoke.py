@@ -7,7 +7,7 @@
 
 Phases, each fatal on failure:
 
-  1. print the card's name and power limit, build the five CUDA sources
+  1. print the card's name and power limit, build the six CUDA sources
      (one ``nvcc`` per source, in parallel) and print the build time,
      conv4d's (the slowest source) apart;
   2. for each kernel (B1 tap_sum, B2 corr_pool, B3 expand_scale_pair, B4
@@ -37,7 +37,12 @@ Phases, each fatal on failure:
      NCN's bf16 first layer) at 1 -> 16 on the change_stride volume and
      1 -> 10 on ImMatchNet's, held to its plain version (one bf16 ulp +
      1e-5), its device ms beside its bytes bound and the fold-in's ms
-     on the same inputs, its registers, shared memory and spills;
+     on the same inputs, its registers, shared memory and spills; B4's
+     C -> C kernel (the NCN's bf16 middle layer) at 16 -> 16 on NCNet
+     InLoc's volume (1, 75, 100, 75, 100) and 10 -> 10 on ImMatchNet's,
+     held the same way with both directions' filters, its device ms
+     beside its bound, the plain version's ms and, as the yardstick, the
+     nine-conv loop it replaces, its registers, shared memory and spills;
      B5's float32 kernel (3xTF32 on ``wgmma``)
      prints its two launches' device ms, its share of the 3xTF32 bound
      and of the f32 SIMT bound, its registers, spills and shared memory
@@ -127,7 +132,8 @@ Phases, each fatal on failure:
      images, 1024x768, B = 1, bf16: forward + ``corr_to_matches`` timed
      (latency, pairs/s, peak memory, the profiler's table and busy share),
      B1 twice a call and its first call held as in phase 2, B4's Cin-1
-     kernel twice a call (the NCN's first layer); relocalisation
+     kernel twice a call (the NCN's first layer), its C -> C kernel twice
+     (the 10 -> 10 middle layer); relocalisation
      k = 2 (``maxpool4d``, both extractions, grids in the pre-pool grid);
      then float32 against ``tests/fixtures/immatch_golden_vgg_1024.npz``;
   12. the NCNet-only coarse matcher with ResNet101 (``Patch2Pix``,
@@ -360,6 +366,8 @@ from patch2pix_tpu_torch.models.regressor import FeatRegressNet
 from patch2pix_tpu_torch.ops import _build
 from patch2pix_tpu_torch.ops import fine_stage as fine_stage_module
 from patch2pix_tpu_torch.ops import patch_gather as patch_gather_module
+from patch2pix_tpu_torch.ops.conv4d_mid import _SIGNATURES as CONV4D_MID_SIGNATURES
+from patch2pix_tpu_torch.ops.conv4d_mid import conv4d_mid
 from patch2pix_tpu_torch.ops.conv4d_small import _SIGNATURES as CONV4D_SIGNATURES
 from patch2pix_tpu_torch.ops.conv4d_small import (
     banded_filter,
@@ -485,7 +493,8 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
 PORT_KERNEL_NAMES = ("tap_sum_kernel", "corr_pool_bf16_kernel", "corr_pool_stream_kernel",
                      "corr_pool_f32_kernel",
                      "expand_kernel", "expand_level_kernel", "conv4d_small_tf32_kernel",
-                     "conv4d_small_mma_kernel", "conv4d_cin1_kernel", "fine_head_bf16_kernel",
+                     "conv4d_small_mma_kernel", "conv4d_cin1_kernel", "conv4d_mid_kernel",
+                     "fine_head_bf16_kernel",
                      "fine_head_tf32x3_kernel")
 
 # phase 1's ptxas reports, {source: text}, for the kernels built in this run
@@ -1043,6 +1052,64 @@ def check_conv4d_cin1(gen, dev):
             f"by device ms; plain_ms {plain_ms:.4f}; the fold-in it replaces {fold_ms:.4f} ms; "
             f"{regs} registers a "
             f"thread, {smem} B shared memory a block, {local} B local, {spills}")
+
+
+def check_conv4d_mid(gen, dev):
+    """B4's C -> C kernel, the NCN's bf16 middle layer, at the cells'
+    volumes: 16 -> 16 on (1, 75, 100, 75, 100) (NCNet InLoc at 3200x2400)
+    and 10 -> 10 on (1, 48, 64, 48, 64) (ImMatchNet at 1024x768), bf16 in
+    and out, channels-last, both symmetric directions' filters. Held
+    against its plain version (one bf16 ulp + 1e-5); device ms by the
+    profiler beside its bound (operations at the bf16 peak or the input
+    read once and the output written once, the larger); the plain
+    version's ms; the nine-conv loop's ms on the same inputs (the route
+    it replaces, which the port no longer calls for these layers on the
+    card: the yardstick); registers, shared memory and spills."""
+    lib = _build.library("conv4d_mid", CONV4D_MID_SIGNATURES)
+    bf16 = torch.bfloat16
+    for dims, c in (((1, 75, 100, 75, 100), 16), ((1, H // 16, W // 16, H // 16, W // 16), 10)):
+        # the NCN's middle input is a ReLU's output
+        x = torch.rand(dims + (c,), generator=gen, device=dev).to(bf16)
+        w = torch.randn((3, 3, 3, 3, c, c), generator=gen, device=dev) / (81 * c) ** 0.5
+        b = torch.randn((c,), generator=gen, device=dev) * 0.1
+        worst = 0.0
+        for wt in (w, w.permute(2, 3, 0, 1, 4, 5)):
+            want = conv4d_small_plain(x, wt, b, bf16)
+            n0 = conv4d_mid.launches
+            got = conv4d_mid(x, wt, b, bf16)
+            if conv4d_mid.launches != n0 + 1:
+                fail(f"conv4d_mid {c}->{c}: the kernel did not run")
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(got.float(), want.float(), atol=1e-5)
+            worst = max(worst, ulps.max().item())
+            if worst > 1:
+                fail(f"conv4d_mid {c}->{c}: {int((ulps > 1).sum())} values beyond one bf16 ulp "
+                     f"+ 1e-5")
+            del got
+        ms = time_ms(lambda: conv4d_mid(x, w, b, bf16), iters=10)
+        dev_ms = sum(v for k, v in device_ms(lambda: conv4d_mid(x, w, b, bf16)).items()
+                     if "conv4d_mid_kernel" in k)
+        plain_ms = time_ms(lambda: conv4d_small_plain(x, w, b, bf16), iters=1, warmup=1)
+        wb = w.to(bf16)
+        loop_ms = time_ms(lambda: conv4d_module.conv4d_xla_taps(x, wb, b, bf16), iters=3,
+                          warmup=1)
+        b_ms, b_by = bound(nbytes(x, want), 2 * x.numel() * 81 * c, bf16)
+        vals = [ctypes.c_int() for _ in range(3)]
+        _build.check_launch(lib.p2p_conv4d_mid_attrs(c, 1, *(ctypes.addressof(v)
+                                                             for v in vals)),
+                            "conv4d_mid attributes")
+        regs, smem, local = (v.value for v in vals)
+        ptx = ptxas_entry(PTXAS.get("conv4d_mid", ""), f"conv4d_mid_kernelILi{c}E13__nv_bfloat16")
+        spills = ("spills not in this run's build" if ptx is None
+                  else f"spill stores {ptx[1]} B, spill loads {ptx[2]} B")
+        log(f"kernel conv4d_mid [bfloat16] x {tuple(x.shape)} -> {c} channels bf16, "
+            f"channels-last: max ulps {worst:.2f}; ms {ms:.4f} (device {dev_ms:.4f}) bound_ms "
+            f"{b_ms:.4f} ({b_by}), {100 * b_ms / dev_ms:.1f}% of it by device ms; plain_ms "
+            f"{plain_ms:.4f}; yardstick, the nine-conv loop it replaces {loop_ms:.4f} ms; "
+            f"{regs} registers a thread, {smem} B dynamic shared memory a block, {local} B "
+            f"local, {spills}")
+        del x, want
+        torch.cuda.empty_cache()
 
 
 def expand_level_attrs(elsize):
@@ -2331,6 +2398,7 @@ def immatch_path(dev):
         call()
     torch.cuda.synchronize()
     reset_counts()
+    mid0 = conv4d_mid.launches
     with capture_inputs(((conv4d_module, "tap_sum"),), keep=1) as captured:
         grid, scores, mutual = call()
         torch.cuda.synchronize()
@@ -2339,6 +2407,9 @@ def immatch_path(dev):
     if launches != expect or conv4d_small.cin1_launches != 2:
         fail(f"immatch: launches per call {launches} ({conv4d_small.cin1_launches} of B4's "
              f"on its Cin-1 kernel), expected {expect}, both B4 launches the NCN's first layer")
+    if conv4d_mid.launches != mid0 + 2:
+        fail(f"immatch: {conv4d_mid.launches - mid0} launches of B4's C -> C kernel a call, "
+             f"expected 2 (the NCN's 10 -> 10 layer, both directions)")
     n = 2 * h1 * w1
     if (grid.shape != (b, n, 4) or not in_grid(grid, h1, w1) or not torch.isfinite(scores).all()
             or (scores < 0).any() or (scores > 1).any()):
@@ -4285,6 +4356,7 @@ def main(argv=None):
             torch.cuda.empty_cache()
     check_conv4d_cin1(gen, dev)
     torch.cuda.empty_cache()
+    check_conv4d_mid(gen, dev)
 
     # phase 3: golden parity, f32, TF32 off
     reset_counts()

@@ -23,7 +23,7 @@ from patch2pix_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("tap_sum", "corr_pool", "patch_expand", "conv4d", "fine_head")
+KERNELS = ("tap_sum", "corr_pool", "patch_expand", "conv4d", "conv4d_mid", "fine_head")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

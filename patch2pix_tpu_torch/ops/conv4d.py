@@ -15,14 +15,17 @@ Cin for tiny Cin (:func:`conv4d_fold_in`), into Cout for tiny Cout
 layers with cin*cout <= 16 go to the direct kernel B4
 (:mod:`.conv4d_small`); the rest accumulate one 2D conv per outer tap
 (:func:`conv4d_xla_taps`). That is the JAX package's dispatch order, and
-the port's everywhere but in one case: on the card, a bfloat16 k=3 layer
-with Cin 1 and a Cout B4 is built for (the NCN's first layer), where no
-gradient is wanted, runs on B4's Cin-1 kernel instead of the fold-in
-(:func:`conv4d_route`). The 2D convs run in PyTorch's NCHW layout on the
-flat ``(B*h1*w1, C, h2, w2)`` view: for the NCN's 1- and 16-channel
-volumes this is the layout cuDNN gives naturally, and the 6D
-channels-last tensors the functions return are permuted views of it,
-never copies.
+the port's everywhere but on the card in bfloat16 where no gradient is
+wanted (:func:`conv4d_route`): there a k=3 layer with Cin 1 and a Cout
+B4 is built for (the NCN's first layer) runs on B4's Cin-1 kernel
+instead of the fold-in, and one with Cin = Cout in
+:data:`.conv4d_mid.MID_CHANNELS` (the NCN's middle layer) on B4's C -> C
+kernel (:mod:`.conv4d_mid`) instead of the per-tap convs, still through
+:func:`conv4d_xla_taps`, the per-tap layer's one entry. The 2D convs run
+in PyTorch's NCHW layout on the flat ``(B*h1*w1, C, h2, w2)`` view: for
+the NCN's 1- and 16-channel volumes this is the layout cuDNN gives
+naturally, and the 6D channels-last tensors the functions return are
+permuted views of it, never copies.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from patch2pix_tpu_torch.ops.conv4d_mid import MID_CHANNELS, conv4d_mid
 from patch2pix_tpu_torch.ops.conv4d_small import CIN1_COUTS, conv4d_small
 from patch2pix_tpu_torch.ops.tap_sum import flat_shift_masks, tap_sum
 from patch2pix_tpu_torch.utils import profiling
@@ -39,17 +43,21 @@ K_FOLD = 3  # kernel size of the fold and small-channel formulations
 
 def conv4d_route(k: int, cin: int, cout: int, device_type: str,
                  dtype: torch.dtype = torch.float32, needs_grad: bool = False) -> str:
-    """The formulation :func:`conv4d` takes: ``first_layer_kernel`` (B4's
-    Cin-1 kernel) for a bfloat16 CUDA input with Cin 1 and a Cout in
-    :data:`.conv4d_small.CIN1_COUTS` whose conv needs no gradient; else,
-    in the JAX package's dispatch order
-    (``patch2pix_tpu/ops/conv4d.py:80-90``), ``fold_in``, ``fold_out``,
-    ``small_kernel`` (B4 on a CUDA tensor), ``small_plain`` (its plain
-    version on a CPU tensor) or ``xla_taps``. A gradient keeps the
-    fold-in, whose backward is cuDNN's."""
-    if (k == K_FOLD and cin == 1 and cout in CIN1_COUTS and device_type == "cuda"
-            and dtype == torch.bfloat16 and not needs_grad):
+    """The formulation :func:`conv4d` takes. For a bfloat16 CUDA input
+    whose k=3 conv needs no gradient: ``first_layer_kernel`` (B4's Cin-1
+    kernel) with Cin 1 and a Cout in :data:`.conv4d_small.CIN1_COUTS`,
+    ``mid_layer_kernel`` (B4's C -> C kernel) with Cin = Cout in
+    :data:`.conv4d_mid.MID_CHANNELS`. Else, in the JAX package's dispatch
+    order (``patch2pix_tpu/ops/conv4d.py:80-90``), ``fold_in``,
+    ``fold_out``, ``small_kernel`` (B4 on a CUDA tensor), ``small_plain``
+    (its plain version on a CPU tensor) or ``xla_taps``. A gradient keeps
+    the fold-in and the per-tap convs, whose backwards are cuDNN's."""
+    card_bf16 = (k == K_FOLD and device_type == "cuda" and dtype == torch.bfloat16
+                 and not needs_grad)
+    if card_bf16 and cin == 1 and cout in CIN1_COUTS:
         return "first_layer_kernel"
+    if card_bf16 and cin == cout and cin in MID_CHANNELS:
+        return "mid_layer_kernel"
     if k == K_FOLD and cin <= 2:
         return "fold_in"
     if k == K_FOLD and cout <= 2:
@@ -77,8 +85,8 @@ def conv4d(x, w, b=None, out_dtype=None, route=None):
         return conv4d_fold_out(x, w, b, out_dtype)
     if route in ("first_layer_kernel", "small_kernel", "small_plain"):
         return conv4d_small(x, w, b, out_dtype)
-    out = conv4d_xla_taps(x, w, b)
-    return out if out_dtype is None else out.to(out_dtype)
+    # looked up at call time: the per-tap layer's one entry, by name
+    return conv4d_xla_taps(x, w, b, out_dtype=out_dtype, route=route)
 
 
 def _flat_nchw(x):
@@ -148,9 +156,18 @@ def conv4d_fold_out(x, w, b=None, out_dtype=None):
     return _from_flat_nchw(out, bs, h1, w1)
 
 
-def conv4d_xla_taps(x, w, b=None):
-    """One 2D conv over (h2, w2) per outer (di, dj) tap, accumulated in
-    float32 — the general path (never materialises the shifted stack)."""
+def conv4d_xla_taps(x, w, b=None, out_dtype=None, route="xla_taps"):
+    """The per-tap layer's one entry: every :func:`conv4d` call routed
+    ``mid_layer_kernel`` or ``xla_taps`` comes through here, by this name.
+    ``mid_layer_kernel`` launches B4's C -> C kernel
+    (:func:`.conv4d_mid.conv4d_mid`: all 81 taps in one pass, float32
+    sums, one rounding to ``out_dtype``). Any other route runs the JAX
+    package's per-tap path: one 2D conv over (h2, w2) per outer (di, dj)
+    tap on a padded copy of x, each rounded to x's dtype and accumulated
+    in float32 (never materialising the shifted stack), then the bias;
+    the output float32 unless ``out_dtype`` is given."""
+    if route == "mid_layer_kernel":
+        return conv4d_mid(x, w, b, out_dtype)
     profiling.count("conv4d.xla_taps", 1)
     k = w.shape[0]
     pad = k // 2
@@ -166,6 +183,8 @@ def conv4d_xla_taps(x, w, b=None):
             out = y if out is None else out + y
     if b is not None:
         out = out + b.float()[None, :, None, None]
+    if out_dtype is not None:
+        out = out.to(out_dtype)
     return _from_flat_nchw(out, bs, h1, w1)
 
 

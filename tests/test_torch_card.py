@@ -27,7 +27,12 @@ through the kernel against the CPU's to rtol 1e-5 / atol 1e-4; its Cin-1
 kernel (the NCN's bf16 first layer, Cout 4, 10 and 16, both stagings, the
 transposed branch's filter) by the same rules and against the fold-in it
 replaces, a bf16 NCN (16, 1) and (10, 10, 1) against the fold-in route,
-and the first layer's counters under ``tracing()``;
+and the first layer's counters under ``tracing()``; its C -> C kernel
+(the NCN's bf16 middle layer, C 10 and 16, bands that cross row groups,
+strips, w1 and w2 of 1, both filter directions) by the same rules, a
+bf16 NCN (10, 10, 1) and (16, 16, 1) against the per-tap loop, and an
+ImMatchNet call's counters (two kernel launches in bf16, two loops in
+float32 or with a gradient);
 expand_level bit-identical (C from 1 to 256, M from 1 to 2400, every
 tile side, rows off a 16-byte boundary); fused_fine_head float32 (3xTF32
 products) rtol/atol 2e-4, bf16 within two bf16 ulps + 1e-3 (a float32 sum rounded either way of a
@@ -442,6 +447,140 @@ def test_ncn_first_layer_counters(cuda, case, channels, kernels, fold_ins):
     counters = profiling.drain()["counters"]
     assert counters.get("conv4d.first_layer_kernel", 0) == kernels
     assert counters.get("conv4d.fold_in", 0) == fold_ins
+
+
+@pytest.mark.parametrize("dims,with_bias", [
+    # one band crossing row groups at w2 37 (3 groups, 111 base positions), a
+    # strip of 5 cells
+    ((2, 3, 5, 11, 37), True),
+    ((1, 1, 6, 9, 24), False),   # h1 = 1: only the middle row of outer taps
+    ((2, 4, 1, 17, 1), True),    # w1 = 1 and w2 = 1: both l edges at every position
+    # w1 = 23: two strips of 12 and 11 cells; h2 = 35 (the last group one row),
+    # w2 = 68: 612 base positions, four bands, the last partial
+    ((1, 3, 23, 35, 68), False),
+    ((1, 2, 3, 13, 100), True),  # r101's w2: bands cross groups at odd columns
+], ids=["ragged", "h1_1", "w_1", "strips", "w2_100"])
+@pytest.mark.parametrize("odtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("c", [10, 16])
+def test_conv4d_mid_matches_plain(cuda, c, odtype, dims, with_bias):
+    """B4's C -> C kernel (the NCN's bf16 middle layer) against its plain
+    version by B4's rules (float32 atol 1e-4, bf16 within one bf16 ulp +
+    1e-5), the filter as given and as the transposed branch permutes it,
+    one launch a call, the output channels-last; and through ``conv4d``
+    on the ``mid_layer_kernel`` route, which writes float32 without
+    ``out_dtype``."""
+    from patch2pix_tpu_torch.ops.conv4d import conv4d, route_of
+    from patch2pix_tpu_torch.ops.conv4d_mid import conv4d_mid
+
+    rs = _rs(11)
+    x = torch.from_numpy(rs.standard_normal(dims + (c,)).astype(np.float32)).to(cuda)
+    x = x.bfloat16()
+    w = torch.from_numpy((rs.standard_normal((3, 3, 3, 3, c, c)) / (81 * c) ** 0.5)
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rs.standard_normal(c) * 0.1).astype(np.float32)).to(cuda)
+    b = b if with_bias else None
+    for wt in (w, w.permute(2, 3, 0, 1, 4, 5)):
+        n0 = conv4d_mid.launches
+        got = conv4d_mid(x, wt, b, odtype)
+        assert conv4d_mid.launches == n0 + 1
+        want = conv4d_small_plain(x, wt, b, odtype)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.is_contiguous()  # channels-last
+        if odtype is None:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        else:
+            assert bf16_ulps(got.float(), want.float(), atol=1e-5).max() <= 1
+        wb = wt.to(torch.bfloat16)
+        assert route_of(x, wb, b) == "mid_layer_kernel"
+        with torch.no_grad():
+            via = conv4d(x, wb, b, out_dtype=odtype)
+        assert conv4d_mid.launches == n0 + 2
+        assert torch.equal(via, conv4d_mid(x, wb, b, odtype))
+
+
+def test_conv4d_mid_rejects_bad_inputs(cuda):
+    """Float32 input, a channel count it is not built for, a non-square
+    filter, and inputs that require grad under grad mode raise before a
+    launch."""
+    from patch2pix_tpu_torch.ops.conv4d_mid import conv4d_mid
+
+    x = torch.zeros((1, 2, 3, 4, 5, 16), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 3, 3, 16, 16), device=cuda)
+    n0 = conv4d_mid.launches
+    with pytest.raises(TypeError):
+        conv4d_mid(x.float(), w)
+    with pytest.raises(ValueError):
+        conv4d_mid(x[..., :12], w[..., :12, :12])
+    with pytest.raises(ValueError):
+        conv4d_mid(x, w[..., :10])
+    with pytest.raises(RuntimeError):
+        conv4d_mid(x, w.requires_grad_())
+    assert conv4d_mid.launches == n0
+
+
+@pytest.mark.parametrize("channels", [(10, 10, 1), (16, 16, 1)], ids=["immatch", "inloc"])
+def test_ncn_mid_layer_kernel_matches_loop(cuda, channels, monkeypatch):
+    """A bf16 symmetric NeighConsensus whose middle layer runs on B4's
+    C -> C kernel (twice a call) against the same module with that layer
+    forced to the per-tap loop; phase 5's rule: max abs err within 2^-4
+    of max |ref|, at most 1e-4 of the values off by more than 2^-7 of it
+    (the kernel rounds the layer once, the loop each tap's sum too)."""
+    import importlib
+
+    from patch2pix_tpu_torch.models.ncn import NeighConsensus
+    from patch2pix_tpu_torch.ops.conv4d_mid import conv4d_mid
+
+    conv4d_module = importlib.import_module("patch2pix_tpu_torch.ops.conv4d")
+    torch.manual_seed(0)
+    ncn = NeighConsensus(kernel_sizes=(3, 3, 3), channels=channels, dtype=torch.bfloat16,
+                         device=cuda)
+    corr = torch.from_numpy(_rs(8).uniform(-1, 1, (1, 6, 9, 7, 16)).astype(np.float32))
+    corr = corr.to(cuda)
+    n0 = conv4d_mid.launches
+    with torch.no_grad():
+        got = ncn(corr)
+    assert conv4d_mid.launches == n0 + 2
+    route = conv4d_module.conv4d_route
+
+    def loop(*a):
+        r = route(*a)
+        return "xla_taps" if r == "mid_layer_kernel" else r
+
+    monkeypatch.setattr(conv4d_module, "conv4d_route", loop)
+    with torch.no_grad():
+        want = ncn(corr)
+    assert conv4d_mid.launches == n0 + 2
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    assert diff.max().item() <= 2 ** -4 * scale
+    assert (diff > 2 ** -7 * scale).sum().item() <= 1e-4 * diff.numel()
+
+
+@pytest.mark.parametrize("case,kernels,loops", [
+    ("bf16", 2, 0), ("float32", 0, 2), ("grad", 0, 2)])
+@pytest.mark.parametrize("backbone", ["vgg", "resnet101"])
+def test_immatch_mid_layer_counters(cuda, backbone, case, kernels, loops):
+    """Under ``tracing()`` an ImMatchNet call (NCN (3, 3, 3)/(10, 10, 1),
+    and the InLoc model's (16, 16, 1) on ResNet101 with relocalisation 2)
+    counts its middle layer: two launches of B4's C -> C kernel and no
+    per-tap loop in bf16 with no gradient; two loops in float32, and in
+    bf16 where the NCN's weights want gradients."""
+    from patch2pix_tpu_torch.ops.conv4d_mid import conv4d_mid
+    from patch2pix_tpu_torch.utils import profiling
+
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    kw = ({} if backbone == "vgg" else
+          dict(ncons_channels=(16, 16, 1), relocalization_k_size=2))
+    model = ImMatchNet(backbone, dtype=dtype, device=cuda, **kw)
+    ims = [torch.rand((1, 128, 160, 3), device=cuda) for _ in range(2)]
+    n0 = conv4d_mid.launches
+    profiling.drain()
+    with torch.set_grad_enabled(case == "grad"), profiling.tracing():
+        model(*ims)
+    counters = profiling.drain()["counters"]
+    assert counters.get("conv4d.mid_layer_kernel", 0) == kernels
+    assert counters.get("conv4d.xla_taps", 0) == loops
+    assert conv4d_mid.launches == n0 + kernels
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,7 +7,8 @@ rows, as the kernel multiplies it, is held to both in float32 to 1e-5,
 and its B fragments (``mma_fragments``) to the m16n8k16 register layout
 bit for bit; so is the Cin-1 kernel's, whose K holds the two rows of a
 column as one pair. The dispatcher's route (the Cin-1 kernel for a bf16
-first layer on the card without a gradient, else the JAX order) and the
+first layer on the card without a gradient, the C -> C kernel for a
+bf16 10 -> 10 or 16 -> 16 layer there, else the JAX order) and the
 staging modes are held here too. The float32 kernel's unpaired band, multiplied out as
 three TF32 products a product (``tf32_split``'s parts, lo read as the
 tensor cores read it) and summed per outer tap in float32, is held to
@@ -127,20 +128,28 @@ def test_transpose_symmetric_matches_jax():
     # the NCN's first layers (ImMatchNet's, the (4, 4, 1) NCN's), and Couts
     # after one channel that B4's Cin-1 kernel is not built for
     (1, 10, "fold_in"), (1, 4, "fold_in"), (1, 8, "fold_in"), (1, 1, "fold_in"),
+    # the NCN's middle layers (ImMatchNet's, NCNet InLoc's), and C -> C
+    # layers B4's C -> C kernel is not built for
+    (10, 10, "xla_taps"), (16, 10, "xla_taps"), (12, 12, "xla_taps"),
 ])
 def test_dispatch_route(cin, cout, route):
     """The JAX dispatch order: fold-in, fold-out, then B4 (the kernel on
     a CUDA tensor, its plain version on a CPU tensor), else per-tap; the
     route in float32 on either device, on the CPU in bf16, and wherever
-    a gradient is wanted. One exception: a bf16 first layer (Cin 1, Cout
-    4, 10 or 16) on the card needing no gradient takes B4's Cin-1
-    kernel instead of the fold-in."""
+    a gradient is wanted. Two exceptions in bf16 on the card where no
+    gradient is wanted: a first layer (Cin 1, Cout 4, 10 or 16) takes
+    B4's Cin-1 kernel instead of the fold-in, a middle layer (Cin = Cout,
+    10 or 16) B4's C -> C kernel instead of the per-tap convs."""
     first_layer = cin == 1 and cout in (4, 10, 16)
+    mid_layer = cin == cout and cin in (10, 16)
     for dev in ("cuda", "cpu"):
         for dtype in (torch.float32, torch.bfloat16):
             for grad in (False, True):
-                if first_layer and (dev, dtype, grad) == ("cuda", torch.bfloat16, False):
+                card_bf16 = (dev, dtype, grad) == ("cuda", torch.bfloat16, False)
+                if first_layer and card_bf16:
                     want = "first_layer_kernel"
+                elif mid_layer and card_bf16:
+                    want = "mid_layer_kernel"
                 elif route == "small":
                     want = "small_kernel" if dev == "cuda" else "small_plain"
                 else:

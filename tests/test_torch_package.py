@@ -140,8 +140,8 @@ def _c_prototypes():
     return out
 
 
-SIGNATURE_MODULES = ("tap_sum", "corr_pool", "patch_expand", "conv4d_small", "fine_stage",
-                     "native")
+SIGNATURE_MODULES = ("tap_sum", "corr_pool", "patch_expand", "conv4d_small", "conv4d_mid",
+                     "fine_stage", "native")
 
 
 def _signature_module(name):
